@@ -1,0 +1,179 @@
+"""The port's attention against the JAX package: the plain version against
+``_einsum_attention`` and against the Pallas kernel body ``_mha_fwd_kernel``
+run in interpret mode, the dispatch, the wrapper's checks, and (on a card)
+the CUDA kernel against the plain version.
+
+Tolerances: float32 atol 1e-5 (same math, sums in another order); bf16
+inputs relative L2 < 1e-2 (the probabilities and the output round to bf16,
+one bf16 ulp is 2^-8 relative, and a rounding may land either side).
+"""
+
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from theia_tpu.ops import attention as jattn
+from theia_tpu_torch.ops import attention as tattn
+
+H, HD = 3, 64
+TOKENS = (196, 197, 204)  # nocls, cls, reg (7 registers)
+
+
+def _qkv(t, b=2, h=H, hd=HD, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, t, h, hd), dtype=np.float32) for _ in range(3)]
+
+
+def _pack(x):  # [B,T,H,hd] -> [B*H,T,hd], the Pallas kernel's layout
+    b, t, h, hd = x.shape
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(b * h, t, hd))
+
+
+def _unpack(x, b):  # [B*H,T,hd] -> [B,T,H,hd]
+    bh, t, hd = x.shape
+    return x.reshape(b, bh // b, t, hd).transpose(0, 2, 1, 3)
+
+
+def _pallas_kernel_interpret(q, k, v):
+    """The TPU kernel body on the CPU: one grid cell per (batch*head)."""
+    bh, t, hd = q.shape
+    spec = pl.BlockSpec((1, t, hd), lambda i: (i, 0, 0))
+    return pl.pallas_call(
+        functools.partial(jattn._mha_fwd_kernel, scale=1.0 / math.sqrt(hd)),
+        grid=(bh,),
+        in_specs=[spec] * 3,
+        out_specs=spec,
+        out_shape=jax.ShapeDtypeStruct(q.shape, q.dtype),
+        interpret=True,
+    )(q, k, v)
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def _bf16(x):
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("t", TOKENS)
+def test_plain_matches_jax_einsum_f32(t):
+    q, k, v = _qkv(t)
+    want = np.asarray(jattn._einsum_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.float32))
+    got = tattn.multi_head_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), implementation="einsum"
+    )
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t", TOKENS)
+def test_plain_matches_pallas_kernel_f32(t):
+    q, k, v = _qkv(t, seed=1)
+    packed = (jnp.asarray(_pack(x)) for x in (q, k, v))
+    want = _unpack(np.asarray(_pallas_kernel_interpret(*packed)), b=2)
+    got = tattn.mha_fwd(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t", TOKENS)
+def test_plain_matches_both_references_bf16(t):
+    q, k, v = _qkv(t, seed=2)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    tq, tk, tv = (_bf16(x) for x in (q, k, v))
+    got = tattn.multi_head_attention(tq, tk, tv, implementation="einsum")
+    assert got.dtype == torch.bfloat16
+    want = jattn._einsum_attention(jq, jk, jv, jnp.bfloat16)
+    assert _rel_l2(got.float().numpy(), np.asarray(want, np.float32)) < 1e-2
+
+    packed = [jnp.asarray(_pack(x), jnp.bfloat16) for x in (q, k, v)]
+    want_kernel = _unpack(np.asarray(_pallas_kernel_interpret(*packed), np.float32), b=2)
+    got_kernel_path = tattn.mha_fwd(tq, tk, tv)
+    assert _rel_l2(got_kernel_path.float().numpy(), want_kernel) < 1e-2
+
+
+def test_dispatch_on_cpu_tensors():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(197, seed=3))
+    before = tattn.MHA_FWD_LAUNCHES
+    pallas = tattn.multi_head_attention(q, k, v, implementation="pallas")
+    einsum = tattn.multi_head_attention(q, k, v, implementation="einsum")
+    assert pallas.shape == q.shape
+    torch.testing.assert_close(pallas, einsum, atol=1e-6, rtol=0)
+    assert tattn.MHA_FWD_LAUNCHES == before  # CPU tensors never reach the kernel
+    with pytest.raises(NotImplementedError, match="K7"):
+        tattn.multi_head_attention(q, k, v, implementation="flash")
+    with pytest.raises(ValueError, match="unknown attention"):
+        tattn.multi_head_attention(q, k, v, implementation="xla")
+
+
+@pytest.mark.parametrize(
+    "shape, dtype, err",
+    [
+        ((2, 197, 3, 64), torch.float16, TypeError),
+        ((2, 300, 3, 64), torch.float32, ValueError),
+        ((2, 197, 3, 60), torch.float32, ValueError),
+        ((2, 197, 3, 40), torch.bfloat16, ValueError),
+        ((2, 197, 3, 256), torch.float32, ValueError),
+        ((6, 197, 64), torch.float32, ValueError),
+    ],
+)
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(shape, dtype, err):
+    q = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(err):
+        tattn._check_kernel_inputs(q, q, q)
+
+
+@pytest.mark.parametrize("b, t", [(1, 197), (2, 197), (2, 1), (1, 1)])
+def test_kernel_takes_views_into_the_packed_projection(b, t):
+    """The encoder hands the kernel q, k, v as views of its packed QKV
+    projection [B, T, 3*H*hd]; those must pass the checks without a copy,
+    whatever stride torch gives a dimension of size 1."""
+    qkv = torch.randn(b, t, 3 * H * HD)
+    q, k, v = (y.view(b, t, H, HD) for y in qkv.split(H * HD, dim=-1))
+    tattn._check_kernel_inputs(q, k, v)
+    tattn._check_kernel_inputs(*(torch.randn(b, t, H, HD) for _ in range(3)))
+    assert tattn._outer_strides(q) == (t * 3 * H * HD if b > 1 else 0, 3 * H * HD if t > 1 else 0)
+
+
+def test_kernel_wrapper_rejects_strided_inputs():
+    q = torch.zeros(2, H, 197, HD).transpose(1, 2)  # heads not hd apart
+    with pytest.raises(ValueError, match="strides"):
+        tattn._check_kernel_inputs(q, q, q)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", (197, 204))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_cuda_kernel_matches_plain(cuda, t, dtype):
+    qkv = torch.randn(4, t, 3 * 12 * HD, generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
+    q, k, v = (y.view(4, t, 12, HD) for y in qkv.split(12 * HD, dim=-1))
+    before = tattn.MHA_FWD_LAUNCHES
+    got = tattn.mha_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.MHA_FWD_LAUNCHES == before + 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, tattn.mha_fwd_plain(q, k, v), atol=2e-5, rtol=0)
+    else:
+        want = tattn.mha_fwd_plain(q.float(), k.float(), v.float())
+        assert _rel_l2(got.float().cpu().numpy(), want.cpu().numpy()) < 1e-2
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_raises_past_its_shared_memory(cuda):
+    q = torch.zeros(2, 256, 1, 128, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tattn.mha_fwd(q, q, q)

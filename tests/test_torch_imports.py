@@ -1,0 +1,66 @@
+"""Framework boundary of the PyTorch port: importing it loads no JAX, Flax or
+Triton, and its copied tables equal the JAX package's."""
+
+import dataclasses
+import json
+import subprocess
+import sys
+
+import pytest
+
+from theia_tpu.foundation import common as jcommon
+from theia_tpu.models import hub as jhub
+from theia_tpu.models import vit as jvit
+from theia_tpu_torch.foundation import common as tcommon
+from theia_tpu_torch.models import hub as thub
+from theia_tpu_torch.models import vit as tvit
+
+SLICE_MODULES = [
+    "theia_tpu_torch",
+    "theia_tpu_torch.foundation.common",
+    "theia_tpu_torch.ops.image",
+    "theia_tpu_torch.ops.init",
+    "theia_tpu_torch.ops.attention",
+    "theia_tpu_torch.kernels.build",
+    "theia_tpu_torch.models.vit",
+    "theia_tpu_torch.models.utils",
+    "theia_tpu_torch.models.layers",
+    "theia_tpu_torch.models.adapter_heads",
+    "theia_tpu_torch.models.translators",
+    "theia_tpu_torch.models.rvfm",
+    "theia_tpu_torch.models.convert",
+    "theia_tpu_torch.models.hub",
+    "theia_tpu_torch.serving",
+]
+
+
+def test_port_imports_no_jax_flax_or_triton():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_copied_tables_equal_the_jax_package():
+    assert tcommon.MODELS == jcommon.MODELS
+    assert tcommon.MODEL_FEATURE_SIZES == jcommon.MODEL_FEATURE_SIZES
+    assert thub.TEACHER_SETS == jhub.TEACHER_SETS
+    assert set(tvit.BACKBONE_CONFIGS) == set(jvit.BACKBONE_CONFIGS)
+    for name, jcfg in jvit.BACKBONE_CONFIGS.items():
+        tcfg = tvit.BACKBONE_CONFIGS[name]
+        # every field but the attention default: the port's main path runs its kernel
+        assert dataclasses.replace(tcfg, attention_impl=jcfg.attention_impl) == tvit.ViTBackboneConfig(
+            **dataclasses.asdict(jcfg)
+        ), name
+        assert tcfg.attention_impl == "pallas"
+
+
+@pytest.mark.parametrize(
+    "name", ["theaiinstitute/theia-base-patch16-224-cddsv", "theia-tiny-patch16-224", "theia-small-patch16-224-cdis"]
+)
+def test_parse_model_name_matches_jax(name):
+    assert thub.parse_model_name(name) == jhub.parse_model_name(name)

@@ -1,0 +1,105 @@
+"""The port's Theia against the JAX package on the same parameters.
+
+``state_dict_from_jax`` must equal the JAX package's own reference-layout
+export key for key and bitwise, and load with ``strict=True``. Forward
+tolerance on uint8 images: atol 1e-3. It is looser than the backbone's 1e-4
+(tests/test_torch_vit.py) because a few preprocessing pixels may round one
+uint8 step apart in the two packages (float32 sums in another order at the
+.5 boundary of the PIL-emulating pass).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from theia_tpu.models import vit as jvit
+from theia_tpu.models.hf_convert import export_theia_checkpoint
+from theia_tpu.models.rvfm import Theia as JTheia
+from theia_tpu_torch.foundation.common import get_model_feature_size
+from theia_tpu_torch.models import vit as tvit
+from theia_tpu_torch.models.convert import state_dict_from_jax
+from theia_tpu_torch.models.hub import TEACHER_SETS
+from theia_tpu_torch.models.rvfm import Theia as TTheia
+
+TINY = "facebook/deit-tiny-patch16-224"
+REG = "reg-facebook/deit-tiny-patch16-224"
+CDDSV = {t: get_model_feature_size(t, keep_spatial=True) for t in TEACHER_SETS["cddsv"]}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_layer_backbones():
+    saved = [(configs, name, configs[name]) for configs in (jvit.BACKBONE_CONFIGS, tvit.BACKBONE_CONFIGS)
+             for name in (TINY, REG)]
+    for configs, name, cfg in saved:
+        configs[name] = dataclasses.replace(cfg, num_layers=2)
+    yield
+    for configs, name, cfg in saved:
+        configs[name] = cfg
+
+
+def _images(n, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+
+
+def _pair(backbone, sizes, variant):
+    jmodel = JTheia(backbone=backbone, translator="lconv", target_feature_sizes=sizes)
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 224, 224, 3), jnp.uint8))["params"]
+    tmodel = TTheia(backbone=backbone, translator="lconv", target_feature_sizes=sizes)
+    tmodel.load_state_dict(state_dict_from_jax(params, sizes, variant=variant), strict=True)
+    return jmodel, params, tmodel.eval()
+
+
+@pytest.fixture(scope="module")
+def cddsv_pair():
+    return _pair(TINY, CDDSV, "cls")
+
+
+@pytest.mark.parametrize("variant", ["cls", "reg"])
+def test_state_dict_equals_reference_export(variant, cddsv_pair):
+    if variant == "cls":
+        _, params, tmodel = cddsv_pair
+    else:
+        _, params, tmodel = _pair(REG, CDDSV, "reg")
+    want = export_theia_checkpoint(params, CDDSV, variant=variant)
+    got = state_dict_from_jax(params, CDDSV, variant=variant)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    assert set(tmodel.state_dict()) == set(want)
+
+
+def test_forward_feature_and_predict_match_jax(cddsv_pair):
+    jmodel, params, tmodel = cddsv_pair
+    imgs = _images(2)
+    want_feat = np.asarray(jmodel.apply({"params": params}, jnp.asarray(imgs), method=jmodel.forward_feature))
+    want = jmodel.apply({"params": params}, jnp.asarray(imgs))
+    with torch.no_grad():
+        got_feat = tmodel.forward_feature(torch.from_numpy(imgs)).numpy()
+        got = tmodel(torch.from_numpy(imgs))
+    assert got_feat.shape == want_feat.shape == (2, 196, 192)
+    np.testing.assert_allclose(got_feat, want_feat, atol=1e-3, rtol=0)
+    assert list(got) == list(CDDSV)
+    for t, (c, h, w) in CDDSV.items():
+        assert tuple(got[t].shape) == (2, h * w, c)
+        np.testing.assert_allclose(got[t].numpy(), np.asarray(want[t]), atol=1e-3, rtol=0, err_msg=t)
+
+
+def test_reg_variant_drops_register_tokens():
+    sizes = {"facebook/dinov2-large": CDDSV["facebook/dinov2-large"]}
+    jmodel, params, tmodel = _pair(REG, sizes, "reg")
+    assert tmodel.num_reg == 7
+    imgs = _images(2, seed=1)
+    want_feat = np.asarray(jmodel.apply({"params": params}, jnp.asarray(imgs), method=jmodel.forward_feature))
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(imgs))["facebook/dinov2-large"])
+    with torch.no_grad():
+        tokens = tmodel.backbone(torch.from_numpy(imgs))
+        got_feat = tmodel.forward_feature(torch.from_numpy(imgs)).numpy()
+        got = tmodel(torch.from_numpy(imgs))["facebook/dinov2-large"].numpy()
+    assert tokens.shape[1] == 1 + 196 + 7
+    assert got_feat.shape == want_feat.shape == (2, 196, 192)  # CLS and registers dropped
+    np.testing.assert_allclose(got_feat, want_feat, atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)

@@ -1,0 +1,121 @@
+"""The port's preprocessing and ViT backbone against the JAX package.
+
+Tolerances:
+  - resize matrices: bitwise (the same numpy code);
+  - ``preprocess_images``: equal, except that at most 0.01% of elements may
+    differ by exactly one uint8 step (1/127.5 after normalisation): float32
+    sums in another order flip ``round()`` at the .5 boundary of the
+    PIL-emulating pass;
+  - ``ViTBackbone`` on pre-normalised float input: atol 1e-4 (float32
+    through 2 blocks; LayerNorm variance as E[x²]−E[x]² in flax, Welford in
+    torch).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from theia_tpu.models import vit as jvit
+from theia_tpu.ops import image as jimage
+from theia_tpu_torch.models import vit as tvit
+from theia_tpu_torch.models.convert import state_dict_from_jax
+from theia_tpu_torch.ops import image as timage
+
+NAMES = {
+    "cls": "facebook/deit-tiny-patch16-224",
+    "nocls": "nocls-facebook/deit-tiny-patch16-224",
+    "reg": "reg-facebook/deit-tiny-patch16-224",
+}
+
+
+@pytest.mark.parametrize(
+    "args",
+    [
+        (224, 256, -0.5, None, True),
+        (480, 256, -0.5, None, True),  # downscale: antialiased support
+        (320, 256, -0.5, None, True),
+        (14, 16, -0.75, (16 + 0.1) / 14, False),  # pos-embed quirk
+        (14, 20, -0.75, None, False),
+    ],
+)
+def test_resize_matrices_bitwise(args):
+    np.testing.assert_array_equal(timage._resize_matrix(*args), jimage._resize_matrix(*args))
+
+
+def test_patch_embed_weight_layout():
+    """JAX's matmul patch kernel ((kh,kw,3) flattened, C) and the port's conv
+    weight (C,3,kh,kw) hold the same numbers."""
+    name = NAMES["cls"]
+    cfg = dataclasses.replace(jvit.BACKBONE_CONFIGS[name], num_layers=1)
+    params = jvit.ViTBackbone(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 224, 224, 3), jnp.uint8))["params"]
+    sd = state_dict_from_jax({"backbone_module": params}, {})
+    w = sd["backbone.model.embeddings.patch_embeddings.projection.weight"]
+    assert w.shape == (192, 3, 16, 16)
+    np.testing.assert_array_equal(w.permute(2, 3, 1, 0).reshape(-1, 192).numpy(), np.asarray(params["patch_kernel"]))
+
+
+def _assert_preprocess_close(got, want):
+    diff = np.abs(got - want)
+    flipped = diff > 1e-6
+    np.testing.assert_allclose(diff[flipped], 1 / 127.5, atol=1e-5)
+    assert flipped.mean() <= 1e-4, f"{flipped.sum()} of {flipped.size} elements flipped"
+
+
+@pytest.mark.parametrize("hw", [(224, 224), (240, 320)])
+def test_preprocess_images_matches_jax(hw):
+    imgs = np.random.default_rng(0).integers(0, 256, (2, *hw, 3), dtype=np.uint8)
+    want = np.asarray(jimage.preprocess_images(jnp.asarray(imgs)))
+    got = timage.preprocess_images(torch.from_numpy(imgs))
+    assert tuple(got.shape) == want.shape == (2, 224, 224, 3)
+    _assert_preprocess_close(got.numpy(), want)
+    # channels-first input gives the same result
+    got_nchw = timage.preprocess_images(torch.from_numpy(imgs.transpose(0, 3, 1, 2).copy()))
+    np.testing.assert_array_equal(got_nchw.numpy(), got.numpy())
+
+
+def _backbones(variant):
+    name = NAMES[variant]
+    cfg = dataclasses.replace(jvit.BACKBONE_CONFIGS[name], num_layers=2)
+    num_reg = 7 if variant == "reg" else 0
+    jmodel = jvit.ViTBackbone(cfg, variant=variant, num_reg_tokens=num_reg)
+    params = jmodel.init(jax.random.PRNGKey(1), jnp.zeros((1, 224, 224, 3), jnp.float32), False)["params"]
+    tcfg = dataclasses.replace(tvit.BACKBONE_CONFIGS[name], num_layers=2)
+    tmodel = tvit.ViTBackbone(tcfg, variant=variant, num_reg_tokens=num_reg)
+    sd = state_dict_from_jax({"backbone_module": params}, {}, variant=variant)
+    tmodel.load_state_dict({k.removeprefix("backbone."): v for k, v in sd.items()}, strict=True)
+    return jmodel, params, tmodel.eval()
+
+
+FLAGS = dict(do_resize=False, do_rescale=False, do_normalize=False)
+
+
+@pytest.mark.parametrize("variant", ["cls", "nocls", "reg"])
+def test_backbone_matches_jax(variant):
+    jmodel, params, tmodel = _backbones(variant)
+    x = np.random.default_rng(2).standard_normal((2, 224, 224, 3), dtype=np.float32)
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x), **FLAGS))
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(x), **FLAGS).numpy()
+    assert got.shape == want.shape == (2, {"cls": 197, "nocls": 196, "reg": 204}[variant], 192)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_backbone_interpolate_pos_encoding_matches_jax():
+    jmodel, params, tmodel = _backbones("cls")
+    x = np.random.default_rng(3).standard_normal((1, 240, 240, 3), dtype=np.float32)
+    want = np.asarray(
+        jmodel.apply({"params": params}, jnp.asarray(x), interpolate_pos_encoding=True, **FLAGS)
+    )
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(x), interpolate_pos_encoding=True, **FLAGS).numpy()
+    assert got.shape == want.shape == (1, 1 + 15 * 15, 192)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_fast_math_is_not_ported():
+    with pytest.raises(NotImplementedError, match="fast_math"):
+        tvit.build_backbone(NAMES["cls"], fast_math=True)

@@ -1,0 +1,271 @@
+"""ViT/DeiT student backbone (cls / nocls / reg variants) in PyTorch.
+
+Port of theia_tpu/models/vit.py:103-148,169-552 on the exact path: uint8
+preprocessing on the device, the patch embed, pre-LN blocks (eps 1e-12) with
+packed QKV, attention through ``ops.attention.multi_head_attention`` and
+exact-erf GELU, final LayerNorm.
+
+Parameter names follow HF ``ViTModel`` under ``model.`` (``model.embeddings.*``,
+``model.encoder.layer.{i}.attention.attention.query`` ...), which is the
+reference ``RobotVisionFM`` layout that ``state_dict_from_jax`` emits.
+
+Not ported yet (ROADMAP): ``fuse_preprocessing`` (``_fused_embed``), and
+``fast_math`` (bf16 scores, tanh GELU), which raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from theia_tpu_torch.ops.attention import multi_head_attention
+from theia_tpu_torch.ops.image import bicubic_resize, preprocess_images
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTBackboneConfig:
+    """Static config of a ViT/DeiT-style encoder (matches HF ViTConfig fields)."""
+
+    hidden_size: int = 384
+    num_layers: int = 12
+    num_heads: int = 6
+    intermediate_size: int = 1536
+    patch_size: int = 16
+    image_size: int = 224
+    layer_norm_eps: float = 1e-12
+    initializer_range: float = 0.02
+    qkv_bias: bool = True
+    # preprocessing (DeiT AutoProcessor defaults)
+    resize_size: int = 256
+    crop_size: int = 224
+    image_mean: tuple[float, float, float] = (0.5, 0.5, 0.5)
+    image_std: tuple[float, float, float] = (0.5, 0.5, 0.5)
+    # "pallas": the hand-written CUDA kernel (plain PyTorch on CPU tensors);
+    # "einsum": plain PyTorch everywhere. The JAX package defaults to
+    # "einsum"; the port's main path runs the kernel.
+    attention_impl: str = "pallas"
+    fast_math: bool = False
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def spatial(self) -> int:
+        return self.image_size // self.patch_size
+
+
+_DEIT_SIZES = {
+    "deit-tiny-patch16-224": dict(hidden_size=192, num_heads=3, intermediate_size=768),
+    "deit-small-patch16-224": dict(hidden_size=384, num_heads=6, intermediate_size=1536),
+    "deit-base-patch16-224": dict(hidden_size=768, num_heads=12, intermediate_size=3072),
+}
+
+BACKBONE_CONFIGS: dict[str, ViTBackboneConfig] = {}
+for _sz, _kw in _DEIT_SIZES.items():
+    for _prefix in ("", "nocls-", "reg-"):
+        BACKBONE_CONFIGS[f"{_prefix}facebook/{_sz}"] = ViTBackboneConfig(**_kw)
+
+
+class _TransformerBlock(nn.Module):
+    """Pre-LN ViT encoder block with HF ViTLayer numerics and names."""
+
+    def __init__(self, cfg: ViTBackboneConfig) -> None:
+        super().__init__()
+        c = cfg.hidden_size
+        self.cfg = cfg
+        self.layernorm_before = nn.LayerNorm(c, eps=cfg.layer_norm_eps)
+        self.attention = nn.ModuleDict({
+            "attention": nn.ModuleDict(
+                {n: nn.Linear(c, c, bias=cfg.qkv_bias) for n in ("query", "key", "value")}
+            ),
+            "output": nn.ModuleDict({"dense": nn.Linear(c, c)}),
+        })
+        self.layernorm_after = nn.LayerNorm(c, eps=cfg.layer_norm_eps)
+        self.intermediate = nn.ModuleDict({"dense": nn.Linear(c, cfg.intermediate_size)})
+        self.output = nn.ModuleDict({"dense": nn.Linear(cfg.intermediate_size, c)})
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        b, t, c = x.shape
+        nh = cfg.num_heads
+        h = self.layernorm_before(x)
+        # packed QKV: one matmul over the concatenated column blocks
+        qkv_layers = [self.attention["attention"][n] for n in ("query", "key", "value")]
+        w_qkv = torch.cat([m.weight for m in qkv_layers])
+        b_qkv = torch.cat([m.bias for m in qkv_layers]) if cfg.qkv_bias else None
+        qkv = F.linear(h, w_qkv, b_qkv)
+        # views into the packed projection: the kernel reads them in place
+        q, k, v = (y.view(b, t, nh, c // nh) for y in qkv.split(c, dim=-1))
+        ctx = multi_head_attention(q, k, v, implementation=cfg.attention_impl)
+        x = x + self.attention["output"]["dense"](ctx.reshape(b, t, c))
+        h = self.layernorm_after(x)
+        h = F.gelu(self.intermediate["dense"](h))  # exact erf GELU
+        return x + self.output["dense"](h)
+
+
+class _Embeddings(nn.Module):
+    """Patch projection, position embeddings and the CLS / register tokens."""
+
+    def __init__(self, cfg: ViTBackboneConfig, variant: str, num_reg_tokens: int) -> None:
+        super().__init__()
+        c = cfg.hidden_size
+        p = cfg.patch_size
+        self.patch_embeddings = nn.ModuleDict({"projection": nn.Conv2d(3, c, p, stride=p)})
+        # stored (1, 1+N, C) for every variant, as the reference weights are
+        self.position_embeddings = nn.Parameter(torch.empty(1, 1 + cfg.num_patches, c))
+        if variant != "nocls":
+            self.cls_token = nn.Parameter(torch.empty(1, 1, c))
+        if variant == "reg":
+            self.reg_token = nn.Parameter(torch.empty(1, num_reg_tokens, c))
+            self.reg_pos_embed = nn.Parameter(torch.empty(1, num_reg_tokens, c))
+
+
+class _ViTModel(nn.Module):
+    def __init__(self, cfg: ViTBackboneConfig, variant: str, num_reg_tokens: int) -> None:
+        super().__init__()
+        self.embeddings = _Embeddings(cfg, variant, num_reg_tokens)
+        self.encoder = nn.ModuleDict(
+            {"layer": nn.ModuleList(_TransformerBlock(cfg) for _ in range(cfg.num_layers))}
+        )
+        self.layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+
+class ViTBackbone(nn.Module):
+    """ViT/DeiT student backbone.
+
+    variant:
+      - "cls": standard DeiT; output tokens [B, 1+N, C];
+      - "nocls": no CLS token; only position_embeddings[:, 1:] is added;
+        output [B, N, C];
+      - "reg": CLS + patches + ``num_reg_tokens`` trailing register tokens
+        with their own position embedding; output [B, 1+N+R, C].
+    """
+
+    def __init__(self, cfg: ViTBackboneConfig, variant: str = "cls", num_reg_tokens: int = 0) -> None:
+        super().__init__()
+        if variant not in ("cls", "nocls", "reg"):
+            raise ValueError(f"unknown variant {variant}")
+        if variant == "reg" and num_reg_tokens <= 0:
+            raise ValueError("reg variant requires num_reg_tokens > 0")
+        if cfg.fast_math:
+            raise NotImplementedError("fast_math is not ported yet (ROADMAP Queue 1, serving items)")
+        self.cfg = cfg
+        self.variant = variant
+        self.num_reg_tokens = num_reg_tokens if variant == "reg" else 0
+        self.model = _ViTModel(cfg, variant, self.num_reg_tokens)
+
+    @property
+    def no_cls(self) -> bool:
+        return self.variant == "nocls"
+
+    def get_feature_size(self, keep_spatial: bool = False) -> tuple[int, ...]:
+        cfg = self.cfg
+        if keep_spatial:
+            return (cfg.hidden_size, cfg.spatial, cfg.spatial)
+        return (cfg.hidden_size, cfg.num_patches)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """HF ViT init: trunc_normal(initializer_range) weights and embeddings,
+        zero biases, LayerNorm ones/zeros. Walks parameters in a fixed order."""
+        for name, p in self.model.named_parameters():
+            if "layernorm" in name:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                nn.init.trunc_normal_(p, std=self.cfg.initializer_range, generator=generator)
+
+    def _patch_embed(self, x: torch.Tensor) -> torch.Tensor:
+        """[B,H,W,3] float -> [B,N,C] as extract-patches + one float32 matmul
+        (the JAX formulation; cuBLAS runs it faster than cuDNN's non-TF32
+        conv), then cast."""
+        proj = self.model.embeddings.patch_embeddings["projection"]
+        p = self.cfg.patch_size
+        b, h, w, _ = x.shape
+        nh, nw = h // p, w // p
+        patches = x.permute(0, 3, 1, 2)[..., : nh * p, : nw * p].reshape(b, 3, nh, p, nw, p)
+        patches = patches.permute(0, 2, 4, 1, 3, 5).reshape(b, nh * nw, 3 * p * p)  # (c, kh, kw) order
+        y = F.linear(patches.float(), proj.weight.float().reshape(proj.out_channels, -1), proj.bias.float())
+        return y.to(x.dtype)
+
+    def _interp_patch_pos(self, nh: int, nw: int) -> torch.Tensor:
+        """Bicubic pos-embed interpolation with the reference's h0+0.1 quirk:
+        torch bicubic (a=-0.75), scale=(h0+0.1)/sqrt(N)."""
+        cfg = self.cfg
+        s = int(math.sqrt(cfg.num_patches))
+        pos = self.model.embeddings.position_embeddings
+        patch_pos = pos[:, 1:].reshape(1, s, s, cfg.hidden_size).float()
+        out = bicubic_resize(
+            patch_pos, nh, nw, a=-0.75, antialias=False,
+            scale_h=(nh + 0.1) / s, scale_w=(nw + 0.1) / s,
+        )
+        return out.reshape(1, nh * nw, cfg.hidden_size)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        do_resize: bool = True,
+        interpolate_pos_encoding: Optional[bool] = None,
+        do_rescale: bool = True,
+        do_normalize: bool = True,
+    ) -> torch.Tensor:
+        """uint8 [B,H,W,C] or [B,C,H,W] images -> last hidden state tokens."""
+        cfg = self.cfg
+        emb = self.model.embeddings
+        dtype = emb.position_embeddings.dtype
+        x = preprocess_images(
+            x,
+            do_resize=do_resize,
+            do_rescale=do_rescale,
+            do_normalize=do_normalize,
+            resize_size=cfg.resize_size,
+            crop_size=cfg.crop_size,
+            image_mean=cfg.image_mean,
+            image_std=cfg.image_std,
+            out_dtype=dtype,
+        )
+        b, h, w, _ = x.shape
+        nh, nw = h // cfg.patch_size, w // cfg.patch_size
+        tokens = self._patch_embed(x)
+
+        interp = bool(interpolate_pos_encoding) and (nh * nw != cfg.num_patches or nh != nw)
+        pos = emb.position_embeddings
+        patch_pos = self._interp_patch_pos(nh, nw) if interp else pos[:, 1:]
+
+        if self.variant == "nocls":
+            tokens = tokens + patch_pos.to(dtype)
+        else:
+            parts = [emb.cls_token.expand(b, -1, -1), tokens]
+            pos_parts = [pos[:, :1], patch_pos]
+            if self.variant == "reg":
+                parts.append(emb.reg_token.expand(b, -1, -1))
+                pos_parts.append(emb.reg_pos_embed)
+            tokens = torch.cat(parts, dim=1) + torch.cat(pos_parts, dim=1).to(dtype)
+
+        for block in self.model.encoder["layer"]:
+            tokens = block(tokens)
+        return self.model.layernorm(tokens)
+
+
+def build_backbone(
+    model_name: str,
+    image_size: int = 224,
+    num_reg_tokens: int = 7,
+    fast_math: bool = False,
+) -> ViTBackbone:
+    """Backbone factory dispatching on "reg"/"nocls"/"deit" substrings."""
+    if model_name not in BACKBONE_CONFIGS:
+        raise NotImplementedError(f"Requested {model_name} is not implemented.")
+    cfg = dataclasses.replace(BACKBONE_CONFIGS[model_name], image_size=image_size, fast_math=fast_math)
+    if "reg" in model_name:
+        return ViTBackbone(cfg, variant="reg", num_reg_tokens=num_reg_tokens)
+    if "nocls" in model_name:
+        return ViTBackbone(cfg, variant="nocls")
+    return ViTBackbone(cfg, variant="cls")
