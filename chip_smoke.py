@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Theia serving path once on one CUDA GPU.
+"""Drive the PyTorch port's Theia serving and training paths once on one CUDA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, nvcc and nothing of JAX. Phases, each of which raises on
@@ -7,13 +7,22 @@ failure (the script then exits nonzero and prints no result):
 
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes);
-3. each kernel against its plain PyTorch version at the main path's shapes;
-4. the main path: Theia-Base cddsv (seeded random weights) behind
+3. each kernel against its plain PyTorch version at the main paths' shapes:
+   K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
+   64] as views of a packed QKV projection, K3 and K4 (LayerNormSpatial
+   backward) at every ladder LayerNorm of the Theia-Base cddsv heads;
+4. serving: Theia-Base cddsv (seeded random weights) behind
    ``serving.Predictor``, answering requests through ``forward_feature``,
    ``predict`` and ``predict_stream`` in float32, then ``forward_feature``
-   in bf16; shapes, finiteness, the kernel's launch count, and agreement
-   with the same model on the plain attention path;
-5. timings with CUDA events after warmup.
+   in bf16; shapes, finiteness, K1's launch count, and agreement with the
+   same model on the plain attention path;
+5. training: the distillation train step (``train.step.make_train_step``)
+   of Theia-Base cddsv, float32 params and bf16 compute, masked AdamW with
+   bf16 moments at the recipe's settings, batch 16, on one fixed batch:
+   finite and falling loss, one eval step, exact launch counts of K1-K4;
+   one step's loss and gradients on the kernel path against the plain path
+   (float32, TF32 off), and bf16 gradients against float32 ones;
+6. timings with CUDA events after warmup, and each kernel's bound.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -25,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -39,14 +49,54 @@ BUCKETS = (1, 4, 16, 64)
 REQUESTS = (1, 3, 16, 70)
 HEADS, HEAD_DIM = 12, 64
 # kernel vs plain: float32 sums in another order; bf16 against the plain
-# version run in float32 on the same bf16 inputs (P and O round to bf16)
+# version on the same bf16 inputs (K1's plain version run in float32): a
+# rounding to bf16 may land either side
 KERNEL_F32_ATOL = 2e-5
+KERNEL_F32_REL_L2 = 1e-5  # K3/K4 sums over up to 3.1M elements
 KERNEL_BF16_REL_L2 = 1e-2
+# the largest T whose float32 K2 passes fit a block's shared memory, by head
+# dim (csrc/mha_bwd.cu); every other head dim takes every T <= 256
+K2_F32_MAX_T = {112: 224, 128: 196}
 # the whole model, kernel path vs plain attention path, float32: 12 blocks
 # and the heads, sums in another order
 MODEL_F32_ATOL = 1e-3
 # bf16 model vs float32 model, relative L2 over the backbone tokens
 MODEL_BF16_REL_L2 = 5e-2
+# training: one step, kernel path vs plain path, float32: loss rtol, and
+# each gradient's relative L2 (ReLUs of the head ladders flip where a
+# pre-activation is within rounding of 0)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL_L2 = 5e-3
+# bf16-compute gradients against float32 ones, relative L2 over all of
+# them: the kernel path may be no further off than this many times the plain
+# path (bf16 rounds at the same places on both; the sums' order differs)
+TRAIN_BF16_GRAD_FACTOR = 1.25
+TRAIN_BATCH = 16
+TRAIN_STEPS = 20
+# the recipe, theia_tpu/configs/training/frame_level.yaml
+BASE_LR, BASE_BATCH, BASE_WORLD, WARMUP_STEPS = 2e-3, 64, 8, 2
+# the H100 SXM's published peaks
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def ptxas_usage(log: str) -> list[tuple[str, str]]:
+    """(kernel, "N registers, spills ...") for each kernel in nvcc's -Xptxas=-v output."""
+    out, name, spills = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.search(r"\d(mha_\w+?|ln_bwd_\w+?)(?:ILi(\d+)E|If?E|I13__nv_bfloat16E|E)", mangled)
+            name = m.group(1) if m else mangled
+            if m and m.group(2):
+                name += f"<{m.group(2)}>"
+            elif m and "ln_bwd" in name and "finish" not in name:
+                name += "<bf16>" if "bfloat16" in mangled else "<f32>"
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append((name, f"{line.split('Used', 1)[1].strip()}; {spills}"))
+    return out
 
 
 def rel_l2(got: torch.Tensor | np.ndarray, want: torch.Tensor | np.ndarray) -> float:
@@ -70,38 +120,130 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def interleaved_ms(fns: dict, iters: int = 20) -> dict:
+    """Each function's ms, timed in the order a, b, ..., ..., b, a after warmup."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    order = list(fns) + list(reversed(fns))
+    times = {k: [] for k in fns}
+    for k in order:
+        times[k].append(cuda_ms(fns[k], iters))
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def bound_ms(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
+    """The least time for the work: bytes over HBM rate or operations over peak."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def packed_qkv(b: int, t: int, dtype: torch.dtype, gen: torch.Generator) -> tuple[torch.Tensor, ...]:
-    """q, k, v [B, T, 12, 64] as the encoder hands them to the kernel: views
+    """q, k, v [B, T, 12, 64] as the encoder hands them to the kernels: views
     into one packed QKV projection [B, T, 3*768]."""
     qkv = torch.randn(b, t, 3 * HEADS * HEAD_DIM, device="cuda", generator=gen).to(dtype)
     return tuple(y.view(b, t, HEADS, HEAD_DIM) for y in qkv.split(HEADS * HEAD_DIM, dim=-1))
 
 
-def compare_kernels(attention) -> dict:
-    """Phase 3: mha_fwd against mha_fwd_plain at [B, T, 12, 64]."""
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype, f32_atol=None) -> float:
+    """Max abs error of ``got`` against ``want``; raise past the stated tolerance."""
+    err = float((got.float() - want.float()).abs().max())
+    rel = rel_l2(got.float(), want.float())
+    if dtype == torch.float32 and f32_atol is not None:
+        ok, limit = err <= f32_atol, f"atol {f32_atol}"
+    else:
+        limit_v = KERNEL_BF16_REL_L2 if dtype == torch.bfloat16 else KERNEL_F32_REL_L2
+        ok, limit = rel < limit_v, f"rel_l2 < {limit_v}"
+    print(f"  {name}: max_abs_err {err:.3e}, rel_l2 {rel:.3e} ({limit})")
+    check(ok, f"{name} disagrees with its plain version")
+    return err
+
+
+def ln_inputs(b: int, c: int, s: int, dtype: torch.dtype, gen: torch.Generator):
+    """x, g [B, C, S, S] in channels_last memory, weight (C, S, S) float32, and
+    the forward's float32 mean and r."""
+    from theia_tpu_torch.ops import ln_pallas
+
+    x = (torch.randn(b, c, s, s, device="cuda", generator=gen) * 2 + 1).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    g = torch.randn(b, c, s, s, device="cuda", generator=gen).to(dtype).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(c, s, s, device="cuda", generator=gen)
+    mean, r = ln_pallas.ln_spatial_stats(x, 1e-5)
+    return x, g, w, mean, r
+
+
+def compare_kernels(attention, ln_pallas) -> dict:
+    """Phase 3: every kernel against its plain version; the max abs errors."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors = {}
+    print("phase 3: kernels against their plain versions")
     for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
         for b in (1, 64):
             for t in (197, 204):
                 q, k, v = packed_qkv(b, t, dtype, gen)
                 got = attention.mha_fwd(q, k, v)
                 torch.cuda.synchronize()
-                if dtype == torch.float32:
-                    want = attention.mha_fwd_plain(q, k, v)
-                    err = float((got - want).abs().max())
-                    ok = err <= KERNEL_F32_ATOL
-                    print(f"mha_fwd f32  [{b},{t},12,64] max_abs_err={err:.3e} (atol {KERNEL_F32_ATOL})")
-                else:
-                    want = attention.mha_fwd_plain(q.float(), k.float(), v.float())
-                    err = float((got.float() - want).abs().max())
-                    rel = rel_l2(got.float(), want)
-                    ok = rel < KERNEL_BF16_REL_L2
-                    print(f"mha_fwd bf16 [{b},{t},12,64] max_abs_err={err:.3e} rel_l2={rel:.3e} "
-                          f"(< {KERNEL_BF16_REL_L2})")
-                check(ok, f"mha_fwd disagrees with its plain version ({dtype}, B={b}, T={t})")
-                errors[(dtype, b, t)] = err
+                want = attention.mha_fwd_plain(*(x.float() for x in (q, k, v)))
+                errors[("mha_fwd", dtype, b, t)] = compare(
+                    f"K1 mha_fwd {dn} [{b},{t},12,64]", got, want, dtype, KERNEL_F32_ATOL)
+        for b in (1, 16):
+            for t in (197, 204):
+                q, k, v = packed_qkv(b, t, dtype, gen)
+                do = torch.randn(b, t, HEADS, HEAD_DIM, device="cuda", generator=gen).to(dtype)
+                got = attention.mha_bwd(q, k, v, do)
+                torch.cuda.synchronize()
+                want = attention.mha_bwd_plain(q, k, v, do)
+                errors[("mha_bwd", dtype, b, t)] = compare(
+                    f"K2 mha_bwd {dn} [{b},{t},12,64]", got, want, dtype, KERNEL_F32_ATOL)
+    # K2 over every head dim it takes and the edges of T, heads as views of a packed projection
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in worst:
+        for hd in range(16, 129, 16):
+            for t in (1, 17, 130, 256):
+                qkv = torch.randn(2, t, 3 * 2 * hd, device="cuda", generator=gen).to(dtype)
+                q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+                do = torch.randn(2, t, 2, hd, device="cuda", generator=gen).to(dtype)
+                if dtype == torch.float32 and t > K2_F32_MAX_T.get(hd, t):
+                    try:  # past the float32 passes' shared memory: the wrapper must raise
+                        attention.mha_bwd(q, k, v, do)
+                    except RuntimeError:
+                        continue
+                    raise AssertionError(f"K2 float32 took [2,{t},2,{hd}], past its shared memory")
+                got, want = attention.mha_bwd(q, k, v, do).float(), attention.mha_bwd_plain(q, k, v, do).float()
+                err = float((got - want).abs().max()) if dtype == torch.float32 else rel_l2(got, want)
+                worst[dtype] = max(worst[dtype], 0.0 if want.norm() == 0 else err)
+    print(f"  K2 mha_bwd [2, T, 2, hd], hd 16..128 x T in (1, 17, 130, 256): float32 worst max_abs_err "
+          f"{worst[torch.float32]:.3e} (atol {KERNEL_F32_ATOL}), bf16 worst rel_l2 {worst[torch.bfloat16]:.3e} "
+          f"(< {KERNEL_BF16_REL_L2})")
+    check(worst[torch.float32] <= KERNEL_F32_ATOL and worst[torch.bfloat16] < KERNEL_BF16_REL_L2,
+          "K2 disagrees with its plain version in the shape sweep")
+    cases = [(torch.bfloat16, s) for s in (16, 31, 64)] + [(torch.float32, 64)]
+    for dtype, s in cases:
+        dn = str(dtype).split(".")[-1]
+        x, g, w, mean, r = ln_inputs(16, 768, s, dtype, gen)
+        got = ln_pallas.ln_bwd_stats(x, w, mean, r, g)
+        torch.cuda.synchronize()
+        want = ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)
+        errs = [compare(f"K3 ln_bwd_stats {dn} [16,768,{s},{s}] {n}", a, bb, torch.float32)
+                for n, a, bb in zip(("s1", "s2", "dw", "db"), got, want)]
+        errors[("ln_bwd_stats", dtype, s)] = max(errs)
+        dx = ln_pallas.ln_bwd_dx(x, w, mean, r, g, want[0], want[1])
+        torch.cuda.synchronize()
+        errors[("ln_bwd_dx", dtype, s)] = compare(
+            f"K4 ln_bwd_dx {dn} [16,768,{s},{s}]", dx, ln_pallas.ln_bwd_dx_plain(x, w, mean, r, g, *want[:2]), dtype)
     return errors
+
+
+def loss_and_grads(model, images, targets):
+    """One step's loss and gradients (the train step's loss, no update)."""
+    from theia_tpu_torch.models.losses import get_loss, main_loss_from_terms
+    from theia_tpu_torch.train.step import prepare_targets
+
+    loss = main_loss_from_terms(get_loss(model(images), prepare_targets(targets)), "cos_l1")
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    return float(loss.detach()), dict(zip(names, grads))
 
 
 def main() -> int:
@@ -114,11 +256,15 @@ def main() -> int:
     if Path(theia_tpu_torch.__file__).resolve().parent.parent != here:
         print(f"chip_smoke: theia_tpu_torch not found beside {here}", file=sys.stderr)
         return 1
+    from theia_tpu_torch.foundation.common import get_model_feature_size
     from theia_tpu_torch.kernels import build
-    from theia_tpu_torch.models import vit
+    from theia_tpu_torch.models import layers, vit
     from theia_tpu_torch.models.hub import build_theia, parse_model_name
-    from theia_tpu_torch.ops import attention
+    from theia_tpu_torch.ops import attention, ln_pallas
     from theia_tpu_torch.serving import Predictor
+    from theia_tpu_torch.train.optim import constant_with_warmup, make_optimizer, scaled_lr
+    from theia_tpu_torch.train.state import TrainState
+    from theia_tpu_torch.train.step import make_eval_step, make_train_step
 
     # phase 1: the card
     card = subprocess.run(
@@ -135,20 +281,21 @@ def main() -> int:
     lib_path = build.build()
     build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.relative_to(here)}")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for name, usage in ptxas_usage(lib_path.with_suffix(".log").read_text()):
+        print(f"  ptxas: {name}: {usage}")
 
     # phase 3: kernel vs plain; float32 phases run with TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
-    kernel_errors = compare_kernels(attention)
+    kernel_errors = compare_kernels(attention, ln_pallas)
 
-    # phase 4: the main path
+    # phase 4: serving
     t0 = time.perf_counter()
-    model = build_theia(MODEL, dtype=torch.float32, device="cuda", generator=torch.Generator().manual_seed(0))
-    model_bf16 = build_theia(MODEL, dtype=torch.bfloat16, device="cuda", generator=torch.Generator().manual_seed(0))
+    model = build_theia(MODEL, dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    model_bf16 = build_theia(MODEL, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(0))
+    check(next(model.parameters()).is_cuda, "build_theia did not put the model on the GPU")
     print(f"built {MODEL} (seeded random weights) in float32 and bf16: {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     requests = [rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8) for n in REQUESTS]
@@ -162,13 +309,13 @@ def main() -> int:
     preds = [predict(x) for x in requests]
     streamed = list(ff.predict_stream(iter(requests)))
     feats_bf16 = [ff_bf16(x) for x in requests]
-    launches = attention.MHA_FWD_LAUNCHES
+    serve_launches = attention.MHA_FWD_LAUNCHES
     main_s = time.perf_counter() - t0
     batches_per_pass = sum(math.ceil(n / BUCKETS[-1]) for n in REQUESTS)
     expected = 4 * batches_per_pass * model.backbone.cfg.num_layers
-    print(f"main path: {sum(REQUESTS)} images x 4 passes in {main_s:.1f} s; mha_fwd launches {launches}, "
-          f"expected 12 layers x {4 * batches_per_pass} bucket batches = {expected}")
-    check(launches == expected, f"mha_fwd launched {launches} times on the main path, expected {expected}")
+    print(f"phase 4, serving: {sum(REQUESTS)} images x 4 passes in {main_s:.1f} s; mha_fwd launches "
+          f"{serve_launches}, expected 12 layers x {4 * batches_per_pass} bucket batches = {expected}")
+    check(serve_launches == expected, f"mha_fwd launched {serve_launches} times on the main path, expected {expected}")
 
     _, teachers = parse_model_name(MODEL)
     sizes = {t: model.translator.target_feature_sizes[t] for t in teachers}
@@ -185,14 +332,19 @@ def main() -> int:
 
     # the same requests on the plain attention path ("einsum"), same weights
     backbone_name, _ = parse_model_name(MODEL)
-    saved = vit.BACKBONE_CONFIGS[backbone_name]
-    vit.BACKBONE_CONFIGS[backbone_name] = dataclasses.replace(saved, attention_impl="einsum")
-    try:
-        plain_model = build_theia(MODEL, dtype=torch.float32, device="cuda")
-    finally:
-        vit.BACKBONE_CONFIGS[backbone_name] = saved
+    saved_cfg = vit.BACKBONE_CONFIGS[backbone_name]
+
+    def plain_attention_model(**kw):
+        vit.BACKBONE_CONFIGS[backbone_name] = dataclasses.replace(saved_cfg, attention_impl="einsum")
+        try:
+            m = build_theia(MODEL, **kw)
+        finally:
+            vit.BACKBONE_CONFIGS[backbone_name] = saved_cfg
+        check(m.backbone.cfg.attention_impl == "einsum", "plain model does not use the plain attention")
+        return m
+
+    plain_model = plain_attention_model(dtype=torch.float32)
     plain_model.load_state_dict(model.state_dict())
-    check(plain_model.backbone.cfg.attention_impl == "einsum", "plain model does not use the plain attention")
     plain_ff = Predictor(plain_model, buckets=BUCKETS)
     plain_predict = Predictor(plain_model, buckets=BUCKETS, method="predict")
     worst_ff = max(float(np.abs(f - plain_ff(x)).max()) for f, x in zip(feats, requests))
@@ -208,8 +360,108 @@ def main() -> int:
     check(bf16_err < MODEL_BF16_REL_L2, "bf16 forward_feature far from float32")
     del plain_model, plain_ff, plain_predict, preds
 
-    # phase 5: timings
-    print(f"timings on {card}:")
+    # phase 5: training, bf16 compute over float32 params, the recipe's optimizer
+    trng = np.random.default_rng(1)
+    images = torch.from_numpy(trng.integers(0, 256, (TRAIN_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+    targets = {
+        t: torch.from_numpy(trng.standard_normal((TRAIN_BATCH, *get_model_feature_size(t, keep_spatial=True)),
+                                                 dtype=np.float32)).to("cuda", torch.bfloat16)
+        for t in teachers
+    }
+    lr = scaled_lr(BASE_LR, TRAIN_BATCH, 1, BASE_BATCH, BASE_WORLD)
+
+    def trainer(dtype):
+        m = build_theia(MODEL, dtype=dtype, generator=torch.Generator().manual_seed(2))
+        tx = make_optimizer(constant_with_warmup(lr, WARMUP_STEPS), weight_decay=0.01, betas=(0.9, 0.999),
+                            eps=1e-8, moment_dtype=torch.bfloat16)
+        return m, tx, TrainState.create(dict(m.named_parameters()), tx)
+
+    tmodel, tx, state = trainer(torch.bfloat16)
+    step = make_train_step(tmodel, tx, main_loss="cos_l1")
+    eval_step = make_eval_step(tmodel, main_loss="cos_l1")
+    n_layers = tmodel.backbone.cfg.num_layers
+    n_ln = sum(isinstance(mod, layers.LayerNormSpatial) for mod in tmodel.modules())
+    print(f"phase 5, training: {MODEL}, float32 params, bf16 compute, bf16 Adam moments, lr {lr:g} "
+          f"(scaled_lr at batch {TRAIN_BATCH}, world 1), warmup {WARMUP_STEPS}; {n_layers} attention layers, "
+          f"{n_ln} LayerNormSpatial sites")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.MHA_FWD_LAUNCHES = attention.MHA_BWD_LAUNCHES = 0
+    ln_pallas.LN_BWD_STATS_LAUNCHES = ln_pallas.LN_BWD_DX_LAUNCHES = 0
+    losses = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        if i == 5:
+            start.record()
+        state, metrics = step(state, images, targets)
+        losses.append(metrics["loss"])
+    end.record()
+    eval_metrics = eval_step(images, targets)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {
+        "mha_fwd": attention.MHA_FWD_LAUNCHES, "mha_bwd": attention.MHA_BWD_LAUNCHES,
+        "ln_bwd_stats": ln_pallas.LN_BWD_STATS_LAUNCHES, "ln_bwd_dx": ln_pallas.LN_BWD_DX_LAUNCHES,
+    }
+    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - 5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    eval_loss = float(eval_metrics["loss"])
+    print(f"  {TRAIN_STEPS} steps + 1 eval in {train_s:.1f} s; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"eval loss {eval_loss:.6f}")
+    print(f"  losses: {' '.join(f'{x:.6f}' for x in losses)}")
+    check(all(math.isfinite(x) for x in losses + [eval_loss]), "a training loss is not finite")
+    check(losses[-1] < losses[0], "the training loss did not fall")
+    want = {"mha_fwd": n_layers * (TRAIN_STEPS + 1), "mha_bwd": n_layers * TRAIN_STEPS,
+            "ln_bwd_stats": n_ln * TRAIN_STEPS, "ln_bwd_dx": n_ln * TRAIN_STEPS}
+    print(f"  launches {launches}, expected {want}")
+    check(launches == want, "kernel launch counts of the training path are off")
+    print(f"  train step B={TRAIN_BATCH}: {step_ms:.3f} ms/step, {TRAIN_BATCH / step_ms * 1e3:.1f} images/s "
+          f"(CUDA events over steps 6-{TRAIN_STEPS}), peak memory allocated {peak_gb:.2f} GB ({card})")
+    del tmodel, tx, state, step, eval_step, metrics, eval_metrics
+    torch.cuda.empty_cache()
+
+    # one step from identical weights: kernel path vs plain path, float32 and bf16
+    def grads_on(path: str, dtype: torch.dtype):
+        seed = torch.Generator().manual_seed(3)
+        if path == "kernel":
+            return loss_and_grads(build_theia(MODEL, dtype=dtype, generator=seed), images, targets)
+        layers.LN_STATS_IMPL = "vpu"
+        try:
+            return loss_and_grads(plain_attention_model(dtype=dtype, generator=seed), images, targets)
+        finally:
+            layers.LN_STATS_IMPL = "pallas"
+
+    (kloss, kgrads), (ploss, pgrads) = grads_on("kernel", torch.float32), grads_on("plain", torch.float32)
+    names = [n for n in pgrads if not n.endswith("key.bias")]
+    worst = max((rel_l2(kgrads[n], pgrads[n]), n) for n in names)
+    key_bias = max(float(g.abs().max()) for n, g in kgrads.items() if n.endswith("key.bias"))
+    print(f"  one float32 step, kernel path vs plain path (attention einsum, LN_STATS_IMPL vpu): loss "
+          f"{kloss:.7f} vs {ploss:.7f}; worst gradient rel_l2 {worst[0]:.3e} ({worst[1]}; < {TRAIN_GRAD_REL_L2}); "
+          f"key-bias gradients (0 in exact arithmetic) max abs {key_bias:.2e}")
+    check(abs(kloss - ploss) <= TRAIN_LOSS_RTOL * abs(ploss), "training loss: kernel path vs plain path")
+    check(worst[0] < TRAIN_GRAD_REL_L2, "a gradient: kernel path vs plain path")
+    bf16_err = {}
+    for path in ("kernel", "plain"):
+        _, bgrads = grads_on(path, torch.bfloat16)
+        parts = {"all": names, "backbone": [n for n in names if n.startswith("backbone.")],
+                 **{t: [n for n in names if f".{t.replace('.', '_')}." in n] for t in teachers}}
+        errs = {k: rel_l2(torch.cat([bgrads[n].flatten() for n in v]), torch.cat([kgrads[n].flatten() for n in v]))
+                for k, v in parts.items()}
+        bf16_err[path] = errs["all"]
+        print(f"  bf16-compute ({path} path) vs float32 gradients, rel_l2: " +
+              ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+        del bgrads
+    print(f"  bf16 gradients: kernel path rel_l2 {bf16_err['kernel']:.3e} vs the plain path's {bf16_err['plain']:.3e} "
+          f"(limit {TRAIN_BF16_GRAD_FACTOR} x the plain path's)")
+    check(bf16_err["kernel"] <= TRAIN_BF16_GRAD_FACTOR * bf16_err["plain"],
+          "bf16 gradients of the kernel path further from float32 than the plain path's")
+    del kgrads, pgrads
+    torch.cuda.empty_cache()
+
+    # phase 6: timings
+    print(f"phase 6: timings on {card}:")
     x1 = torch.from_numpy(requests[0]).cuda()
     x64 = torch.from_numpy(requests[3][:64]).cuda()
     with torch.inference_mode():
@@ -237,34 +489,95 @@ def main() -> int:
         for name, m in (("float32", model), ("bf16", model_bf16)):
             for _ in range(3):
                 m.forward_feature(x64)
-            ms = cuda_ms(lambda: m.forward_feature(x64), 10)
-            print(f"  forward_feature B=64 {name}: {ms:.3f} ms/batch, {64 / ms * 1e3:.1f} images/s (CUDA events)")
+            ms = cuda_ms(lambda: m.forward_feature(x64), 20)
+            # the host's time to enqueue one call, the stream held by a sleep meanwhile
+            enqueue = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                torch.cuda._sleep(200_000_000)
+                t0 = time.perf_counter()
+                m.forward_feature(x64)
+                enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            print(f"  forward_feature B=64 {name}: {ms:.3f} ms/batch, {64 / ms * 1e3:.1f} images/s (CUDA events, "
+                  f"20 calls); host enqueue of one call p50 {statistics.median(enqueue):.3f} ms "
+                  f"(min {min(enqueue):.3f}, max {max(enqueue):.3f}, 5 calls)")
+    del model, model_bf16, ff, predict, ff_bf16
+    torch.cuda.empty_cache()
 
-    kernel_ms, plain_ms = {}, {}
+    # each kernel at its main path's shape in bf16 (and float32 for the log):
+    # kernel, plain version, one PyTorch call for the same function
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = packed_qkv(64, 197, dtype, gen)
-        kern = lambda: attention.mha_fwd(q, k, v)  # noqa: E731
-        plain = lambda: attention.mha_fwd_plain(q, k, v)  # noqa: E731
-        for fn in (kern, plain):
-            for _ in range(3):
-                fn()
-        p1, k1, k2, p2 = cuda_ms(plain, 20), cuda_ms(kern, 20), cuda_ms(kern, 20), cuda_ms(plain, 20)
-        kernel_ms[dtype], plain_ms[dtype] = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"  mha_fwd {str(dtype).split('.')[-1]} [64,197,12,64]: kernel {kernel_ms[dtype]:.4f} ms, "
-              f"plain {plain_ms[dtype]:.4f} ms (order plain, kernel, kernel, plain; 20 calls each)")
+    bf16 = torch.bfloat16
+    record = {}
 
-    record = {"kernels": [{
-        "name": "mha_fwd",
-        "route": "cuda",
-        "source": "theia_tpu_torch/csrc/mha_fwd.cu",
-        "replaces": "theia_tpu/ops/attention.py:46",
-        "launches": launches,
-        "max_abs_err": kernel_errors[(torch.float32, 64, 197)],
-        "ms": kernel_ms[torch.float32],
-        "plain_ms": plain_ms[torch.float32],
-    }]}
-    print(json.dumps(record))
+    def kernel_row(name, fns, nbytes, flops, dtype, shape):
+        t = interleaved_ms(fns)
+        bound, by = bound_ms(nbytes, flops, dtype)
+        lib = t.get("library")
+        print(f"  {name} {str(dtype).split('.')[-1]} {shape}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"library {'-' if lib is None else f'{lib:.4f} ms'}, bound {bound * 1e3:.1f} us ({by}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        return t, bound, by
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype in (torch.float32, bf16):
+        q, k, v = packed_qkv(64, 197, dtype, gen)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        n = q.numel()
+        res = kernel_row("K1 mha_fwd", {
+            "plain": lambda: attention.mha_fwd_plain(q, k, v), "kernel": lambda: attention.mha_fwd(q, k, v),
+            "library": lambda: sdpa(qt, kt, vt)}, 4 * n * q.element_size(), 4 * 64 * 12 * 197 ** 2 * 64,
+            dtype, "[64,197,12,64]")
+        if dtype == bf16:
+            record["mha_fwd"] = res
+    for dtype in (torch.float32, bf16):
+        q, k, v = packed_qkv(TRAIN_BATCH, 197, dtype, gen)
+        do = torch.randn(TRAIN_BATCH, 197, HEADS, HEAD_DIM, device="cuda", generator=gen).to(dtype)
+        n = q.numel()
+        res = kernel_row("K2 mha_bwd", {
+            "plain": lambda: attention.mha_bwd_plain(q, k, v, do), "kernel": lambda: attention.mha_bwd(q, k, v, do)},
+            7 * n * q.element_size(), 10 * TRAIN_BATCH * 12 * 197 ** 2 * 64, dtype, f"[{TRAIN_BATCH},197,12,64]")
+        if dtype == bf16:
+            record["mha_bwd"] = res
+    for dtype, s in [(bf16, 16), (bf16, 31), (bf16, 64), (torch.float32, 64)]:
+        x, g, w, mean, r = ln_inputs(TRAIN_BATCH, 768, s, dtype, gen)
+        s1, s2 = ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)[:2]
+        # one PyTorch call for the whole LayerNorm backward, on its own NCHW-contiguous copy
+        xl, gl = x.contiguous(), g.contiguous()
+        wl = w.to(dtype)
+        _, lmean, lrstd = torch.native_layer_norm(xl, wl.shape, wl, torch.zeros_like(wl), 1e-5)
+        library = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa: E731
+            gl, xl, list(wl.shape), lmean, lrstd, wl, torch.zeros_like(wl), [True, True, True])
+        maps = x.numel() * x.element_size()
+        per_sample = x[0].numel()
+        shape = f"[{TRAIN_BATCH},768,{s},{s}]"
+        r3 = kernel_row("K3 ln_bwd_stats", {
+            "plain": lambda: ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g),
+            "kernel": lambda: ln_pallas.ln_bwd_stats(x, w, mean, r, g), "library": library},
+            2 * maps + per_sample * 4 * 3, 8 * x.numel(), dtype, shape)
+        r4 = kernel_row("K4 ln_bwd_dx", {
+            "plain": lambda: ln_pallas.ln_bwd_dx_plain(x, w, mean, r, g, s1, s2),
+            "kernel": lambda: ln_pallas.ln_bwd_dx(x, w, mean, r, g, s1, s2), "library": library},
+            3 * maps + per_sample * 4, 8 * x.numel(), dtype, shape)
+        if dtype == bf16 and s == 64:
+            record["ln_bwd_stats"], record["ln_bwd_dx"] = r3, r4
+
+    meta = {
+        "mha_fwd": ("csrc/mha_fwd.cu", "theia_tpu/ops/attention.py:46", kernel_errors[("mha_fwd", bf16, 64, 197)]),
+        "mha_bwd": ("csrc/mha_bwd.cu", "theia_tpu/ops/attention.py:60", kernel_errors[("mha_bwd", bf16, 16, 197)]),
+        "ln_bwd_stats": ("csrc/ln_bwd.cu", "theia_tpu/ops/ln_pallas.py:56", kernel_errors[("ln_bwd_stats", bf16, 64)]),
+        "ln_bwd_dx": ("csrc/ln_bwd.cu", "theia_tpu/ops/ln_pallas.py:90", kernel_errors[("ln_bwd_dx", bf16, 64)]),
+    }
+    rows = []
+    for name, (src, replaces, err) in meta.items():
+        t, bound, by = record[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"theia_tpu_torch/{src}", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
+            "bound_ms": bound, "bound_by": by, "library_ms": t.get("library"),
+        })
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))
     return 0

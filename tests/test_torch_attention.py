@@ -1,11 +1,14 @@
-"""The port's attention against the JAX package: the plain version against
+"""The port's attention against the JAX package: the plain forward against
 ``_einsum_attention`` and against the Pallas kernel body ``_mha_fwd_kernel``
-run in interpret mode, the dispatch, the wrapper's checks, and (on a card)
-the CUDA kernel against the plain version.
+run in interpret mode; the plain backward against ``jax.vjp`` of
+``_einsum_attention`` and against ``_mha_bwd_kernel`` in interpret mode;
+the autograd function (gradcheck in float64); the dispatch, the wrappers'
+checks, and (on a card) the CUDA kernels against the plain versions.
 
 Tolerances: float32 atol 1e-5 (same math, sums in another order); bf16
-inputs relative L2 < 1e-2 (the probabilities and the output round to bf16,
-one bf16 ulp is 2^-8 relative, and a rounding may land either side).
+inputs relative L2 < 1e-2 forward and < 2e-2 backward (the probabilities,
+dS and the outputs round to bf16, one bf16 ulp is 2^-8 relative, and a
+rounding may land either side; the backward chains two such roundings).
 """
 
 import functools
@@ -52,6 +55,20 @@ def _pallas_kernel_interpret(q, k, v):
         out_shape=jax.ShapeDtypeStruct(q.shape, q.dtype),
         interpret=True,
     )(q, k, v)
+
+
+def _pallas_bwd_interpret(q, k, v, do):
+    """The TPU backward kernel body on the CPU: one grid cell per (batch*head)."""
+    bh, t, hd = q.shape
+    spec = pl.BlockSpec((1, t, hd), lambda i: (i, 0, 0))
+    return pl.pallas_call(
+        functools.partial(jattn._mha_bwd_kernel, scale=1.0 / math.sqrt(hd)),
+        grid=(bh,),
+        in_specs=[spec] * 4,
+        out_specs=(spec, spec, spec),
+        out_shape=tuple(jax.ShapeDtypeStruct(q.shape, q.dtype) for _ in range(3)),
+        interpret=True,
+    )(q, k, v, do)
 
 
 def _rel_l2(got, want):
@@ -147,6 +164,68 @@ def test_kernel_wrapper_rejects_strided_inputs():
         tattn._check_kernel_inputs(q, q, q)
 
 
+@pytest.mark.parametrize("t", TOKENS)
+def test_bwd_plain_matches_jax_vjp_f32(t):
+    q, k, v = _qkv(t, seed=5)
+    do = np.random.default_rng(6).standard_normal(q.shape, dtype=np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jattn._einsum_attention(a, b, c, jnp.float32), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    got = tattn.mha_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v, do)))
+    assert tuple(got.shape) == (2, t, 3, H, HD)
+    for i, w in enumerate(want):
+        np.testing.assert_allclose(got[:, :, i].numpy(), np.asarray(w), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t", TOKENS)
+def test_bwd_plain_matches_pallas_kernel_f32(t):
+    q, k, v = _qkv(t, seed=7)
+    do = np.random.default_rng(8).standard_normal(q.shape, dtype=np.float32)
+    want = _pallas_bwd_interpret(*(jnp.asarray(_pack(x)) for x in (q, k, v, do)))
+    got = tattn.mha_bwd(*(torch.from_numpy(x) for x in (q, k, v, do)))
+    for i, w in enumerate(want):
+        np.testing.assert_allclose(got[:, :, i].numpy(), _unpack(np.asarray(w), b=2), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t", TOKENS)
+def test_bwd_plain_matches_pallas_kernel_bf16(t):
+    q, k, v = _qkv(t, seed=9)
+    do = np.random.default_rng(10).standard_normal(q.shape, dtype=np.float32)
+    want = _pallas_bwd_interpret(*(jnp.asarray(_pack(x), jnp.bfloat16) for x in (q, k, v, do)))
+    got = tattn.mha_bwd(*(_bf16(x) for x in (q, k, v, do)))
+    assert got.dtype == torch.bfloat16
+    for i, w in enumerate(want):
+        assert _rel_l2(got[:, :, i].float().numpy(), _unpack(np.asarray(w, np.float32), b=2)) < 2e-2
+
+
+def test_autograd_function_gradcheck_f64():
+    b, t, h, hd = 2, 5, 2, 16
+    qkv = torch.randn(b, t, 3 * h * hd, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
+    qkv.requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda x: tattn.MHAFunction.apply(x, h), (qkv,))
+
+
+def test_autograd_function_matches_autodiff_of_plain():
+    """MHAFunction's gradient (the plain backward on CPU) equals autograd
+    through the plain forward, on views into a packed projection."""
+    b, t, h, hd = 2, 197, 3, 64
+    qkv = torch.randn(b, t, 3 * h * hd, generator=torch.Generator().manual_seed(1), requires_grad=True)
+    g = torch.randn(b, t, h * hd, generator=torch.Generator().manual_seed(2))
+    out = tattn.packed_attention(qkv, h)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    out_plain = tattn.packed_attention(qkv, h, implementation="einsum")
+    (want,) = torch.autograd.grad(out_plain, qkv, g)
+    torch.testing.assert_close(out, out_plain, atol=1e-6, rtol=0)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_mha_fwd_refuses_to_drop_gradients():
+    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _qkv(197, seed=11))
+    with pytest.raises(RuntimeError, match="MHAFunction"):
+        tattn.mha_fwd(q, k, v)
+    with torch.no_grad():
+        assert tattn.mha_fwd(q, k, v).shape == q.shape
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -177,3 +256,22 @@ def test_cuda_kernel_raises_past_its_shared_memory(cuda):
     q = torch.zeros(2, 256, 1, 128, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         tattn.mha_fwd(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", (197, 204))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_cuda_bwd_kernel_matches_plain(cuda, t, dtype):
+    gen = torch.Generator().manual_seed(12)
+    qkv = torch.randn(4, t, 3 * 12 * HD, generator=gen).to(cuda, dtype)
+    q, k, v = (y.view(4, t, 12, HD) for y in qkv.split(12 * HD, dim=-1))
+    do = torch.randn(4, t, 12, HD, generator=gen).to(cuda, dtype)
+    before = tattn.MHA_BWD_LAUNCHES
+    got = tattn.mha_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert tattn.MHA_BWD_LAUNCHES == before + 1
+    want = tattn.mha_bwd_plain(q, k, v, do)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    else:
+        assert _rel_l2(got.float().cpu().numpy(), want.float().cpu().numpy()) < 1e-2

@@ -6,8 +6,11 @@ import json
 import subprocess
 import sys
 
+from pathlib import Path
+
 import pytest
 
+import theia_tpu_torch as tpackage
 from theia_tpu.foundation import common as jcommon
 from theia_tpu.models import hub as jhub
 from theia_tpu.models import vit as jvit
@@ -21,6 +24,7 @@ SLICE_MODULES = [
     "theia_tpu_torch.ops.image",
     "theia_tpu_torch.ops.init",
     "theia_tpu_torch.ops.attention",
+    "theia_tpu_torch.ops.ln_pallas",
     "theia_tpu_torch.kernels.build",
     "theia_tpu_torch.models.vit",
     "theia_tpu_torch.models.utils",
@@ -30,7 +34,13 @@ SLICE_MODULES = [
     "theia_tpu_torch.models.rvfm",
     "theia_tpu_torch.models.convert",
     "theia_tpu_torch.models.hub",
+    "theia_tpu_torch.models.losses",
     "theia_tpu_torch.serving",
+    "theia_tpu_torch.train",
+    "theia_tpu_torch.train.optim",
+    "theia_tpu_torch.train.state",
+    "theia_tpu_torch.train.step",
+    "theia_tpu_torch.tools.profile_train_step",
 ]
 
 
@@ -38,11 +48,22 @@ def test_port_imports_no_jax_flax_or_triton():
     code = (
         "import importlib, json, sys\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
-        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton'))))\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "                  if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'triton', 'theia_tpu'))))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_every_port_module_is_checked():
+    """SLICE_MODULES names every module of the package."""
+    root = Path(tpackage.__file__).parent
+    found = {".".join(("theia_tpu_torch", *p.relative_to(root).with_suffix("").parts)).removesuffix(".__init__")
+             for p in root.rglob("*.py") if "_build" not in p.parts}
+    assert found == set(SLICE_MODULES) | {"theia_tpu_torch.foundation", "theia_tpu_torch.kernels",
+                                          "theia_tpu_torch.models", "theia_tpu_torch.ops",
+                                          "theia_tpu_torch.tools"}
 
 
 def test_copied_tables_equal_the_jax_package():

@@ -103,3 +103,57 @@ def test_reg_variant_drops_register_tokens():
     assert got_feat.shape == want_feat.shape == (2, 196, 192)  # CLS and registers dropped
     np.testing.assert_allclose(got_feat, want_feat, atol=1e-3, rtol=0)
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
+def test_build_theia_defaults_to_the_gpu():
+    """The entry point runs on the card unless the caller asks for the CPU."""
+    import inspect
+
+    from theia_tpu_torch.models.hub import build_theia
+
+    params = inspect.signature(build_theia).parameters
+    assert params["device"].default == "cuda"
+    assert params["dtype"].default == params["param_dtype"].default == torch.float32
+
+
+def test_build_theia_compute_dtype_over_float32_params():
+    from theia_tpu_torch.models.hub import build_theia
+
+    model = build_theia("theia-tiny-patch16-224-cdiv", dtype=torch.bfloat16, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    assert model.dtype == model.backbone.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert model.translator.translator_heads["facebook/dinov2-large"].adapter[0].compute_dtype == torch.bfloat16
+
+
+def test_bf16_compute_over_float32_params_matches_bf16_storage():
+    """bf16 compute over float32 params (cast at each use, as in JAX) and the
+    same params stored in bf16 (serving) agree within bf16's own error. The
+    params are bf16 values, so every cast at use is exact; the one
+    difference is the encoder LayerNorm: float32 with the float32 params,
+    then cast (as flax computes it), against torch's fused bf16 LayerNorm
+    for bf16 params, which also computes in float32 inside. The two round
+    a few in 10^5 outputs the other way; the next matmul spreads each such
+    flip over a row, and from there the two runs round independently.
+    Tolerance: the two closer to each other than the bf16 run is to the
+    float32 run of the same params (backbone relative L2 ~1.6e-3 against
+    ~4.8e-3, heads ~6.3e-3 against ~9.5e-3)."""
+    model = TTheia(backbone=TINY, translator="lconv", target_feature_sizes=CDDSV, dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.to(torch.bfloat16))  # bf16 values in float32 storage
+    stored = TTheia(backbone=TINY, translator="lconv", target_feature_sizes=CDDSV, dtype=torch.bfloat16)
+    stored.load_state_dict(model.state_dict())
+    stored.to(torch.bfloat16)
+    exact = TTheia(backbone=TINY, translator="lconv", target_feature_sizes=CDDSV)
+    exact.load_state_dict(model.state_dict())
+    imgs = torch.from_numpy(_images(2, seed=4))
+    with torch.no_grad():
+        outs = [(m.forward_feature(imgs), m(imgs)) for m in (model, stored, exact)]
+    assert outs[0][0].dtype == outs[1][0].dtype == torch.bfloat16
+    for i, t in enumerate([None, *CDDSV]):
+        a, b, f = (o[0] if t is None else o[1][t] for o in outs)
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        bf16_err = float((b.float() - f).norm() / f.norm())
+        assert rel < bf16_err, (t, rel, bf16_err)

@@ -9,4 +9,8 @@ CUDA tensor reaches them.
 Serving path: ``models.hub.build_theia`` -> ``serving.Predictor`` ->
 ``models.rvfm.Theia`` -> ``models.vit.ViTBackbone`` (attention through the
 hand-written kernel in ``csrc/mha_fwd.cu``) and the lconv translator heads.
+Training path: ``train.step.make_train_step`` over the same ``Theia``, with
+``models.losses`` and ``train.optim``; attention's backward is
+``csrc/mha_bwd.cu`` and the head ladders' LayerNorm backward
+``csrc/ln_bwd.cu``.
 """

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 All sources under ``theia_tpu_torch/csrc`` compile into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds).
+with a plain C interface (no PyTorch headers, so a build takes seconds):
+one nvcc process per source, all started together, then one link.
 The library lands in ``theia_tpu_torch/_build/`` under a name that carries a
 hash of the sources and flags, so editing a source triggers a rebuild and a
 stale library is never loaded. Nothing here runs at import time: the first
@@ -20,11 +21,13 @@ import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCES = (PACKAGE_DIR / "csrc" / "mha_fwd.cu",)
+SOURCES = tuple(PACKAGE_DIR / "csrc" / name for name in ("mha_fwd.cu", "mha_bwd.cu", "ln_bwd.cu"))
+HEADERS = (PACKAGE_DIR / "csrc" / "mma_bf16.cuh",)
 BUILD_DIR = PACKAGE_DIR / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills per kernel, kept in the build log
 )
 
@@ -41,37 +44,42 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libtheia_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first that fails, else return their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile the sources unless a library for their current hash exists.
 
-    Compiles into a temporary file and renames it into place, so processes
-    that build at the same time never load a half-written library. The
-    compiler's output (ptxas resource usage) goes to ``<library>.log``.
+    Each source compiles to an object in its own nvcc process (all at once),
+    then one nvcc links the library into a temporary file that is renamed
+    into place, so processes that build at the same time never load a
+    half-written library. The compiler's output (ptxas resource usage) goes
+    to ``<library>.log``.
     """
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [str(Path(work) / f"{src.stem}.o") for src in SOURCES]
+        log = _run([[nvcc_path(), *NVCC_FLAGS, "-c", str(src), "-o", obj] for src, obj in zip(SOURCES, objs)])
+        tmp = str(Path(work) / out.name)
+        log += _run([[nvcc_path(), *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 
@@ -84,6 +92,14 @@ def load() -> ctypes.CDLL:
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.theia_mha_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, i64, i32, ctypes.c_float, ptr]
             lib.theia_mha_fwd.restype = i32
+            lib.theia_mha_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 6 + [i32, ctypes.c_float, ptr]
+            lib.theia_mha_bwd.restype = i32
+            lib.theia_ln_bwd_partials.argtypes = [i64]
+            lib.theia_ln_bwd_partials.restype = i32
+            lib.theia_ln_bwd_stats.argtypes = [ptr] * 11 + [i32, i64, i32, ptr]
+            lib.theia_ln_bwd_stats.restype = i32
+            lib.theia_ln_bwd_dx.argtypes = [ptr] * 8 + [i32, i64, i32, ptr]
+            lib.theia_ln_bwd_dx.restype = i32
             lib.theia_cuda_error_string.argtypes = [i32]
             lib.theia_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

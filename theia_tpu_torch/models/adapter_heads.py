@@ -7,6 +7,7 @@ reference's shape arithmetic (14 -pad-> 16 -> 31 -> 64, 64 -> 32 -> 16,
 14 -> 7) and run on NCHW maps in channels_last memory. Module indices are
 the reference ``nn.Sequential`` indices, so the parameter names are the
 reference state-dict names (``adapter.1.weight``, ``pad.1.bias``, ...).
+``dtype`` is the compute dtype, handed to every layer as in the JAX heads.
 """
 
 from __future__ import annotations
@@ -35,9 +36,9 @@ class _Tokens(nn.Module):
 class LinearAdapterHead(nn.Module):
     """CLS token -> Linear; used for ``<teacher>_cls`` targets."""
 
-    def __init__(self, source_size: Size, target_size: Size) -> None:
+    def __init__(self, source_size: Size, target_size: Size, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
-        self.adapter = nn.Sequential(DenseTorch(source_size[0], target_size[0]))
+        self.adapter = nn.Sequential(DenseTorch(source_size[0], target_size[0], compute_dtype=dtype))
 
     def forward(self, x: torch.Tensor, backbone_no_cls: bool = False) -> torch.Tensor:
         if backbone_no_cls:
@@ -48,10 +49,11 @@ class LinearAdapterHead(nn.Module):
 class _PadTo16(nn.Sequential):
     """ConvTranspose2d(k=3, s=1) from a (<=14)² map to 16² (reference index 1)."""
 
-    def __init__(self, channels: int, source_spatial: int) -> None:
+    def __init__(self, channels: int, source_spatial: int, dtype: torch.dtype) -> None:
         super().__init__(
             nn.Identity(),
-            ConvTranspose2dTorch(channels, channels, 3, stride=1, output_padding=14 - source_spatial),
+            ConvTranspose2dTorch(channels, channels, 3, stride=1, output_padding=14 - source_spatial,
+                                 compute_dtype=dtype),
         )
 
 
@@ -62,7 +64,8 @@ class LightConvAdapterHead(nn.Module):
     [B, H_t*W_t, C_t]. An unsupported geometry raises at construction.
     """
 
-    def __init__(self, source_size: Size, target_size: Size, hidden_size_factor: float = 1.0) -> None:
+    def __init__(self, source_size: Size, target_size: Size, hidden_size_factor: float = 1.0,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         if source_size[1] != source_size[2] or target_size[1] != target_size[2]:
             raise NotImplementedError("non-square feature maps are not supported.")
@@ -75,7 +78,7 @@ class LightConvAdapterHead(nn.Module):
         if s_s < 12:
             raise NotImplementedError("feature spatial size smaller than 12x12 is not supported.")
         elif s_s < 16 and s_t >= 16:
-            self.pad = _PadTo16(c_s, s_s)
+            self.pad = _PadTo16(c_s, s_s, dtype)
             s_s = 16
         elif not ((s_s in (16, 64)) or (s_s == 14 and s_t == 14) or s_t < 14):
             raise NotImplementedError(
@@ -83,50 +86,51 @@ class LightConvAdapterHead(nn.Module):
             )
 
         relu = nn.ReLU
+        kw = dict(compute_dtype=dtype)
         if s_s == 16 and s_t == 64:
             layers = [
-                LayerNormSpatial((c_s, 16, 16)),
-                ConvTranspose2dTorch(c_s, hidden, 3, stride=2, padding=1),  # 31
+                LayerNormSpatial((c_s, 16, 16), **kw),
+                ConvTranspose2dTorch(c_s, hidden, 3, stride=2, padding=1, **kw),  # 31
                 relu(),
-                LayerNormSpatial((hidden, 31, 31)),
-                ConvTranspose2dTorch(hidden, hidden, 3, stride=2, output_padding=1),  # 64
+                LayerNormSpatial((hidden, 31, 31), **kw),
+                ConvTranspose2dTorch(hidden, hidden, 3, stride=2, output_padding=1, **kw),  # 64
                 relu(),
-                LayerNormSpatial((hidden, 64, 64)),
+                LayerNormSpatial((hidden, 64, 64), **kw),
                 _Tokens(),
-                DenseTorch(hidden, c_t),
+                DenseTorch(hidden, c_t, **kw),
             ]
         elif s_s == s_t:
             layers = [
-                LayerNormSpatial((c_s, s_s, s_s)),
-                Conv2dTorch(c_s, hidden, 3, padding=1),
+                LayerNormSpatial((c_s, s_s, s_s), **kw),
+                Conv2dTorch(c_s, hidden, 3, padding=1, **kw),
                 relu(),
-                LayerNormSpatial((hidden, s_s, s_s)),
-                Conv2dTorch(hidden, hidden, 3, padding=1),
+                LayerNormSpatial((hidden, s_s, s_s), **kw),
+                Conv2dTorch(hidden, hidden, 3, padding=1, **kw),
                 relu(),
-                LayerNormSpatial((hidden, s_s, s_s)),
+                LayerNormSpatial((hidden, s_s, s_s), **kw),
                 _Tokens(),
-                DenseTorch(hidden, c_t),
+                DenseTorch(hidden, c_t, **kw),
             ]
         elif s_s == 64 and s_t == 16:
             layers = [
-                LayerNormSpatial((c_s, 64, 64)),
-                Conv2dTorch(c_s, hidden, 3, stride=2, padding=1),  # 32
+                LayerNormSpatial((c_s, 64, 64), **kw),
+                Conv2dTorch(c_s, hidden, 3, stride=2, padding=1, **kw),  # 32
                 relu(),
-                LayerNormSpatial((hidden, 32, 32)),
-                Conv2dTorch(hidden, hidden, 3, stride=2, padding=1),  # 16
+                LayerNormSpatial((hidden, 32, 32), **kw),
+                Conv2dTorch(hidden, hidden, 3, stride=2, padding=1, **kw),  # 16
                 relu(),
-                LayerNormSpatial((hidden, 16, 16)),
+                LayerNormSpatial((hidden, 16, 16), **kw),
                 _Tokens(),
-                DenseTorch(hidden, c_t),
+                DenseTorch(hidden, c_t, **kw),
             ]
         elif s_t == 7:
             layers = [
-                LayerNormSpatial((c_s, s_s, s_s)),
-                Conv2dTorch(c_s, hidden, 4, stride=2, padding=1),  # 14 -> 7
+                LayerNormSpatial((c_s, s_s, s_s), **kw),
+                Conv2dTorch(c_s, hidden, 4, stride=2, padding=1, **kw),  # 14 -> 7
                 relu(),
-                LayerNormSpatial((hidden, 7, 7)),
+                LayerNormSpatial((hidden, 7, 7), **kw),
                 _Tokens(),
-                DenseTorch(hidden, c_t),
+                DenseTorch(hidden, c_t, **kw),
             ]
         else:
             raise NotImplementedError(f"{source_size} to {target_size} is not supported.")

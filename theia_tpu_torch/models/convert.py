@@ -5,6 +5,9 @@ Port of theia_tpu/models/hf_convert.py:211-295 (``export_vit_backbone`` and
 param tree with numpy (or array-like) leaves. The output names and layouts
 are the reference ``RobotVisionFM`` state dict, which is also the port's
 ``Theia.state_dict()``, so ``Theia.load_state_dict(sd, strict=True)`` loads it.
+Every mapping is a reshape or transpose of a leaf, so any tree of the
+params' structure maps the same way: gradients and Adam moments land on
+the names and layouts of the port's parameters and optimizer state.
 """
 
 from __future__ import annotations

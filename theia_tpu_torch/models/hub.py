@@ -50,16 +50,22 @@ def build_theia(
     name: str,
     *,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    param_dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cuda",
     generator: Optional[torch.Generator] = None,
     feature_reduce_method: Optional[str] = None,
     **kwargs: Any,
 ) -> Theia:
     """Build a published Theia architecture (lconv translator) in eval mode.
 
-    The modules are created without storage, every parameter is drawn on the
+    ``dtype`` is the compute dtype, as the JAX ``build_theia(dtype=)``;
+    ``param_dtype`` the dtype the parameters are stored in: float32, as in
+    the JAX package, for training; serving may store them in the compute
+    dtype, which gives the same values with no cast at each use. The
+    modules are created without storage, every parameter is drawn on the
     CPU from ``generator`` (a CPU ``torch.Generator``; the global RNG when
-    None), and the model then moves to ``device`` and ``dtype``.
+    None), and the model then moves to ``device`` (the GPU unless the caller
+    asks for the CPU) and ``param_dtype``.
     """
     backbone, teachers = parse_model_name(name)
     sizes = {t: get_model_feature_size(t, keep_spatial=True) for t in teachers}
@@ -69,8 +75,9 @@ def build_theia(
             translator="lconv",
             target_feature_sizes=sizes,
             feature_reduce_method=feature_reduce_method,
+            dtype=dtype,
             **kwargs,
         )
     model.to_empty(device="cpu")
     model.reset_parameters(generator)
-    return model.to(device=device, dtype=dtype).eval()
+    return model.to(device=device, dtype=param_dtype).eval()

@@ -24,7 +24,9 @@ class Theia(nn.Module):
     """Student model: backbone + translator (reference RobotVisionFM).
 
     Inputs are uint8 images [B,H,W,C] or [B,C,H,W] (range 0-255), as tensors
-    or arrays; they are moved to the model's device.
+    or arrays; they are moved to the model's device. ``dtype`` is the
+    compute dtype of every layer (the JAX ``Theia.dtype``), whatever dtype
+    the parameters are stored in.
     """
 
     def __init__(
@@ -37,13 +39,16 @@ class Theia(nn.Module):
         image_size: int = 224,
         num_reg_tokens: int = 7,
         fast_math: bool = False,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
+        self.dtype = dtype
         self.backbone = build_backbone(
             backbone,
             image_size=image_size,
             num_reg_tokens=num_reg_tokens,
             fast_math=fast_math,
+            dtype=dtype,
         )
         self.no_cls = self.backbone.no_cls
         self.num_reg = self.backbone.num_reg_tokens
@@ -53,6 +58,7 @@ class Theia(nn.Module):
             kwargs = dict(translator_kwargs or {})
             kwargs["backbone_feature_size"] = self.backbone.get_feature_size(keep_spatial=True)
             kwargs["target_feature_sizes"] = dict(target_feature_sizes)
+            kwargs["dtype"] = dtype
             self.translator = build_feature_translator(translator, **kwargs)
 
     @torch.no_grad()

@@ -37,15 +37,16 @@ class LightConvFeatureTranslator(nn.Module):
         backbone_feature_size: Size,
         target_feature_sizes: dict[str, Size],
         hidden_size_factor: float = 1.0,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.target_feature_sizes = dict(target_feature_sizes)
         heads: dict[str, nn.Module] = {}
         for t, size in self.target_feature_sizes.items():
             if "_cls" in t:
-                heads[head_key(t)] = LinearAdapterHead(backbone_feature_size, size)
+                heads[head_key(t)] = LinearAdapterHead(backbone_feature_size, size, dtype)
             else:
-                heads[head_key(t)] = LightConvAdapterHead(backbone_feature_size, size, hidden_size_factor)
+                heads[head_key(t)] = LightConvAdapterHead(backbone_feature_size, size, hidden_size_factor, dtype)
         self.translator_heads = nn.ModuleDict(heads)
 
     def forward(

@@ -2,8 +2,16 @@
 
 Port of theia_tpu/models/vit.py:103-148,169-552 on the exact path: uint8
 preprocessing on the device, the patch embed, pre-LN blocks (eps 1e-12) with
-packed QKV, attention through ``ops.attention.multi_head_attention`` and
-exact-erf GELU, final LayerNorm.
+packed QKV, attention through ``ops.attention.packed_attention`` (the
+differentiable K1/K2 pair for "pallas") and exact-erf GELU, final LayerNorm.
+
+Mixed precision as in the JAX modules: ``dtype`` is the compute dtype; the
+parameters keep the dtype they are stored in (float32 for training) and are
+cast to ``dtype`` at use, gradients flowing back through the cast. The JAX
+package keeps three things in float32 whatever ``dtype`` is, and so does the
+port: the patch-embed matmul and its bias (``preferred_element_type``), the
+LayerNorms (flax computes stats, normalise and affine in float32 with the
+float32 params, then casts), and the attention scores and softmax.
 
 Parameter names follow HF ``ViTModel`` under ``model.`` (``model.embeddings.*``,
 ``model.encoder.layer.{i}.attention.attention.query`` ...), which is the
@@ -23,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from theia_tpu_torch.ops.attention import multi_head_attention
+from theia_tpu_torch.ops.attention import packed_attention
 from theia_tpu_torch.ops.image import bicubic_resize, preprocess_images
 
 
@@ -72,13 +80,25 @@ for _sz, _kw in _DEIT_SIZES.items():
         BACKBONE_CONFIGS[f"{_prefix}facebook/{_sz}"] = ViTBackboneConfig(**_kw)
 
 
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=dtype, param_dtype=float32)``: stats,
+    normalise and affine in float32 with the params as stored, output in
+    ``dtype``. With params stored in ``dtype`` already (bf16 serving) it is
+    torch's fused LayerNorm, which computes in float32 inside."""
+    if ln.weight.dtype == x.dtype == dtype:
+        return F.layer_norm(x, ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(), ln.eps)
+    return y.to(dtype)
+
+
 class _TransformerBlock(nn.Module):
     """Pre-LN ViT encoder block with HF ViTLayer numerics and names."""
 
-    def __init__(self, cfg: ViTBackboneConfig) -> None:
+    def __init__(self, cfg: ViTBackboneConfig, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         c = cfg.hidden_size
         self.cfg = cfg
+        self.dtype = dtype
         self.layernorm_before = nn.LayerNorm(c, eps=cfg.layer_norm_eps)
         self.attention = nn.ModuleDict({
             "attention": nn.ModuleDict(
@@ -90,23 +110,25 @@ class _TransformerBlock(nn.Module):
         self.intermediate = nn.ModuleDict({"dense": nn.Linear(c, cfg.intermediate_size)})
         self.output = nn.ModuleDict({"dense": nn.Linear(cfg.intermediate_size, c)})
 
+    def _dense(self, m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x, m.weight.to(dt), m.bias.to(dt))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        b, t, c = x.shape
-        nh = cfg.num_heads
-        h = self.layernorm_before(x)
+        dt = self.dtype
+        h = layer_norm(x, self.layernorm_before, dt)
         # packed QKV: one matmul over the concatenated column blocks
         qkv_layers = [self.attention["attention"][n] for n in ("query", "key", "value")]
-        w_qkv = torch.cat([m.weight for m in qkv_layers])
-        b_qkv = torch.cat([m.bias for m in qkv_layers]) if cfg.qkv_bias else None
+        w_qkv = torch.cat([m.weight for m in qkv_layers]).to(dt)
+        b_qkv = torch.cat([m.bias for m in qkv_layers]).to(dt) if cfg.qkv_bias else None
         qkv = F.linear(h, w_qkv, b_qkv)
-        # views into the packed projection: the kernel reads them in place
-        q, k, v = (y.view(b, t, nh, c // nh) for y in qkv.split(c, dim=-1))
-        ctx = multi_head_attention(q, k, v, implementation=cfg.attention_impl)
-        x = x + self.attention["output"]["dense"](ctx.reshape(b, t, c))
-        h = self.layernorm_after(x)
-        h = F.gelu(self.intermediate["dense"](h))  # exact erf GELU
-        return x + self.output["dense"](h)
+        # the kernels read q, k, v in place in the packed projection
+        ctx = packed_attention(qkv, cfg.num_heads, implementation=cfg.attention_impl)
+        x = x + self._dense(self.attention["output"]["dense"], ctx)
+        h = layer_norm(x, self.layernorm_after, dt)
+        h = F.gelu(self._dense(self.intermediate["dense"], h))  # exact erf GELU
+        return x + self._dense(self.output["dense"], h)
 
 
 class _Embeddings(nn.Module):
@@ -127,11 +149,11 @@ class _Embeddings(nn.Module):
 
 
 class _ViTModel(nn.Module):
-    def __init__(self, cfg: ViTBackboneConfig, variant: str, num_reg_tokens: int) -> None:
+    def __init__(self, cfg: ViTBackboneConfig, variant: str, num_reg_tokens: int, dtype: torch.dtype) -> None:
         super().__init__()
         self.embeddings = _Embeddings(cfg, variant, num_reg_tokens)
         self.encoder = nn.ModuleDict(
-            {"layer": nn.ModuleList(_TransformerBlock(cfg) for _ in range(cfg.num_layers))}
+            {"layer": nn.ModuleList(_TransformerBlock(cfg, dtype) for _ in range(cfg.num_layers))}
         )
         self.layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
@@ -145,9 +167,12 @@ class ViTBackbone(nn.Module):
         output [B, N, C];
       - "reg": CLS + patches + ``num_reg_tokens`` trailing register tokens
         with their own position embedding; output [B, 1+N+R, C].
+
+    ``dtype`` is the compute dtype (the output's dtype).
     """
 
-    def __init__(self, cfg: ViTBackboneConfig, variant: str = "cls", num_reg_tokens: int = 0) -> None:
+    def __init__(self, cfg: ViTBackboneConfig, variant: str = "cls", num_reg_tokens: int = 0,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         if variant not in ("cls", "nocls", "reg"):
             raise ValueError(f"unknown variant {variant}")
@@ -157,8 +182,9 @@ class ViTBackbone(nn.Module):
             raise NotImplementedError("fast_math is not ported yet (ROADMAP Queue 1, serving items)")
         self.cfg = cfg
         self.variant = variant
+        self.dtype = dtype
         self.num_reg_tokens = num_reg_tokens if variant == "reg" else 0
-        self.model = _ViTModel(cfg, variant, self.num_reg_tokens)
+        self.model = _ViTModel(cfg, variant, self.num_reg_tokens, dtype)
 
     @property
     def no_cls(self) -> bool:
@@ -183,17 +209,19 @@ class ViTBackbone(nn.Module):
                 nn.init.trunc_normal_(p, std=self.cfg.initializer_range, generator=generator)
 
     def _patch_embed(self, x: torch.Tensor) -> torch.Tensor:
-        """[B,H,W,3] float -> [B,N,C] as extract-patches + one float32 matmul
-        (the JAX formulation; cuBLAS runs it faster than cuDNN's non-TF32
-        conv), then cast."""
+        """[B,H,W,3] in the compute dtype -> [B,N,C] as extract-patches + one
+        float32 matmul over the kernel cast to the compute dtype, plus the
+        float32 bias, then cast (the JAX formulation; cuBLAS runs it faster
+        than cuDNN's non-TF32 conv)."""
         proj = self.model.embeddings.patch_embeddings["projection"]
         p = self.cfg.patch_size
         b, h, w, _ = x.shape
         nh, nw = h // p, w // p
         patches = x.permute(0, 3, 1, 2)[..., : nh * p, : nw * p].reshape(b, 3, nh, p, nw, p)
         patches = patches.permute(0, 2, 4, 1, 3, 5).reshape(b, nh * nw, 3 * p * p)  # (c, kh, kw) order
-        y = F.linear(patches.float(), proj.weight.float().reshape(proj.out_channels, -1), proj.bias.float())
-        return y.to(x.dtype)
+        weight = proj.weight.to(self.dtype).float().reshape(proj.out_channels, -1)
+        y = F.linear(patches.float(), weight, proj.bias.float())
+        return y.to(self.dtype)
 
     def _interp_patch_pos(self, nh: int, nw: int) -> torch.Tensor:
         """Bicubic pos-embed interpolation with the reference's h0+0.1 quirk:
@@ -219,7 +247,7 @@ class ViTBackbone(nn.Module):
         """uint8 [B,H,W,C] or [B,C,H,W] images -> last hidden state tokens."""
         cfg = self.cfg
         emb = self.model.embeddings
-        dtype = emb.position_embeddings.dtype
+        dtype = self.dtype
         x = preprocess_images(
             x,
             do_resize=do_resize,
@@ -242,16 +270,16 @@ class ViTBackbone(nn.Module):
         if self.variant == "nocls":
             tokens = tokens + patch_pos.to(dtype)
         else:
-            parts = [emb.cls_token.expand(b, -1, -1), tokens]
+            parts = [emb.cls_token.to(dtype).expand(b, -1, -1), tokens]
             pos_parts = [pos[:, :1], patch_pos]
             if self.variant == "reg":
-                parts.append(emb.reg_token.expand(b, -1, -1))
+                parts.append(emb.reg_token.to(dtype).expand(b, -1, -1))
                 pos_parts.append(emb.reg_pos_embed)
             tokens = torch.cat(parts, dim=1) + torch.cat(pos_parts, dim=1).to(dtype)
 
         for block in self.model.encoder["layer"]:
             tokens = block(tokens)
-        return self.model.layernorm(tokens)
+        return layer_norm(tokens, self.model.layernorm, dtype)
 
 
 def build_backbone(
@@ -259,13 +287,14 @@ def build_backbone(
     image_size: int = 224,
     num_reg_tokens: int = 7,
     fast_math: bool = False,
+    dtype: torch.dtype = torch.float32,
 ) -> ViTBackbone:
     """Backbone factory dispatching on "reg"/"nocls"/"deit" substrings."""
     if model_name not in BACKBONE_CONFIGS:
         raise NotImplementedError(f"Requested {model_name} is not implemented.")
     cfg = dataclasses.replace(BACKBONE_CONFIGS[model_name], image_size=image_size, fast_math=fast_math)
     if "reg" in model_name:
-        return ViTBackbone(cfg, variant="reg", num_reg_tokens=num_reg_tokens)
+        return ViTBackbone(cfg, variant="reg", num_reg_tokens=num_reg_tokens, dtype=dtype)
     if "nocls" in model_name:
-        return ViTBackbone(cfg, variant="nocls")
-    return ViTBackbone(cfg, variant="cls")
+        return ViTBackbone(cfg, variant="nocls", dtype=dtype)
+    return ViTBackbone(cfg, variant="cls", dtype=dtype)

@@ -1,1 +1,1 @@
-"""Tensor ops of the PyTorch port: image preprocessing, init, attention (with its CUDA kernel)."""
+"""Tensor ops of the PyTorch port: image preprocessing, init, attention and the LayerNormSpatial backward (with their CUDA kernels)."""

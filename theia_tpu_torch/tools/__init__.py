@@ -1,0 +1,1 @@
+"""Measurement scripts of the PyTorch port (run on a CUDA device)."""
