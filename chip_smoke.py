@@ -10,19 +10,28 @@ failure (the script then exits nonzero and prints no result):
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
    64] as views of a packed QKV projection, K3 and K4 (LayerNormSpatial
-   backward) at every ladder LayerNorm of the Theia-Base cddsv heads;
+   backward) at every ladder LayerNorm of the Theia-Base cddsv heads, K5
+   and K6 (the fused loss's sums and d pred) at the five cddsv teachers'
+   [16, D] and over a sweep of B and D;
 4. serving: Theia-Base cddsv (seeded random weights) behind
    ``serving.Predictor``, answering requests through ``forward_feature``,
    ``predict`` and ``predict_stream`` in float32, then ``forward_feature``
    in bf16; shapes, finiteness, K1's launch count, and agreement with the
    same model on the plain attention path;
-5. training: the distillation train step (``train.step.make_train_step``)
-   of Theia-Base cddsv, float32 params and bf16 compute, masked AdamW with
-   bf16 moments at the recipe's settings, batch 16, on one fixed batch:
-   finite and falling loss, one eval step, exact launch counts of K1-K4;
-   one step's loss and gradients on the kernel path against the plain path
-   (float32, TF32 off), and bf16 gradients against float32 ones;
-6. timings with CUDA events after warmup, and each kernel's bound.
+5. training in the JAX package's exact mode: the distillation train step
+   (``train.step.make_train_step``) of Theia-Base cddsv, float32 params and
+   bf16 compute, masked AdamW with bf16 moments at the recipe's settings,
+   batch 16, on one fixed batch: finite and falling loss, one eval step,
+   exact launch counts of K1-K6; one step's loss and gradients on the
+   kernel path against the plain path (float32, TF32 off), and bf16
+   gradients against float32 ones;
+6. training at the production recipe (theia_tpu/configs/training/
+   frame_level.yaml): the same step with ``fast_math`` and
+   ``fuse_preprocessing``, full width and depth: finite and falling loss,
+   exact launch counts (K1 = K2 = 0, K3-K6 on every step), one float32
+   step on the kernel path against the plain path, and ``forward_feature``
+   with the fused preprocessing against the unfused one;
+7. timings with CUDA events after warmup, and each kernel's bound.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -71,10 +80,30 @@ TRAIN_GRAD_REL_L2 = 5e-3
 # them: the kernel path may be no further off than this many times the plain
 # path (bf16 rounds at the same places on both; the sums' order differs)
 TRAIN_BF16_GRAD_FACTOR = 1.25
+# the recipe's float32 step, kernel path vs plain path: the loss differs
+# only in the fused sums' order (the attention is the same fast_math code
+# on both paths)
+RECIPE_LOSS_RTOL = 1e-5
+# fused preprocessing vs the unfused model, forward_feature tokens in
+# float32: the JAX package's own bound for the same comparison
+# (tests/test_fused_preprocessing.py). The fused path skips the PIL
+# inter-pass uint8 rounding, which alone moves the tokens ~1.7% (relative
+# L2, mse ~3e-4 of a mean square of 1, Theia-tiny on CPU at any depth); bf16
+# adds its own rounding on top, so the comparison runs in float32
+FUSED_PREPROCESSING_MSE = 5e-4
+# K5 against its plain version: float32 sums in another order, within
+# this fraction of the sum of the terms' magnitudes (log2(D) roundings of
+# 6e-8 each is ~1.2e-6 at D = 2^20); K6 computes each element in the plain
+# version's order: float32 relative L2 1e-6, bf16 as the other kernels
+LOSS_SUMS_REL = 1e-5
+LOSS_DP_F32_REL_L2 = 1e-6
+LOSS_SWEEP_D = (1, 127, 1024, 4096 * 32)
 TRAIN_BATCH = 16
 TRAIN_STEPS = 20
 # the recipe, theia_tpu/configs/training/frame_level.yaml
 BASE_LR, BASE_BATCH, BASE_WORLD, WARMUP_STEPS = 2e-3, 64, 8, 2
+# torch.cuda._sleep's unit is an SM clock cycle; at most 1.98 GHz on an H100
+SLEEP_CYCLES_PER_MS = 2_000_000
 # the H100 SXM's published peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -87,8 +116,16 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             m = re.search(r"\d(mha_\w+?|ln_bwd_\w+?)(?:ILi(\d+)E|If?E|I13__nv_bfloat16E|E)", mangled)
+            loss = re.search(r"\d(loss_sums_[a-z]+)(?:I(\w+?)Lb([01])E)?", mangled)
             name = m.group(1) if m else mangled
-            if m and m.group(2):
+            if loss:
+                name = loss.group(1)
+                if loss.group(2):
+                    # float is "f"; bf16 is "13__nv_bfloat16", or "S<n>_" where it repeats
+                    types = ",".join("f32" if x == "f" else "bf16"
+                                     for x in re.findall(r"f|13__nv_bfloat16|S\d*_", loss.group(2)))
+                    name += f"<{types},{'vec8' if loss.group(3) == '1' else 'scalar'}>"
+            elif m and m.group(2):
                 name += f"<{m.group(2)}>"
             elif m and "ln_bwd" in name and "finish" not in name:
                 name += "<bf16>" if "bfloat16" in mangled else "<f32>"
@@ -109,9 +146,21 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call over ``iters`` back-to-back calls."""
+def cuda_ms(fn, iters: int, hold: bool = False) -> float:
+    """Mean device milliseconds per call over ``iters`` back-to-back calls.
+
+    ``hold``: the stream first sleeps for twice the host's time to enqueue
+    the calls (measured on one call, at least ~50 ms), so that the host
+    enqueues them while the device waits and the events time the device's
+    work alone, without the gaps of a host slower than the kernels. The
+    calls must stay within the launch queue's depth (~1000 kernels)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda._sleep(int(max(50.0, 2 * iters * host_ms) * SLEEP_CYCLES_PER_MS))
     start.record()
     for _ in range(iters):
         fn()
@@ -120,15 +169,17 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def interleaved_ms(fns: dict, iters: int = 20) -> dict:
-    """Each function's ms, timed in the order a, b, ..., ..., b, a after warmup."""
+def interleaved_ms(fns: dict, iters: int = 20, hold: bool = True) -> dict:
+    """Each function's ms, timed in the order a, b, ..., ..., b, a after
+    warmup; device time with the stream held (``cuda_ms``) unless ``hold``
+    is False, which times back-to-back calls as the host issues them."""
     for fn in fns.values():
         for _ in range(3):
             fn()
     order = list(fns) + list(reversed(fns))
     times = {k: [] for k in fns}
     for k in order:
-        times[k].append(cuda_ms(fns[k], iters))
+        times[k].append(cuda_ms(fns[k], iters, hold))
     return {k: sum(v) / len(v) for k, v in times.items()}
 
 
@@ -235,6 +286,48 @@ def compare_kernels(attention, ln_pallas) -> dict:
     return errors
 
 
+def compare_loss_kernels(fused_loss, teacher_dims: list[int]) -> dict:
+    """Phase 3, K5 and K6 against their plain versions at the teachers' [16,
+    D] (bf16 pred with float32 target, and float32 both) and over a sweep
+    of B and D; the max abs errors at the recipe's SAM map."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(TRAIN_BATCH, d, pdt, f32) for d in teacher_dims for pdt in (bf16, f32)]
+    cases += [(b, d, pdt, tdt) for b in (1, TRAIN_BATCH) for d in LOSS_SWEEP_D
+              for pdt, tdt in ((bf16, f32), (f32, f32), (bf16, bf16))]
+    errors, worst = {}, {"sums": 0.0, "dp_f32": 0.0, "dp_bf16": 0.0}
+    bitwise = True
+    for b, d, pdt, tdt in cases:
+        p = torch.randn(b, d, device="cuda", generator=gen).to(pdt)
+        t = torch.randn(b, d, device="cuda", generator=gen).to(tdt)
+        g = torch.randn(b, 5, device="cuda", generator=gen)
+        sums, dp = fused_loss.loss_sums_fwd(p, t), fused_loss.loss_sums_bwd(p, t, g)
+        torch.cuda.synchronize()
+        want = fused_loss.loss_sums_plain(p, t)
+        scale = fused_loss.loss_sums_plain(p.abs(), -t.abs()).abs()  # the sums of the terms' magnitudes
+        rel = float(((sums - want).abs() / scale.clamp_min(1e-30)).max())
+        want_dp = fused_loss.loss_sums_bwd_plain(p, t, g)
+        dp_rel = rel_l2(dp.float(), want_dp.float())
+        bitwise = bitwise and torch.equal(dp, want_dp)
+        worst["sums"] = max(worst["sums"], rel)
+        worst["dp_f32" if pdt == f32 else "dp_bf16"] = max(worst["dp_f32" if pdt == f32 else "dp_bf16"], dp_rel)
+        errors[("loss_sums_fwd", b, d, pdt, tdt)] = float((sums - want).abs().max())
+        errors[("loss_sums_bwd", b, d, pdt, tdt)] = float((dp.float() - want_dp.float()).abs().max())
+        if b == TRAIN_BATCH and d in teacher_dims and tdt == f32:
+            dn = f"{str(pdt).split('.')[-1]}/{str(tdt).split('.')[-1]}"
+            print(f"  K5 loss_sums_fwd {dn} [{b},{d}]: max_abs_err {errors[('loss_sums_fwd', b, d, pdt, tdt)]:.3e}, "
+                  f"worst |err| / sum of |terms| {rel:.3e} (< {LOSS_SUMS_REL}); K6 loss_sums_bwd max_abs_err "
+                  f"{errors[('loss_sums_bwd', b, d, pdt, tdt)]:.3e}, rel_l2 {dp_rel:.3e}")
+    print(f"  K5/K6 over B in (1, {TRAIN_BATCH}) x D in {LOSS_SWEEP_D}, bf16|f32 pred x f32|bf16 target, and the "
+          f"teachers: worst sums |err| / sum of |terms| {worst['sums']:.3e} (< {LOSS_SUMS_REL}); d pred rel_l2 "
+          f"float32 {worst['dp_f32']:.3e} (< {LOSS_DP_F32_REL_L2}), bf16 {worst['dp_bf16']:.3e} "
+          f"(< {KERNEL_BF16_REL_L2}); d pred bit for bit equal to the plain version in every case: {bitwise}")
+    check(worst["sums"] < LOSS_SUMS_REL, "K5 disagrees with its plain version")
+    check(worst["dp_f32"] < LOSS_DP_F32_REL_L2 and worst["dp_bf16"] < KERNEL_BF16_REL_L2,
+          "K6 disagrees with its plain version")
+    return errors
+
+
 def loss_and_grads(model, images, targets):
     """One step's loss and gradients (the train step's loss, no update)."""
     from theia_tpu_torch.models.losses import get_loss, main_loss_from_terms
@@ -258,9 +351,9 @@ def main() -> int:
         return 1
     from theia_tpu_torch.foundation.common import get_model_feature_size
     from theia_tpu_torch.kernels import build
-    from theia_tpu_torch.models import layers, vit
+    from theia_tpu_torch.models import layers, losses as loss_module, vit
     from theia_tpu_torch.models.hub import build_theia, parse_model_name
-    from theia_tpu_torch.ops import attention, ln_pallas
+    from theia_tpu_torch.ops import attention, fused_loss, ln_pallas
     from theia_tpu_torch.serving import Predictor
     from theia_tpu_torch.train.optim import constant_with_warmup, make_optimizer, scaled_lr
     from theia_tpu_torch.train.state import TrainState
@@ -289,6 +382,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
     kernel_errors = compare_kernels(attention, ln_pallas)
+    _, teachers = parse_model_name(MODEL)
+    teacher_dims = [math.prod(get_model_feature_size(t, keep_spatial=True)) for t in teachers]
+    kernel_errors.update(compare_loss_kernels(fused_loss, teacher_dims))
 
     # phase 4: serving
     t0 = time.perf_counter()
@@ -317,7 +413,6 @@ def main() -> int:
           f"{serve_launches}, expected 12 layers x {4 * batches_per_pass} bucket batches = {expected}")
     check(serve_launches == expected, f"mha_fwd launched {serve_launches} times on the main path, expected {expected}")
 
-    _, teachers = parse_model_name(MODEL)
     sizes = {t: model.translator.target_feature_sizes[t] for t in teachers}
     for n, f, p, s, fb in zip(REQUESTS, feats, preds, streamed, feats_bf16):
         for name, arr in [("forward_feature", f), ("stream", s), ("bf16 forward_feature", fb)]:
@@ -360,7 +455,7 @@ def main() -> int:
     check(bf16_err < MODEL_BF16_REL_L2, "bf16 forward_feature far from float32")
     del plain_model, plain_ff, plain_predict, preds
 
-    # phase 5: training, bf16 compute over float32 params, the recipe's optimizer
+    # phase 5: training in exact mode, bf16 compute over float32 params, the recipe's optimizer
     trng = np.random.default_rng(1)
     images = torch.from_numpy(trng.integers(0, 256, (TRAIN_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
     targets = {
@@ -370,78 +465,102 @@ def main() -> int:
     }
     lr = scaled_lr(BASE_LR, TRAIN_BATCH, 1, BASE_BATCH, BASE_WORLD)
 
-    def trainer(dtype):
-        m = build_theia(MODEL, dtype=dtype, generator=torch.Generator().manual_seed(2))
+    def reset_counts():
+        attention.MHA_FWD_LAUNCHES = attention.MHA_BWD_LAUNCHES = 0
+        ln_pallas.LN_BWD_STATS_LAUNCHES = ln_pallas.LN_BWD_DX_LAUNCHES = 0
+        fused_loss.LOSS_SUMS_FWD_LAUNCHES = fused_loss.LOSS_SUMS_BWD_LAUNCHES = fused_loss.LOSS_INPUT_COPIES = 0
+
+    def read_counts():
+        return {
+            "mha_fwd": attention.MHA_FWD_LAUNCHES, "mha_bwd": attention.MHA_BWD_LAUNCHES,
+            "ln_bwd_stats": ln_pallas.LN_BWD_STATS_LAUNCHES, "ln_bwd_dx": ln_pallas.LN_BWD_DX_LAUNCHES,
+            "loss_sums_fwd": fused_loss.LOSS_SUMS_FWD_LAUNCHES, "loss_sums_bwd": fused_loss.LOSS_SUMS_BWD_LAUNCHES,
+            "loss_input_copies": fused_loss.LOSS_INPUT_COPIES,
+        }
+
+    def trainer(dtype, **flags):
+        m = build_theia(MODEL, dtype=dtype, generator=torch.Generator().manual_seed(2), **flags)
         tx = make_optimizer(constant_with_warmup(lr, WARMUP_STEPS), weight_decay=0.01, betas=(0.9, 0.999),
                             eps=1e-8, moment_dtype=torch.bfloat16)
         return m, tx, TrainState.create(dict(m.named_parameters()), tx)
 
-    tmodel, tx, state = trainer(torch.bfloat16)
-    step = make_train_step(tmodel, tx, main_loss="cos_l1")
-    eval_step = make_eval_step(tmodel, main_loss="cos_l1")
-    n_layers = tmodel.backbone.cfg.num_layers
-    n_ln = sum(isinstance(mod, layers.LayerNormSpatial) for mod in tmodel.modules())
-    print(f"phase 5, training: {MODEL}, float32 params, bf16 compute, bf16 Adam moments, lr {lr:g} "
-          f"(scaled_lr at batch {TRAIN_BATCH}, world 1), warmup {WARMUP_STEPS}; {n_layers} attention layers, "
-          f"{n_ln} LayerNormSpatial sites")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    attention.MHA_FWD_LAUNCHES = attention.MHA_BWD_LAUNCHES = 0
-    ln_pallas.LN_BWD_STATS_LAUNCHES = ln_pallas.LN_BWD_DX_LAUNCHES = 0
-    losses = []
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    for i in range(TRAIN_STEPS):
-        if i == 5:
-            start.record()
-        state, metrics = step(state, images, targets)
-        losses.append(metrics["loss"])
-    end.record()
-    eval_metrics = eval_step(images, targets)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    launches = {
-        "mha_fwd": attention.MHA_FWD_LAUNCHES, "mha_bwd": attention.MHA_BWD_LAUNCHES,
-        "ln_bwd_stats": ln_pallas.LN_BWD_STATS_LAUNCHES, "ln_bwd_dx": ln_pallas.LN_BWD_DX_LAUNCHES,
-    }
-    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - 5)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [float(x) for x in losses]
-    eval_loss = float(eval_metrics["loss"])
-    print(f"  {TRAIN_STEPS} steps + 1 eval in {train_s:.1f} s; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
-          f"eval loss {eval_loss:.6f}")
-    print(f"  losses: {' '.join(f'{x:.6f}' for x in losses)}")
-    check(all(math.isfinite(x) for x in losses + [eval_loss]), "a training loss is not finite")
-    check(losses[-1] < losses[0], "the training loss did not fall")
-    want = {"mha_fwd": n_layers * (TRAIN_STEPS + 1), "mha_bwd": n_layers * TRAIN_STEPS,
-            "ln_bwd_stats": n_ln * TRAIN_STEPS, "ln_bwd_dx": n_ln * TRAIN_STEPS}
-    print(f"  launches {launches}, expected {want}")
-    check(launches == want, "kernel launch counts of the training path are off")
-    print(f"  train step B={TRAIN_BATCH}: {step_ms:.3f} ms/step, {TRAIN_BATCH / step_ms * 1e3:.1f} images/s "
-          f"(CUDA events over steps 6-{TRAIN_STEPS}), peak memory allocated {peak_gb:.2f} GB ({card})")
-    del tmodel, tx, state, step, eval_step, metrics, eval_metrics
-    torch.cuda.empty_cache()
+    def train(label: str, **flags) -> tuple[dict, int]:
+        """TRAIN_STEPS steps and one eval on the fixed batch, with the launch
+        counts set to 0 just before and read just after; checks a finite,
+        falling loss. Returns the counts and the number of LayerNormSpatial
+        sites."""
+        tmodel, tx, state = trainer(torch.bfloat16, **flags)
+        step = make_train_step(tmodel, tx, main_loss="cos_l1")
+        eval_step = make_eval_step(tmodel, main_loss="cos_l1")
+        n_ln = sum(isinstance(mod, layers.LayerNormSpatial) for mod in tmodel.modules())
+        print(f"{label}: {MODEL}, float32 params, bf16 compute, bf16 Adam moments, lr {lr:g} (scaled_lr at batch "
+              f"{TRAIN_BATCH}, world 1), warmup {WARMUP_STEPS}, cos_l1, {flags or 'exact mode'}; "
+              f"{tmodel.backbone.cfg.num_layers} attention layers, {n_ln} LayerNormSpatial sites")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            if i == 5:
+                start.record()
+            state, metrics = step(state, images, targets)
+            losses.append(metrics["loss"])
+        end.record()
+        eval_metrics = eval_step(images, targets)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        train_s = time.perf_counter() - t0
+        step_ms = start.elapsed_time(end) / (TRAIN_STEPS - 5)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [float(x) for x in losses]
+        eval_loss = float(eval_metrics["loss"])
+        print(f"  {TRAIN_STEPS} steps + 1 eval in {train_s:.1f} s; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+              f"eval loss {eval_loss:.6f}")
+        print(f"  losses: {' '.join(f'{x:.6f}' for x in losses)}")
+        check(all(math.isfinite(x) for x in losses + [eval_loss]), f"{label}: a training loss is not finite")
+        check(losses[-1] < losses[0], f"{label}: the training loss did not fall")
+        print(f"  train step B={TRAIN_BATCH}: {step_ms:.3f} ms/step, {TRAIN_BATCH / step_ms * 1e3:.1f} images/s "
+              f"(CUDA events over steps 6-{TRAIN_STEPS}), peak memory allocated {peak_gb:.2f} GB ({card})")
+        del tmodel, tx, state, step, eval_step, metrics, eval_metrics
+        torch.cuda.empty_cache()
+        return counts, n_ln
+
+    n_layers = saved_cfg.num_layers
+    n_teachers, evals = len(teachers), 1
+    exact_counts, n_ln = train("phase 5, training (exact mode)")
+    want = {"mha_fwd": n_layers * (TRAIN_STEPS + evals), "mha_bwd": n_layers * TRAIN_STEPS,
+            "ln_bwd_stats": n_ln * TRAIN_STEPS, "ln_bwd_dx": n_ln * TRAIN_STEPS,
+            "loss_sums_fwd": n_teachers * (TRAIN_STEPS + evals), "loss_sums_bwd": n_teachers * TRAIN_STEPS,
+            "loss_input_copies": 0}
+    print(f"  launches {exact_counts}, expected {want}")
+    check(exact_counts == want, "kernel launch counts of the exact-mode training path are off")
 
     # one step from identical weights: kernel path vs plain path, float32 and bf16
-    def grads_on(path: str, dtype: torch.dtype):
+    def grads_on(path: str, dtype: torch.dtype, **flags):
         seed = torch.Generator().manual_seed(3)
         if path == "kernel":
-            return loss_and_grads(build_theia(MODEL, dtype=dtype, generator=seed), images, targets)
-        layers.LN_STATS_IMPL = "vpu"
+            return loss_and_grads(build_theia(MODEL, dtype=dtype, generator=seed, **flags), images, targets)
+        layers.LN_STATS_IMPL, loss_module.FUSED_LOSS = "vpu", False
         try:
-            return loss_and_grads(plain_attention_model(dtype=dtype, generator=seed), images, targets)
+            return loss_and_grads(plain_attention_model(dtype=dtype, generator=seed, **flags), images, targets)
         finally:
-            layers.LN_STATS_IMPL = "pallas"
+            layers.LN_STATS_IMPL, loss_module.FUSED_LOSS = "pallas", True
 
-    (kloss, kgrads), (ploss, pgrads) = grads_on("kernel", torch.float32), grads_on("plain", torch.float32)
-    names = [n for n in pgrads if not n.endswith("key.bias")]
-    worst = max((rel_l2(kgrads[n], pgrads[n]), n) for n in names)
-    key_bias = max(float(g.abs().max()) for n, g in kgrads.items() if n.endswith("key.bias"))
-    print(f"  one float32 step, kernel path vs plain path (attention einsum, LN_STATS_IMPL vpu): loss "
-          f"{kloss:.7f} vs {ploss:.7f}; worst gradient rel_l2 {worst[0]:.3e} ({worst[1]}; < {TRAIN_GRAD_REL_L2}); "
-          f"key-bias gradients (0 in exact arithmetic) max abs {key_bias:.2e}")
-    check(abs(kloss - ploss) <= TRAIN_LOSS_RTOL * abs(ploss), "training loss: kernel path vs plain path")
-    check(worst[0] < TRAIN_GRAD_REL_L2, "a gradient: kernel path vs plain path")
+    def kernel_vs_plain(loss_rtol: float, **flags):
+        (kloss, kgrads), (ploss, pgrads) = grads_on("kernel", torch.float32, **flags), grads_on("plain", torch.float32, **flags)
+        names = [n for n in pgrads if not n.endswith("key.bias")]
+        worst = max((rel_l2(kgrads[n], pgrads[n]), n) for n in names)
+        key_bias = max(float(g.abs().max()) for n, g in kgrads.items() if n.endswith("key.bias"))
+        print(f"  one float32 step, kernel path vs plain path (attention einsum, LN_STATS_IMPL vpu, FUSED_LOSS "
+              f"False): loss {kloss:.7f} vs {ploss:.7f} (rtol {loss_rtol}); worst gradient rel_l2 {worst[0]:.3e} "
+              f"({worst[1]}; < {TRAIN_GRAD_REL_L2}); key-bias gradients (0 in exact arithmetic) max abs {key_bias:.2e}")
+        check(abs(kloss - ploss) <= loss_rtol * abs(ploss), "training loss: kernel path vs plain path")
+        check(worst[0] < TRAIN_GRAD_REL_L2, "a gradient: kernel path vs plain path")
+        return names, kgrads
+
+    names, kgrads = kernel_vs_plain(TRAIN_LOSS_RTOL)
     bf16_err = {}
     for path in ("kernel", "plain"):
         _, bgrads = grads_on(path, torch.bfloat16)
@@ -457,11 +576,34 @@ def main() -> int:
           f"(limit {TRAIN_BF16_GRAD_FACTOR} x the plain path's)")
     check(bf16_err["kernel"] <= TRAIN_BF16_GRAD_FACTOR * bf16_err["plain"],
           "bf16 gradients of the kernel path further from float32 than the plain path's")
-    del kgrads, pgrads
+    del kgrads
     torch.cuda.empty_cache()
 
-    # phase 6: timings
-    print(f"phase 6: timings on {card}:")
+    # phase 6: the production recipe at full width and depth
+    recipe = dict(fast_math=True, fuse_preprocessing=True)
+    recipe_counts, _ = train("phase 6, training (the production recipe)", **recipe)
+    want = {"mha_fwd": 0, "mha_bwd": 0, "ln_bwd_stats": n_ln * TRAIN_STEPS, "ln_bwd_dx": n_ln * TRAIN_STEPS,
+            "loss_sums_fwd": n_teachers * (TRAIN_STEPS + evals), "loss_sums_bwd": n_teachers * TRAIN_STEPS,
+            "loss_input_copies": 0}
+    print(f"  launches {recipe_counts}, expected {want}")
+    check(recipe_counts == want, "kernel launch counts of the recipe's training path are off")
+    kernel_vs_plain(RECIPE_LOSS_RTOL, **recipe)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        fused_m = build_theia(MODEL, generator=torch.Generator().manual_seed(4), **recipe)
+        unfused_m = build_theia(MODEL, fast_math=True, generator=torch.Generator().manual_seed(4))
+        check(fused_m.backbone.fuse_preprocessing and not unfused_m.backbone.fuse_preprocessing, "fuse flags")
+        a, b = fused_m.forward_feature(images), unfused_m.forward_feature(images)
+        mse = float((a - b).square().mean())
+        print(f"  forward_feature, fused preprocessing vs unfused (float32, fast_math, [{TRAIN_BATCH},196,768]): "
+              f"mse {mse:.3e} (< {FUSED_PREPROCESSING_MSE}), rel_l2 {rel_l2(a, b):.3e}, tokens' mean square "
+              f"{float(b.square().mean()):.3e}")
+        check(bool(torch.isfinite(a).all()) and mse < FUSED_PREPROCESSING_MSE, "fused preprocessing far from unfused")
+    del fused_m, unfused_m, a, b
+    torch.cuda.empty_cache()
+
+    # phase 7: timings
+    print(f"phase 7: timings on {card}:")
     x1 = torch.from_numpy(requests[0]).cuda()
     x64 = torch.from_numpy(requests[3][:64]).cuda()
     with torch.inference_mode():
@@ -563,18 +705,62 @@ def main() -> int:
         if dtype == bf16 and s == 64:
             record["ln_bwd_stats"], record["ln_bwd_dx"] = r3, r4
 
+    # K5 and K6 over the five teachers of one step: [16, D] bf16 pred from
+    # the heads, float32 targets (the recipe's loss_dtype), and float32 both
+    shapes = "+".join(f"[{TRAIN_BATCH},{d}]" for d in teacher_dims)
+    for pdt in (bf16, torch.float32):
+        preds = [torch.randn(TRAIN_BATCH, d, device="cuda", generator=gen).to(pdt) for d in teacher_dims]
+        tgts = [torch.randn(TRAIN_BATCH, d, device="cuda", generator=gen) for d in teacher_dims]
+        gs = [torch.randn(TRAIN_BATCH, 5, device="cuda", generator=gen) for _ in teacher_dims]
+        n = TRAIN_BATCH * sum(teacher_dims)
+        pb = preds[0].element_size()
+        r5 = kernel_row("K5 loss_sums_fwd", {
+            "plain": lambda: [fused_loss.loss_sums_plain(p, t) for p, t in zip(preds, tgts)],
+            "kernel": lambda: [fused_loss.loss_sums_fwd(p, t) for p, t in zip(preds, tgts)]},
+            n * (pb + 4) + len(teacher_dims) * TRAIN_BATCH * 5 * 4, 10 * n, torch.float32, f"{str(pdt).split('.')[-1]} pred, float32 target, {shapes}")
+        r6 = kernel_row("K6 loss_sums_bwd", {
+            "plain": lambda: [fused_loss.loss_sums_bwd_plain(p, t, g) for p, t, g in zip(preds, tgts, gs)],
+            "kernel": lambda: [fused_loss.loss_sums_bwd(p, t, g) for p, t, g in zip(preds, tgts, gs)]},
+            n * (2 * pb + 4) + len(teacher_dims) * TRAIN_BATCH * 5 * 4, 10 * n, torch.float32, f"{str(pdt).split('.')[-1]} pred, float32 target, {shapes}")
+        if pdt == bf16:
+            record["loss_sums_fwd"], record["loss_sums_bwd"] = r5, r6
+
+    # the loss section of a step, forward and backward, fused against unfused
+    hw_c = [(get_model_feature_size(t)[1], get_model_feature_size(t)[0]) for t in teachers]
+    lpreds = {t: torch.randn(TRAIN_BATCH, hw, c, device="cuda", generator=gen).to(bf16).requires_grad_(True)
+              for t, (hw, c) in zip(teachers, hw_c)}
+    ltargets = {t: torch.randn(TRAIN_BATCH, hw, c, device="cuda", generator=gen) for t, (hw, c) in zip(teachers, hw_c)}
+
+    def loss_section(fused):
+        main = loss_module.main_loss_from_terms(loss_module.get_loss(lpreds, ltargets, fused=fused), "cos_l1")
+        return torch.autograd.grad(main, list(lpreds.values()))
+
+    sections = {"unfused": lambda: loss_section(False), "fused": lambda: loss_section(True)}
+    # a section is ~200 launches: 2 calls stay within the launch queue while the stream is held
+    dev, wall = interleaved_ms(sections, iters=2), interleaved_ms(sections, iters=5, hold=False)
+    print(f"  loss section of a step, forward + backward (get_loss + main loss + d pred, five cddsv teachers, "
+          f"bf16 pred, float32 targets): device time fused {dev['fused']:.4f} ms, unfused {dev['unfused']:.4f} ms; "
+          f"back-to-back as the host issues them: fused {wall['fused']:.4f} ms, unfused {wall['unfused']:.4f} ms")
+
     meta = {
         "mha_fwd": ("csrc/mha_fwd.cu", "theia_tpu/ops/attention.py:46", kernel_errors[("mha_fwd", bf16, 64, 197)]),
         "mha_bwd": ("csrc/mha_bwd.cu", "theia_tpu/ops/attention.py:60", kernel_errors[("mha_bwd", bf16, 16, 197)]),
         "ln_bwd_stats": ("csrc/ln_bwd.cu", "theia_tpu/ops/ln_pallas.py:56", kernel_errors[("ln_bwd_stats", bf16, 64)]),
         "ln_bwd_dx": ("csrc/ln_bwd.cu", "theia_tpu/ops/ln_pallas.py:90", kernel_errors[("ln_bwd_dx", bf16, 64)]),
+        "loss_sums_fwd": ("csrc/fused_loss.cu", "theia_tpu/ops/fused_loss.py:25",
+                          kernel_errors[("loss_sums_fwd", TRAIN_BATCH, max(teacher_dims), bf16, torch.float32)]),
+        "loss_sums_bwd": ("csrc/fused_loss.cu", "theia_tpu/ops/fused_loss.py:54",
+                          kernel_errors[("loss_sums_bwd", TRAIN_BATCH, max(teacher_dims), bf16, torch.float32)]),
     }
     rows = []
     for name, (src, replaces, err) in meta.items():
         t, bound, by = record[name]
+        # launches on the path that runs the kernel: the recipe's training,
+        # or for the attention kernels, which the recipe skips, exact mode's
+        launches = recipe_counts[name] or exact_counts[name]
         rows.append({
             "name": name, "route": "cuda", "source": f"theia_tpu_torch/{src}", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
+            "launches": launches, "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
             "bound_ms": bound, "bound_by": by, "library_ms": t.get("library"),
         })
     print(json.dumps({"kernels": rows}))

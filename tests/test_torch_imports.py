@@ -25,6 +25,7 @@ SLICE_MODULES = [
     "theia_tpu_torch.ops.init",
     "theia_tpu_torch.ops.attention",
     "theia_tpu_torch.ops.ln_pallas",
+    "theia_tpu_torch.ops.fused_loss",
     "theia_tpu_torch.kernels.build",
     "theia_tpu_torch.models.vit",
     "theia_tpu_torch.models.utils",

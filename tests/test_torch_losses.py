@@ -79,10 +79,7 @@ def test_bf16_loss_dtype_matches_jax():
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-2, err_msg=k)
 
 
-def test_fused_loss_is_not_ported():
-    f = {k: torch.from_numpy(v) for k, v in _features(6).items()}
-    with pytest.raises(NotImplementedError, match="K5-K6"):
-        tlosses.get_loss(f, f, fused=True)
+def test_unknown_main_loss_raises():
     with pytest.raises(NotImplementedError):
         tlosses.main_loss_from_terms({}, "l2")
 

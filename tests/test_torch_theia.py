@@ -5,7 +5,10 @@ export key for key and bitwise, and load with ``strict=True``. Forward
 tolerance on uint8 images: atol 1e-3. It is looser than the backbone's 1e-4
 (tests/test_torch_vit.py) because a few preprocessing pixels may round one
 uint8 step apart in the two packages (float32 sums in another order at the
-.5 boundary of the PIL-emulating pass).
+.5 boundary of the PIL-emulating pass). The training recipe's model
+(``fast_math``, ``fuse_preprocessing``), which has no rounding pass: float32
+atol 1e-4; bf16 relative L2 < 2e-2 per output (bf16 rounds at other places
+in XLA and in PyTorch; see tests/test_torch_vit.py).
 """
 
 import dataclasses
@@ -45,10 +48,10 @@ def _images(n, seed=0):
     return np.random.default_rng(seed).integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
 
 
-def _pair(backbone, sizes, variant):
-    jmodel = JTheia(backbone=backbone, translator="lconv", target_feature_sizes=sizes)
+def _pair(backbone, sizes, variant, dtypes=(jnp.float32, torch.float32), **flags):
+    jmodel = JTheia(backbone=backbone, translator="lconv", target_feature_sizes=sizes, dtype=dtypes[0], **flags)
     params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 224, 224, 3), jnp.uint8))["params"]
-    tmodel = TTheia(backbone=backbone, translator="lconv", target_feature_sizes=sizes)
+    tmodel = TTheia(backbone=backbone, translator="lconv", target_feature_sizes=sizes, dtype=dtypes[1], **flags)
     tmodel.load_state_dict(state_dict_from_jax(params, sizes, variant=variant), strict=True)
     return jmodel, params, tmodel.eval()
 
@@ -86,6 +89,26 @@ def test_forward_feature_and_predict_match_jax(cddsv_pair):
     for t, (c, h, w) in CDDSV.items():
         assert tuple(got[t].shape) == (2, h * w, c)
         np.testing.assert_allclose(got[t].numpy(), np.asarray(want[t]), atol=1e-3, rtol=0, err_msg=t)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recipe_model_matches_jax(dtype):
+    """The training recipe's model: fast_math and fuse_preprocessing."""
+    dtypes = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jmodel, params, tmodel = _pair(TINY, CDDSV, "cls", dtypes, fast_math=True, fuse_preprocessing=True)
+    imgs = _images(2, seed=5)
+    want = {"feature": jmodel.apply({"params": params}, jnp.asarray(imgs), method=jmodel.forward_feature),
+            **jmodel.apply({"params": params}, jnp.asarray(imgs))}
+    with torch.no_grad():
+        got = {"feature": tmodel.forward_feature(torch.from_numpy(imgs)), **tmodel(torch.from_numpy(imgs))}
+    assert list(got) == list(want)
+    for k, w in want.items():
+        g, w = got[k].float().numpy(), np.asarray(w, np.float32)
+        assert got[k].dtype == dtypes[1] and g.shape == w.shape, k
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=1e-4, rtol=0, err_msg=k)
+        else:
+            assert float(np.linalg.norm(g - w) / np.linalg.norm(w)) < 2e-2, k
 
 
 def test_reg_variant_drops_register_tokens():

@@ -21,6 +21,10 @@ constant added to a row's scores), so Adam moves them by rounding noise
 alone; they are left out of the relative comparisons.
 bf16 compute (float32 params): losses within rtol 2e-2 (bf16 rounds at
 other places in XLA and in PyTorch).
+The port's loss is the fused one (``FUSED_LOSS``) for both teachers here;
+the JAX step's is its unfused default: the same sums in another order. The
+production recipe (``fast_math``, ``fuse_preprocessing``, bf16 moments)
+is held to the same tolerances.
 """
 
 import dataclasses
@@ -73,8 +77,8 @@ def _batch(b=2, seed=0):
     return imgs, targets
 
 
-def _port_model(params, dtype=torch.float32):
-    model = TTheia(backbone=TINY, translator="lconv", target_feature_sizes=TARGETS, dtype=dtype)
+def _port_model(params, dtype=torch.float32, **model_kw):
+    model = TTheia(backbone=TINY, translator="lconv", target_feature_sizes=TARGETS, dtype=dtype, **model_kw)
     model.load_state_dict(state_dict_from_jax(params, TARGETS), strict=True)
     return model
 
@@ -105,6 +109,7 @@ CASES = {
     "loss_masks": (dict(), dict(), {"teacher/a": 1.0, "teacher/b": 0.0}),
     "freeze_translator": (dict(), dict(freeze_translator=True, freeze_translator_start_step=1), None),
     "bf16_moments_lr_factor": (dict(moment_dtype="bf16", translator_lr_factor=0.5), dict(), None),
+    "bf16_moments": (dict(moment_dtype="bf16"), dict(), None),  # the recipe's optimizer
 }
 
 
@@ -120,11 +125,15 @@ def _optimizers(opt):
     return jtx, ttx
 
 
-def _run_both(params, case, dtype=(jnp.float32, torch.float32)):
+RECIPE = dict(fast_math=True, fuse_preprocessing=True)
+
+
+def _run_both(params, case, dtype=(jnp.float32, torch.float32), model_kw=None):
     opt, step_kw, masks = CASES[case]
+    model_kw = model_kw or {}
     jtx, ttx = _optimizers(opt)
     imgs, targets = _batch()
-    jmodel = JTheia(backbone=TINY, translator="lconv", target_feature_sizes=TARGETS, dtype=dtype[0])
+    jmodel = JTheia(backbone=TINY, translator="lconv", target_feature_sizes=TARGETS, dtype=dtype[0], **model_kw)
     jstep = jmake_train_step(jmodel, jtx, donate=False, **step_kw)
     jstate = JTrainState.create(params, jtx)
     jmasks = None if masks is None else {t: jnp.asarray(m) for t, m in masks.items()}
@@ -133,7 +142,7 @@ def _run_both(params, case, dtype=(jnp.float32, torch.float32)):
         jstate, m = jstep(jstate, jnp.asarray(imgs), {t: jnp.asarray(v) for t, v in targets.items()}, jmasks)
         jlosses.append(float(m["loss"]))
 
-    model = _port_model(params, dtype[1])
+    model = _port_model(params, dtype[1], **model_kw)
     step = make_train_step(model, ttx, **step_kw)
     state = TrainState.create(dict(model.named_parameters()), ttx)
     timgs, ttargets = torch.from_numpy(imgs), {t: torch.from_numpy(v) for t, v in targets.items()}
@@ -175,7 +184,11 @@ def test_grads_match_jax(jax_params):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_train_steps_match_jax(jax_params, case):
-    jstate, jlosses, model, state, losses = _run_both(jax_params, case)
+    _check_trajectory(jax_params, case, *_run_both(jax_params, case))
+
+
+def _check_trajectory(jax_params, case, jstate, jlosses, model, state, losses):
+    """Losses, parameter changes, moments and step counts of the two steps."""
     np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
     init, want = _sd(jax_params), _sd(jstate.params)
     got = {n: p.detach().numpy() for n, p in model.named_parameters()}
@@ -204,6 +217,22 @@ def test_train_steps_match_jax(jax_params, case):
             assert counts[n] == 0
     if case == "freeze_translator":  # the translator moves at step 0 only
         assert all(counts[n] == (1 if n.startswith("translator.") else STEPS) for n in got)
+
+
+def test_recipe_train_steps_match_jax(jax_params):
+    """The production recipe's step in float32 compute: fast_math,
+    fuse_preprocessing, the fused loss, bf16 moments."""
+    _check_trajectory(jax_params, "bf16_moments", *_run_both(jax_params, "bf16_moments", model_kw=RECIPE))
+
+
+def test_recipe_bf16_compute_tracks_jax(jax_params):
+    """The production recipe as it trains: bf16 compute over float32 params."""
+    _, jlosses, model, state, losses = _run_both(jax_params, "bf16_moments", (jnp.bfloat16, torch.bfloat16),
+                                                 model_kw=RECIPE)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(m.dtype == torch.bfloat16 for m in state.opt_state.mu.values())
+    np.testing.assert_allclose(losses, jlosses, rtol=2e-2)
+    assert losses[-1] < losses[0]
 
 
 def test_bf16_compute_tracks_jax(jax_params):

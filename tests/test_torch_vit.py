@@ -8,7 +8,15 @@ Tolerances:
     PIL-emulating pass;
   - ``ViTBackbone`` on pre-normalised float input: atol 1e-4 (float32
     through 2 blocks; LayerNorm variance as E[x²]−E[x]² in flax, Welford in
-    torch).
+    torch), under ``fast_math`` too;
+  - ``fast_math`` in bf16: relative L2 < 1e-2 over the tokens (~2.6e-3
+    seen): torch's bf16 softmax and GELU compute in float32 inside and round
+    once, XLA's CPU bf16 ops round after each op; the same size as JAX's own
+    fast_math-vs-exact gap in bf16 (~2.4e-3);
+  - ``_fused_resize_patch_matrix``: bitwise (the same numpy code);
+  - ``_fused_embed``: float32 atol 1e-5 (~3e-6 seen: a 20x20x3 composite
+    kernel contracted in another order, then a convolution in another
+    order); bf16 relative L2 < 1e-3 (outputs one bf16 step apart, ~1.6e-4).
 """
 
 import dataclasses
@@ -77,14 +85,16 @@ def test_preprocess_images_matches_jax(hw):
     np.testing.assert_array_equal(got_nchw.numpy(), got.numpy())
 
 
-def _backbones(variant):
+def _backbones(variant, fast_math=False, dtypes=(jnp.float32, torch.float32), fuse_preprocessing=False):
     name = NAMES[variant]
-    cfg = dataclasses.replace(jvit.BACKBONE_CONFIGS[name], num_layers=2)
+    cfg = dataclasses.replace(jvit.BACKBONE_CONFIGS[name], num_layers=2, fast_math=fast_math)
     num_reg = 7 if variant == "reg" else 0
-    jmodel = jvit.ViTBackbone(cfg, variant=variant, num_reg_tokens=num_reg)
+    jmodel = jvit.ViTBackbone(cfg, variant=variant, num_reg_tokens=num_reg, dtype=dtypes[0],
+                              fuse_preprocessing=fuse_preprocessing)
     params = jmodel.init(jax.random.PRNGKey(1), jnp.zeros((1, 224, 224, 3), jnp.float32), False)["params"]
-    tcfg = dataclasses.replace(tvit.BACKBONE_CONFIGS[name], num_layers=2)
-    tmodel = tvit.ViTBackbone(tcfg, variant=variant, num_reg_tokens=num_reg)
+    tcfg = dataclasses.replace(tvit.BACKBONE_CONFIGS[name], num_layers=2, fast_math=fast_math)
+    tmodel = tvit.ViTBackbone(tcfg, variant=variant, num_reg_tokens=num_reg, dtype=dtypes[1],
+                              fuse_preprocessing=fuse_preprocessing)
     sd = state_dict_from_jax({"backbone_module": params}, {}, variant=variant)
     tmodel.load_state_dict({k.removeprefix("backbone."): v for k, v in sd.items()}, strict=True)
     return jmodel, params, tmodel.eval()
@@ -116,6 +126,77 @@ def test_backbone_interpolate_pos_encoding_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
-def test_fast_math_is_not_ported():
-    with pytest.raises(NotImplementedError, match="fast_math"):
-        tvit.build_backbone(NAMES["cls"], fast_math=True)
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("variant, dtype", [("cls", "float32"), ("reg", "float32"), ("cls", "bfloat16")])
+def test_fast_math_backbone_matches_jax(variant, dtype):
+    jmodel, params, tmodel = _backbones(variant, fast_math=True, dtypes=DTYPES[dtype])
+    x = np.random.default_rng(2).standard_normal((2, 224, 224, 3), dtype=np.float32)
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x), **FLAGS), np.float32)
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(x), **FLAGS)
+    assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    else:
+        assert _rel_l2(got.float().numpy(), want) < 1e-2
+
+
+def test_fast_math_does_not_run_the_attention_kernels(monkeypatch):
+    """Under fast_math the block never reaches ``packed_attention`` (K1/K2)."""
+    _, _, tmodel = _backbones("cls", fast_math=True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("packed_attention called under fast_math")
+
+    monkeypatch.setattr(tvit, "packed_attention", refuse)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 224, 224, 3), dtype=np.float32))
+    tmodel(x, **FLAGS).sum().backward()
+
+
+@pytest.mark.parametrize("geometry", [(224, 256, 224, 16), (112, 128, 112, 16), (224, 256, 224, 8)])
+def test_fused_resize_patch_matrix_equals_jax(geometry):
+    got, want = tvit._fused_resize_patch_matrix(*geometry), jvit._fused_resize_patch_matrix(*geometry)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_fused_embed_matches_jax(dtype, layout):
+    jmodel, params, tmodel = _backbones("cls", dtypes=DTYPES[dtype], fuse_preprocessing=True)
+    imgs = np.random.default_rng(4).integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(imgs), method=jmodel._fused_embed), np.float32)
+    x = imgs if layout == "nhwc" else imgs.transpose(0, 3, 1, 2).copy()
+    with torch.no_grad():
+        got = tmodel._fused_embed(torch.from_numpy(x))
+    assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == want.shape == (2, 196, 192)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    else:
+        assert _rel_l2(got.float().numpy(), want) < 1e-3
+
+
+def test_fused_preprocessing_dispatch():
+    """The fused embed takes 224² uint8 images with every preprocessing step
+    on; any other input goes the unfused way, as in the JAX module."""
+    _, _, fused = _backbones("cls", fuse_preprocessing=True)
+    plain = tvit.ViTBackbone(fused.cfg, variant="cls")
+    plain.load_state_dict(fused.state_dict())
+    rng = np.random.default_rng(5)
+    calls = []
+    real = fused._fused_embed
+    fused._fused_embed = lambda x: calls.append(tuple(x.shape)) or real(x)
+    with torch.no_grad():
+        for shape, kw in [((1, 320, 320, 3), {}), ((1, 224, 224, 3), dict(do_resize=False)),
+                          ((1, 224, 224, 3), dict(do_normalize=False))]:
+            x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+            assert torch.equal(fused(x, **kw), plain(x, **kw)), (shape, kw)
+        assert calls == []
+        fused(torch.from_numpy(rng.integers(0, 256, (1, 224, 224, 3), dtype=np.uint8)))
+    assert calls == [(1, 224, 224, 3)]

@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCES = tuple(PACKAGE_DIR / "csrc" / name for name in ("mha_fwd.cu", "mha_bwd.cu", "ln_bwd.cu"))
+SOURCES = tuple(PACKAGE_DIR / "csrc" / name for name in ("mha_fwd.cu", "mha_bwd.cu", "ln_bwd.cu", "fused_loss.cu"))
 HEADERS = (PACKAGE_DIR / "csrc" / "mma_bf16.cuh",)
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -100,6 +100,12 @@ def load() -> ctypes.CDLL:
             lib.theia_ln_bwd_stats.restype = i32
             lib.theia_ln_bwd_dx.argtypes = [ptr] * 8 + [i32, i64, i32, ptr]
             lib.theia_ln_bwd_dx.restype = i32
+            lib.theia_loss_sums_partials.argtypes = [i64]
+            lib.theia_loss_sums_partials.restype = i32
+            lib.theia_loss_sums_fwd.argtypes = [ptr] * 4 + [i32, i64, i32, i32, ctypes.c_float, ptr]
+            lib.theia_loss_sums_fwd.restype = i32
+            lib.theia_loss_sums_bwd.argtypes = [ptr] * 4 + [i32, i64, i32, i32, ctypes.c_float, ptr]
+            lib.theia_loss_sums_bwd.restype = i32
             lib.theia_cuda_error_string.argtypes = [i32]
             lib.theia_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

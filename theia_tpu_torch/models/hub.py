@@ -65,7 +65,10 @@ def build_theia(
     modules are created without storage, every parameter is drawn on the
     CPU from ``generator`` (a CPU ``torch.Generator``; the global RNG when
     None), and the model then moves to ``device`` (the GPU unless the caller
-    asks for the CPU) and ``param_dtype``.
+    asks for the CPU) and ``param_dtype``. The other keywords go to
+    ``Theia``; the training recipe (``theia_tpu/train/loop.py:150-161`` on
+    ``configs/training/frame_level.yaml``) is ``dtype=torch.bfloat16,
+    fast_math=True, fuse_preprocessing=True`` over float32 params.
     """
     backbone, teachers = parse_model_name(name)
     sizes = {t: get_model_feature_size(t, keep_spatial=True) for t in teachers}

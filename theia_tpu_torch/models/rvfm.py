@@ -26,7 +26,10 @@ class Theia(nn.Module):
     Inputs are uint8 images [B,H,W,C] or [B,C,H,W] (range 0-255), as tensors
     or arrays; they are moved to the model's device. ``dtype`` is the
     compute dtype of every layer (the JAX ``Theia.dtype``), whatever dtype
-    the parameters are stored in.
+    the parameters are stored in. ``fuse_preprocessing`` folds the DeiT
+    processor into the patch embed, ``fast_math`` runs the encoder's bf16
+    softmax and tanh GELU path (the JAX fields of the same names; both are
+    the training recipe's, ``theia_tpu/configs/training/frame_level.yaml``).
     """
 
     def __init__(
@@ -40,6 +43,7 @@ class Theia(nn.Module):
         num_reg_tokens: int = 7,
         fast_math: bool = False,
         dtype: torch.dtype = torch.float32,
+        fuse_preprocessing: bool = False,
     ) -> None:
         super().__init__()
         self.dtype = dtype
@@ -49,6 +53,7 @@ class Theia(nn.Module):
             num_reg_tokens=num_reg_tokens,
             fast_math=fast_math,
             dtype=dtype,
+            fuse_preprocessing=fuse_preprocessing,
         )
         self.no_cls = self.backbone.no_cls
         self.num_reg = self.backbone.num_reg_tokens

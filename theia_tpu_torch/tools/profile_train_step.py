@@ -1,10 +1,12 @@
 """Where the time of the port's distillation train step goes, on one GPU.
 
-    python -m theia_tpu_torch.tools.profile_train_step [--batch 16] [--steps 3] [--trace FILE]
+    python -m theia_tpu_torch.tools.profile_train_step [--batch 16] [--steps 3] [--recipe] [--trace FILE]
 
 Builds Theia-Base cddsv (seeded random weights, float32 params, bf16
 compute) with the recipe's optimizer (masked AdamW, bf16 moments), as
-``chip_smoke.py`` trains it, and after warmup prints:
+``chip_smoke.py`` trains it (``--recipe``: with the production recipe's
+``fast_math`` and ``fuse_preprocessing``; else the exact mode), and after
+warmup prints:
   - the step's phases by CUDA events, each ended by a synchronize: forward
     and loss, backward (``torch.autograd.grad``), optimizer update;
   - device time by kernel class over ``--steps`` whole steps, from
@@ -34,6 +36,8 @@ CLASSES = (
     ("K2 mha_bwd", ("mha_bwd",)),
     ("K3 ln_bwd_stats", ("ln_bwd_stats", "ln_bwd_finish")),
     ("K4 ln_bwd_dx", ("ln_bwd_dx",)),
+    ("K5 loss_sums_fwd", ("loss_sums_partial", "loss_sums_finish")),
+    ("K6 loss_sums_bwd", ("loss_sums_bwd",)),
     ("conv (cuDNN)", ("conv", "cudnn", "dgrad", "wgrad", "implicit", "xmma_fprop", "winograd")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas", "Kernel2")),
     ("LayerNorm (encoder)", ("layer_norm", "LayerNorm", "GammaBeta")),
@@ -69,6 +73,7 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--recipe", action="store_true", help="fast_math and fuse_preprocessing on")
     parser.add_argument("--trace", default=None, help="write the chrome trace here")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -89,7 +94,8 @@ def main(argv: list[str] | None = None) -> int:
     targets = {t: torch.from_numpy(rng.standard_normal((args.batch, *get_model_feature_size(t, keep_spatial=True)),
                                                        dtype=np.float32)).to("cuda", torch.bfloat16)
                for t in teachers}
-    model = build_theia(MODEL, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(2))
+    flags = dict(fast_math=True, fuse_preprocessing=True) if args.recipe else {}
+    model = build_theia(MODEL, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(2), **flags)
     tx = make_optimizer(constant_with_warmup(scaled_lr(2e-3, args.batch, 1), 2), weight_decay=0.01,
                         moment_dtype=torch.bfloat16)
     state = TrainState.create(dict(model.named_parameters()), tx)
@@ -115,7 +121,7 @@ def main(argv: list[str] | None = None) -> int:
         torch.cuda.synchronize()
         for name, a, b in (("forward + loss", 0, 1), ("backward", 1, 2), ("optimizer update", 2, 3)):
             phases[name].append(ev[a].elapsed_time(ev[b]))
-    print(f"{MODEL}, batch {args.batch}, float32 params, bf16 compute ({card})")
+    print(f"{MODEL}, batch {args.batch}, float32 params, bf16 compute, {flags or 'exact mode'} ({card})")
     for name, ms in phases.items():
         print(f"  phase {name}: {np.median(ms):.3f} ms (median of 3, synchronized between phases)")
 

@@ -30,13 +30,17 @@ def prepare_targets(
     dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """Raw [B, C, H, W] teacher features -> [B, H*W, C] in ``dtype``, then
-    (x - mean) / std where ``target_stats`` has the teacher; on the device."""
+    (x - mean) / std where ``target_stats`` has the teacher; on the device.
+
+    The transpose is made in the same copy as the cast, so the result is
+    contiguous: the fused loss reads it as [B, D] rows without a copy of its
+    own (``ops.fused_loss.flat_rows``)."""
     out = {}
     for t, arr in targets.items():
         if arr.ndim == 4:
             b, c = arr.shape[:2]
             arr = arr.reshape(b, c, -1).transpose(1, 2)
-        arr = arr.to(dtype)
+        arr = arr.to(dtype, memory_format=torch.contiguous_format)
         if target_stats is not None and t in target_stats:
             mean, std = target_stats[t]
             if mean is not None:
