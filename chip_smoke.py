@@ -9,22 +9,31 @@ failure (the script then exits nonzero and prints no result):
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes);
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
-   64] as views of a packed QKV projection, K3 and K4 (LayerNormSpatial
-   backward) at every ladder LayerNorm of the Theia-Base cddsv heads, K5
-   and K6 (the fused loss's sums and d pred) at the five cddsv teachers'
-   [16, D] and over a sweep of B and D;
+   64] as views of a packed QKV projection, K7 (flash forward), K9 (flash
+   dQ) and K8 (flash dK, dV) at [B, 197|204, 12, 64] and [16, 785, 12, 64]
+   as such views and over a sweep of head dim x T, K3 and K4
+   (LayerNormSpatial backward) at every ladder LayerNorm of the Theia-Base
+   cddsv heads, K5 and K6 (the fused loss's sums and d pred) at the five
+   cddsv teachers' [16, D] and over a sweep of B and D;
 4. serving: Theia-Base cddsv (seeded random weights) behind
    ``serving.Predictor``, answering requests through ``forward_feature``,
    ``predict`` and ``predict_stream`` in float32, then ``forward_feature``
    in bf16; shapes, finiteness, K1's launch count, and agreement with the
-   same model on the plain attention path;
+   same model on the plain attention path; the same requests through
+   ``attention_impl="flash"`` (K7) in float32 and bf16; then
+   ``forward_feature`` on uint8 448² images without resize and with
+   interpolated position embeddings (T = 785, past K1's 256 tokens),
+   through "flash" and "pallas" (both K7), against "einsum";
 5. training in the JAX package's exact mode: the distillation train step
    (``train.step.make_train_step``) of Theia-Base cddsv, float32 params and
    bf16 compute, masked AdamW with bf16 moments at the recipe's settings,
    batch 16, on one fixed batch: finite and falling loss, one eval step,
    exact launch counts of K1-K6; one step's loss and gradients on the
    kernel path against the plain path (float32, TF32 off), and bf16
-   gradients against float32 ones;
+   gradients against float32 ones; then the same with
+   ``attention_impl="flash"`` (K7, K9, K8 in place of K1, K2), and one
+   forward and backward of the backbone on 448² images through "pallas"
+   (the flash kernels at T = 785) against autograd through "einsum";
 6. training at the production recipe (theia_tpu/configs/training/
    frame_level.yaml): the same step with ``fast_math`` and
    ``fuse_preprocessing``, full width and depth: finite and falling loss,
@@ -66,6 +75,11 @@ KERNEL_BF16_REL_L2 = 1e-2
 # the largest T whose float32 K2 passes fit a block's shared memory, by head
 # dim (csrc/mha_bwd.cu); every other head dim takes every T <= 256
 K2_F32_MAX_T = {112: 224, 128: 196}
+# K7-K9 take any T: the sweep's token counts span 1 to 13 tiles of 64
+FLASH_SWEEP_T = (1, 17, 130, 257, 785)
+# 448² uint8 images without resize: 28² patches and the CLS token
+BIG_IMAGE, BIG_T = 448, 1 + (448 // 16) ** 2
+BIG_BATCH, BIG_TRAIN_BATCH = 16, 4
 # the whole model, kernel path vs plain attention path, float32: 12 blocks
 # and the heads, sums in another order
 MODEL_F32_ATOL = 1e-3
@@ -100,10 +114,13 @@ LOSS_DP_F32_REL_L2 = 1e-6
 LOSS_SWEEP_D = (1, 127, 1024, 4096 * 32)
 TRAIN_BATCH = 16
 TRAIN_STEPS = 20
+FLASH_TRAIN_STEPS = 10
 # the recipe, theia_tpu/configs/training/frame_level.yaml
 BASE_LR, BASE_BATCH, BASE_WORLD, WARMUP_STEPS = 2e-3, 64, 8, 2
 # torch.cuda._sleep's unit is an SM clock cycle; at most 1.98 GHz on an H100
 SLEEP_CYCLES_PER_MS = 2_000_000
+# JAX's TPU flash attention library, whose three Pallas kernels K7-K9 replace
+FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # the H100 SXM's published peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -115,7 +132,7 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"\d(mha_\w+?|ln_bwd_\w+?)(?:ILi(\d+)E|If?E|I13__nv_bfloat16E|E)", mangled)
+            m = re.search(r"\d(mha_\w+?|flash_\w+?|ln_bwd_\w+?)(?:ILi(\d+)E|If?E|I13__nv_bfloat16E|E)", mangled)
             loss = re.search(r"\d(loss_sums_[a-z]+)(?:I(\w+?)Lb([01])E)?", mangled)
             name = m.group(1) if m else mangled
             if loss:
@@ -286,6 +303,80 @@ def compare_kernels(attention, ln_pallas) -> dict:
     return errors
 
 
+def flash_case(attention, b: int, t: int, h: int, hd: int, dtype: torch.dtype, gen: torch.Generator) -> dict:
+    """K7, K9 and K8 once on q, k, v as views of one packed QKV projection,
+    and each one's plain version on the same inputs (the backward ones fed
+    the kernels' O, lse and di): {output name: (kernel's, plain's)}."""
+    qkv = torch.randn(b, t, 3 * h * hd, device="cuda", generator=gen).to(dtype)
+    q, k, v = (y.view(b, t, h, hd) for y in qkv.split(h * hd, dim=-1))
+    do = torch.randn(b, t, h, hd, device="cuda", generator=gen).to(dtype)
+    o, lse = attention.flash_fwd(q, k, v)
+    dq, di = attention.flash_dq(q, k, v, o, lse, do)
+    dk, dv = attention.flash_dkv(q, k, v, lse, di, do)
+    torch.cuda.synchronize()
+    want_o, want_lse = attention.flash_fwd_plain(q, k, v)
+    want_dq, want_di = attention.flash_dq_plain(q, k, v, o, lse, do)
+    want_dk, want_dv = attention.flash_dkv_plain(q, k, v, lse, di, do)
+    return {"flash_fwd": (o, want_o), "lse": (lse, want_lse), "flash_dq": (dq, want_dq), "di": (di, want_di),
+            "flash_dkv": (torch.stack([dk, dv]), torch.stack([want_dk, want_dv]))}
+
+
+def flash_error(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype, stat: bool) -> tuple[float, float, bool]:
+    """(max abs error, relative L2, within tolerance) of a flash output: a
+    float32 result within KERNEL_F32_ATOL, a bf16 one within
+    KERNEL_BF16_REL_L2 or, where the exact result is 0 and both sides hold
+    float32 rounding noise (dQ and dK at T = 1), within KERNEL_F32_ATOL;
+    lse and di (float32 row statistics, whatever the input dtype) within
+    KERNEL_F32_REL_L2."""
+    err = float((got.float() - want.float()).abs().max())
+    rel = rel_l2(got.float(), want.float()) if want.float().norm() > 0 else err
+    if stat:
+        return err, rel, rel <= KERNEL_F32_REL_L2
+    if dtype == torch.float32:
+        return err, rel, err <= KERNEL_F32_ATOL
+    return err, rel, rel < KERNEL_BF16_REL_L2 or err <= KERNEL_F32_ATOL
+
+
+def compare_flash_kernels(attention) -> dict:
+    """Phase 3, K7, K9 and K8 against their plain versions: at the serving and
+    training shapes [1|64, 197|204, 12, 64] and [1|16, 197|204, 12, 64], at
+    448² images' [16, 785, 12, 64], and over head dims 16..128 x
+    FLASH_SWEEP_T; float32 and bf16. The max abs errors."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errors = {}
+    shapes = [(1, 197), (64, 197), (1, 204), (64, 204), (16, 197), (16, 204), (BIG_BATCH, BIG_T)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for b, t in shapes:
+            res = flash_case(attention, b, t, HEADS, HEAD_DIM, dtype, gen)
+            line = []
+            for name, (got, want) in res.items():
+                err, rel, ok = flash_error(got, want, dtype, name in ("lse", "di"))
+                check(ok, f"{name} {dn} [{b},{t},12,64] disagrees with its plain version: max abs {err:.3e}, "
+                           f"rel_l2 {rel:.3e}")
+                errors[(name, dtype, b, t)] = err
+                line.append(f"{name} {err:.2e}/{rel:.2e}")
+            print(f"  K7/K9/K8 flash {dn} [{b},{t},12,64] (max_abs_err/rel_l2): {', '.join(line)}")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in range(16, 129, 16):
+            for t in FLASH_SWEEP_T:
+                for name, (got, want) in flash_case(attention, 2, t, 2, hd, dtype, gen).items():
+                    err, rel, ok = flash_error(got, want, dtype, name in ("lse", "di"))
+                    check(ok, f"{name} {dtype} [2,{t},2,{hd}] disagrees with its plain version: max abs {err:.3e}, "
+                               f"rel_l2 {rel:.3e}")
+                    key = (name, dtype)
+                    # bf16: a case within the absolute floor (exact result 0) counts as 0
+                    bad = err if dtype == torch.float32 else (rel if err > KERNEL_F32_ATOL else 0.0)
+                    worst[key] = max(worst.get(key, 0.0), bad)
+    print(f"  K7/K9/K8 flash [2, T, 2, hd], hd 16..128 x T in {FLASH_SWEEP_T}: float32 worst max_abs_err " +
+          ", ".join(f"{n} {worst[(n, torch.float32)]:.3e}" for n in ("flash_fwd", "flash_dq", "flash_dkv")) +
+          f" (atol {KERNEL_F32_ATOL}); bf16 worst rel_l2 " +
+          ", ".join(f"{n} {worst[(n, torch.bfloat16)]:.3e}" for n in ("flash_fwd", "flash_dq", "flash_dkv")) +
+          f" (< {KERNEL_BF16_REL_L2}); lse, di within rel_l2 {KERNEL_F32_REL_L2}")
+    return errors
+
+
 def compare_loss_kernels(fused_loss, teacher_dims: list[int]) -> dict:
     """Phase 3, K5 and K6 against their plain versions at the teachers' [16,
     D] (bf16 pred with float32 target, and float32 both) and over a sweep
@@ -382,6 +473,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
     kernel_errors = compare_kernels(attention, ln_pallas)
+    kernel_errors.update(compare_flash_kernels(attention))
     _, teachers = parse_model_name(MODEL)
     teacher_dims = [math.prod(get_model_feature_size(t, keep_spatial=True)) for t in teachers]
     kernel_errors.update(compare_loss_kernels(fused_loss, teacher_dims))
@@ -429,20 +521,22 @@ def main() -> int:
     backbone_name, _ = parse_model_name(MODEL)
     saved_cfg = vit.BACKBONE_CONFIGS[backbone_name]
 
-    def plain_attention_model(**kw):
-        vit.BACKBONE_CONFIGS[backbone_name] = dataclasses.replace(saved_cfg, attention_impl="einsum")
+    def attention_model(impl: str, **kw):
+        """``build_theia`` with the backbone's ``attention_impl`` set to ``impl``."""
+        vit.BACKBONE_CONFIGS[backbone_name] = dataclasses.replace(saved_cfg, attention_impl=impl)
         try:
             m = build_theia(MODEL, **kw)
         finally:
             vit.BACKBONE_CONFIGS[backbone_name] = saved_cfg
-        check(m.backbone.cfg.attention_impl == "einsum", "plain model does not use the plain attention")
+        check(m.backbone.cfg.attention_impl == impl, f"the model does not use attention_impl={impl!r}")
         return m
 
-    plain_model = plain_attention_model(dtype=torch.float32)
+    plain_model = attention_model("einsum", dtype=torch.float32)
     plain_model.load_state_dict(model.state_dict())
     plain_ff = Predictor(plain_model, buckets=BUCKETS)
     plain_predict = Predictor(plain_model, buckets=BUCKETS, method="predict")
-    worst_ff = max(float(np.abs(f - plain_ff(x)).max()) for f, x in zip(feats, requests))
+    plain_feats = [plain_ff(x) for x in requests]
+    worst_ff = max(float(np.abs(f - pf).max()) for f, pf in zip(feats, plain_feats))
     worst_pred = 0.0
     for p, x in zip(preds, requests):
         q = plain_predict(x)
@@ -453,7 +547,92 @@ def main() -> int:
     bf16_err = max(rel_l2(fb, f) for fb, f in zip(feats_bf16, feats))
     print(f"bf16 vs float32 forward_feature: rel_l2 {bf16_err:.3e} (< {MODEL_BF16_REL_L2})")
     check(bf16_err < MODEL_BF16_REL_L2, "bf16 forward_feature far from float32")
-    del plain_model, plain_ff, plain_predict, preds
+    del plain_ff, plain_predict, preds
+
+    def attention_counts() -> dict:
+        return {"mha_fwd": attention.MHA_FWD_LAUNCHES, "mha_bwd": attention.MHA_BWD_LAUNCHES,
+                "flash_fwd": attention.FLASH_FWD_LAUNCHES, "flash_dq": attention.FLASH_DQ_LAUNCHES,
+                "flash_dkv": attention.FLASH_DKV_LAUNCHES}
+
+    def reset_attention_counts():
+        attention.MHA_FWD_LAUNCHES = attention.MHA_BWD_LAUNCHES = 0
+        attention.FLASH_FWD_LAUNCHES = attention.FLASH_DQ_LAUNCHES = attention.FLASH_DKV_LAUNCHES = 0
+
+    def forward_only(n_flash: int) -> dict:
+        return {"mha_fwd": 0, "mha_bwd": 0, "flash_fwd": n_flash, "flash_dq": 0, "flash_dkv": 0}
+
+    # the same requests through attention_impl="flash" (K7), float32 and bf16, same weights
+    flash_model = attention_model("flash", dtype=torch.float32)
+    flash_model.load_state_dict(model.state_dict())
+    flash_bf16 = attention_model("flash", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    flash_bf16.load_state_dict(model_bf16.state_dict())
+    flash_ff, flash_ff_bf16 = Predictor(flash_model, buckets=BUCKETS), Predictor(flash_bf16, buckets=BUCKETS)
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    flash_feats = [flash_ff(x) for x in requests]
+    flash_feats_bf16 = [flash_ff_bf16(x) for x in requests]
+    counts = attention_counts()
+    flash_s = time.perf_counter() - t0
+    want = forward_only(2 * batches_per_pass * model.backbone.cfg.num_layers)
+    print(f"phase 4, serving through attention_impl=\"flash\": {sum(REQUESTS)} images x 2 passes (float32, bf16) in "
+          f"{flash_s:.1f} s; launches {counts}, expected {want}")
+    check(counts == want, "flash serving launch counts are off")
+    for n, f, fb in zip(REQUESTS, flash_feats, flash_feats_bf16):
+        for name, arr in [("flash forward_feature", f), ("flash bf16 forward_feature", fb)]:
+            check(arr.shape == (n, 196, 768) and bool(np.isfinite(arr).all()), f"{name}: shape {arr.shape} or values")
+    worst_flash = max(float(np.abs(f - pf).max()) for f, pf in zip(flash_feats, plain_feats))
+    flash_bf16_err = max(rel_l2(fb, f) for fb, f in zip(flash_feats_bf16, flash_feats))
+    print(f"  flash vs plain attention path (float32): forward_feature max_abs {worst_flash:.3e} (atol "
+          f"{MODEL_F32_ATOL}); bf16 vs float32: rel_l2 {flash_bf16_err:.3e} (< {MODEL_BF16_REL_L2})")
+    check(worst_flash <= MODEL_F32_ATOL, "the flash path disagrees with the plain path")
+    check(flash_bf16_err < MODEL_BF16_REL_L2, "bf16 flash forward_feature far from float32")
+    del flash_ff, flash_ff_bf16, plain_feats, flash_feats, flash_feats_bf16
+    x64 = torch.from_numpy(requests[3][:64]).cuda()
+    with torch.inference_mode():
+        # ~165 launches a call: too many to hold the stream over, so back-to-back calls
+        serve_ms = interleaved_ms({"pallas": lambda: model_bf16.forward_feature(x64),
+                                   "flash": lambda: flash_bf16.forward_feature(x64)}, iters=10, hold=False)
+    print(f"  forward_feature B=64 bf16 at 224², order pallas, flash, flash, pallas (CUDA events, 10 calls each): "
+          f"pallas {serve_ms['pallas']:.3f} ms, flash {serve_ms['flash']:.3f} ms ({card})")
+
+    # uint8 448² images, no resize, interpolated position embeddings: T = 785,
+    # past K1's 256, so "pallas" dispatches to the flash kernels as "flash" does
+    big = torch.from_numpy(rng.integers(0, 256, (BIG_BATCH, BIG_IMAGE, BIG_IMAGE, 3), dtype=np.uint8)).cuda()
+    big_kw = dict(do_resize=False, interpolate_pos_encoding=True)
+    plain_bf16 = attention_model("einsum", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    plain_bf16.load_state_dict(model_bf16.state_dict())
+    n_layers = saved_cfg.num_layers
+    big_ms = {}
+    print(f"phase 4, forward_feature on [{BIG_BATCH},{BIG_IMAGE},{BIG_IMAGE},3] uint8 images, {big_kw} (T = {BIG_T}):")
+    with torch.inference_mode():
+        want_f32 = plain_model.forward_feature(big, **big_kw)
+        want_bf16 = plain_bf16.forward_feature(big, **big_kw)
+        for dn, models in (("float32", {"flash": flash_model, "pallas": model, "einsum": plain_model}),
+                           ("bf16", {"flash": flash_bf16, "pallas": model_bf16, "einsum": plain_bf16})):
+            for impl, m in models.items():
+                reset_attention_counts()
+                got = m.forward_feature(big, **big_kw)
+                torch.cuda.synchronize()
+                counts = attention_counts()
+                big_ms[(impl, dn)] = cuda_ms(lambda: m.forward_feature(big, **big_kw), 5)
+                if impl == "einsum":
+                    continue
+                check(counts == forward_only(n_layers), f"{impl} {dn} at T = {BIG_T}: launches {counts}")
+                check(tuple(got.shape) == (BIG_BATCH, BIG_T - 1, 768) and bool(torch.isfinite(got).all()),
+                      f"{impl} {dn} at T = {BIG_T}: shape {tuple(got.shape)} or values")
+                if dn == "float32":
+                    err = float((got - want_f32).abs().max())
+                    print(f"  {impl} float32 vs einsum float32: max_abs {err:.3e} (atol {MODEL_F32_ATOL}); "
+                          f"launches {counts}")
+                    check(err <= MODEL_F32_ATOL, f"{impl} at T = {BIG_T} disagrees with einsum")
+                else:
+                    rel, rel_same = rel_l2(got.float(), want_f32), rel_l2(got.float(), want_bf16.float())
+                    print(f"  {impl} bf16 vs einsum float32: rel_l2 {rel:.3e} (< {MODEL_BF16_REL_L2}); vs einsum bf16 "
+                          f"{rel_same:.3e}; launches {counts}")
+                    check(rel < MODEL_BF16_REL_L2, f"bf16 {impl} at T = {BIG_T} far from float32")
+    print("  forward_feature B=16 at 448², CUDA events over 5 calls: " +
+          ", ".join(f"{impl} {dn} {ms:.3f} ms" for (impl, dn), ms in big_ms.items()) + f" ({card})")
+    del plain_model, plain_bf16, flash_model, flash_bf16, want_f32, want_bf16, got, big
 
     # phase 5: training in exact mode, bf16 compute over float32 params, the recipe's optimizer
     trng = np.random.default_rng(1)
@@ -466,35 +645,35 @@ def main() -> int:
     lr = scaled_lr(BASE_LR, TRAIN_BATCH, 1, BASE_BATCH, BASE_WORLD)
 
     def reset_counts():
-        attention.MHA_FWD_LAUNCHES = attention.MHA_BWD_LAUNCHES = 0
+        reset_attention_counts()
         ln_pallas.LN_BWD_STATS_LAUNCHES = ln_pallas.LN_BWD_DX_LAUNCHES = 0
         fused_loss.LOSS_SUMS_FWD_LAUNCHES = fused_loss.LOSS_SUMS_BWD_LAUNCHES = fused_loss.LOSS_INPUT_COPIES = 0
 
     def read_counts():
         return {
-            "mha_fwd": attention.MHA_FWD_LAUNCHES, "mha_bwd": attention.MHA_BWD_LAUNCHES,
+            **attention_counts(),
             "ln_bwd_stats": ln_pallas.LN_BWD_STATS_LAUNCHES, "ln_bwd_dx": ln_pallas.LN_BWD_DX_LAUNCHES,
             "loss_sums_fwd": fused_loss.LOSS_SUMS_FWD_LAUNCHES, "loss_sums_bwd": fused_loss.LOSS_SUMS_BWD_LAUNCHES,
             "loss_input_copies": fused_loss.LOSS_INPUT_COPIES,
         }
 
-    def trainer(dtype, **flags):
-        m = build_theia(MODEL, dtype=dtype, generator=torch.Generator().manual_seed(2), **flags)
+    def trainer(dtype, impl, **flags):
+        m = attention_model(impl, dtype=dtype, generator=torch.Generator().manual_seed(2), **flags)
         tx = make_optimizer(constant_with_warmup(lr, WARMUP_STEPS), weight_decay=0.01, betas=(0.9, 0.999),
                             eps=1e-8, moment_dtype=torch.bfloat16)
         return m, tx, TrainState.create(dict(m.named_parameters()), tx)
 
-    def train(label: str, **flags) -> tuple[dict, int]:
-        """TRAIN_STEPS steps and one eval on the fixed batch, with the launch
-        counts set to 0 just before and read just after; checks a finite,
-        falling loss. Returns the counts and the number of LayerNormSpatial
-        sites."""
-        tmodel, tx, state = trainer(torch.bfloat16, **flags)
+    def train(label: str, steps: int = TRAIN_STEPS, impl: str = "pallas", **flags) -> tuple[dict, int]:
+        """``steps`` steps and one eval on the fixed batch through attention
+        ``impl``, with the launch counts set to 0 just before and read just
+        after; checks a finite, falling loss. Returns the counts and the
+        number of LayerNormSpatial sites."""
+        tmodel, tx, state = trainer(torch.bfloat16, impl, **flags)
         step = make_train_step(tmodel, tx, main_loss="cos_l1")
         eval_step = make_eval_step(tmodel, main_loss="cos_l1")
         n_ln = sum(isinstance(mod, layers.LayerNormSpatial) for mod in tmodel.modules())
         print(f"{label}: {MODEL}, float32 params, bf16 compute, bf16 Adam moments, lr {lr:g} (scaled_lr at batch "
-              f"{TRAIN_BATCH}, world 1), warmup {WARMUP_STEPS}, cos_l1, {flags or 'exact mode'}; "
+              f"{TRAIN_BATCH}, world 1), warmup {WARMUP_STEPS}, cos_l1, {flags or 'exact mode'}, attention {impl}; "
               f"{tmodel.backbone.cfg.num_layers} attention layers, {n_ln} LayerNormSpatial sites")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -502,7 +681,7 @@ def main() -> int:
         losses = []
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             if i == 5:
                 start.record()
             state, metrics = step(state, images, targets)
@@ -512,50 +691,59 @@ def main() -> int:
         torch.cuda.synchronize()
         counts = read_counts()
         train_s = time.perf_counter() - t0
-        step_ms = start.elapsed_time(end) / (TRAIN_STEPS - 5)
+        step_ms = start.elapsed_time(end) / (steps - 5)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         losses = [float(x) for x in losses]
         eval_loss = float(eval_metrics["loss"])
-        print(f"  {TRAIN_STEPS} steps + 1 eval in {train_s:.1f} s; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        print(f"  {steps} steps + 1 eval in {train_s:.1f} s; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
               f"eval loss {eval_loss:.6f}")
         print(f"  losses: {' '.join(f'{x:.6f}' for x in losses)}")
         check(all(math.isfinite(x) for x in losses + [eval_loss]), f"{label}: a training loss is not finite")
         check(losses[-1] < losses[0], f"{label}: the training loss did not fall")
         print(f"  train step B={TRAIN_BATCH}: {step_ms:.3f} ms/step, {TRAIN_BATCH / step_ms * 1e3:.1f} images/s "
-              f"(CUDA events over steps 6-{TRAIN_STEPS}), peak memory allocated {peak_gb:.2f} GB ({card})")
+              f"(CUDA events over steps 6-{steps}), peak memory allocated {peak_gb:.2f} GB ({card})")
         del tmodel, tx, state, step, eval_step, metrics, eval_metrics
         torch.cuda.empty_cache()
         return counts, n_ln
 
-    n_layers = saved_cfg.num_layers
     n_teachers, evals = len(teachers), 1
+
+    def expected_launches(steps: int, attention_launches: dict) -> dict:
+        """The launches of ``steps`` steps and one eval: the attention
+        kernels' as given, K3/K4 at every LayerNormSpatial site of a step, K5
+        for each teacher on every step and eval, K6 on every step."""
+        return {**attention_launches, "ln_bwd_stats": n_ln * steps, "ln_bwd_dx": n_ln * steps,
+                "loss_sums_fwd": n_teachers * (steps + evals), "loss_sums_bwd": n_teachers * steps,
+                "loss_input_copies": 0}
+
     exact_counts, n_ln = train("phase 5, training (exact mode)")
-    want = {"mha_fwd": n_layers * (TRAIN_STEPS + evals), "mha_bwd": n_layers * TRAIN_STEPS,
-            "ln_bwd_stats": n_ln * TRAIN_STEPS, "ln_bwd_dx": n_ln * TRAIN_STEPS,
-            "loss_sums_fwd": n_teachers * (TRAIN_STEPS + evals), "loss_sums_bwd": n_teachers * TRAIN_STEPS,
-            "loss_input_copies": 0}
+    want = expected_launches(TRAIN_STEPS, {"mha_fwd": n_layers * (TRAIN_STEPS + evals),
+                                           "mha_bwd": n_layers * TRAIN_STEPS, "flash_fwd": 0, "flash_dq": 0,
+                                           "flash_dkv": 0})
     print(f"  launches {exact_counts}, expected {want}")
     check(exact_counts == want, "kernel launch counts of the exact-mode training path are off")
 
     # one step from identical weights: kernel path vs plain path, float32 and bf16
-    def grads_on(path: str, dtype: torch.dtype, **flags):
+    def grads_on(path: str, dtype: torch.dtype, impl: str = "pallas", **flags):
         seed = torch.Generator().manual_seed(3)
         if path == "kernel":
-            return loss_and_grads(build_theia(MODEL, dtype=dtype, generator=seed, **flags), images, targets)
+            return loss_and_grads(attention_model(impl, dtype=dtype, generator=seed, **flags), images, targets)
         layers.LN_STATS_IMPL, loss_module.FUSED_LOSS = "vpu", False
         try:
-            return loss_and_grads(plain_attention_model(dtype=dtype, generator=seed, **flags), images, targets)
+            return loss_and_grads(attention_model("einsum", dtype=dtype, generator=seed, **flags), images, targets)
         finally:
             layers.LN_STATS_IMPL, loss_module.FUSED_LOSS = "pallas", True
 
-    def kernel_vs_plain(loss_rtol: float, **flags):
-        (kloss, kgrads), (ploss, pgrads) = grads_on("kernel", torch.float32, **flags), grads_on("plain", torch.float32, **flags)
+    def kernel_vs_plain(loss_rtol: float, impl: str = "pallas", **flags):
+        (kloss, kgrads), (ploss, pgrads) = (grads_on("kernel", torch.float32, impl, **flags),
+                                            grads_on("plain", torch.float32, **flags))
         names = [n for n in pgrads if not n.endswith("key.bias")]
         worst = max((rel_l2(kgrads[n], pgrads[n]), n) for n in names)
         key_bias = max(float(g.abs().max()) for n, g in kgrads.items() if n.endswith("key.bias"))
-        print(f"  one float32 step, kernel path vs plain path (attention einsum, LN_STATS_IMPL vpu, FUSED_LOSS "
-              f"False): loss {kloss:.7f} vs {ploss:.7f} (rtol {loss_rtol}); worst gradient rel_l2 {worst[0]:.3e} "
-              f"({worst[1]}; < {TRAIN_GRAD_REL_L2}); key-bias gradients (0 in exact arithmetic) max abs {key_bias:.2e}")
+        print(f"  one float32 step, kernel path (attention {impl}) vs plain path (attention einsum, LN_STATS_IMPL "
+              f"vpu, FUSED_LOSS False): loss {kloss:.7f} vs {ploss:.7f} (rtol {loss_rtol}); worst gradient rel_l2 "
+              f"{worst[0]:.3e} ({worst[1]}; < {TRAIN_GRAD_REL_L2}); key-bias gradients (0 in exact arithmetic) max "
+              f"abs {key_bias:.2e}")
         check(abs(kloss - ploss) <= loss_rtol * abs(ploss), "training loss: kernel path vs plain path")
         check(worst[0] < TRAIN_GRAD_REL_L2, "a gradient: kernel path vs plain path")
         return names, kgrads
@@ -579,12 +767,60 @@ def main() -> int:
     del kgrads
     torch.cuda.empty_cache()
 
+    # the exact mode through attention_impl="flash": K7 forward, K9 and K8 backward
+    flash_counts, _ = train("phase 5, training (exact mode, attention_impl=\"flash\")", FLASH_TRAIN_STEPS, "flash")
+    want = expected_launches(FLASH_TRAIN_STEPS, {"mha_fwd": 0, "mha_bwd": 0,
+                                                 "flash_fwd": n_layers * (FLASH_TRAIN_STEPS + evals),
+                                                 "flash_dq": n_layers * FLASH_TRAIN_STEPS,
+                                                 "flash_dkv": n_layers * FLASH_TRAIN_STEPS})
+    print(f"  launches {flash_counts}, expected {want}")
+    check(flash_counts == want, "kernel launch counts of the flash training path are off")
+    _, fgrads = kernel_vs_plain(TRAIN_LOSS_RTOL, "flash")
+    _, bgrads = grads_on("kernel", torch.bfloat16, "flash")
+    flash_bf16_err = rel_l2(torch.cat([bgrads[n].flatten() for n in names]),
+                            torch.cat([fgrads[n].flatten() for n in names]))
+    print(f"  bf16 gradients through flash: rel_l2 {flash_bf16_err:.3e} from its float32 ones, vs the plain path's "
+          f"{bf16_err['plain']:.3e} (limit {TRAIN_BF16_GRAD_FACTOR} x the plain path's)")
+    check(flash_bf16_err <= TRAIN_BF16_GRAD_FACTOR * bf16_err["plain"],
+          "bf16 gradients of the flash path further from float32 than the plain path's")
+    del fgrads, bgrads
+    torch.cuda.empty_cache()
+
+    # one forward and backward of the backbone on 448² images through "pallas"
+    # (the flash kernels at T = 785, 13 tiles of 64) against autograd through "einsum"
+    bx = torch.from_numpy(trng.integers(0, 256, (BIG_TRAIN_BATCH, BIG_IMAGE, BIG_IMAGE, 3), dtype=np.uint8)).cuda()
+    gtok = torch.randn(BIG_TRAIN_BATCH, BIG_T, 768, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(5))
+
+    def backbone_grads(impl: str):
+        backbone = attention_model(impl, dtype=torch.float32, generator=torch.Generator().manual_seed(6)).backbone
+        tokens = backbone(bx, **big_kw)
+        params = dict(backbone.named_parameters())
+        grads = torch.autograd.grad((tokens * gtok).sum(), list(params.values()))
+        return tokens.detach(), dict(zip(params, grads))
+
+    reset_attention_counts()
+    tok, bgrads = backbone_grads("pallas")
+    torch.cuda.synchronize()
+    counts = attention_counts()
+    want = {"mha_fwd": 0, "mha_bwd": 0, "flash_fwd": n_layers, "flash_dq": n_layers, "flash_dkv": n_layers}
+    check(counts == want, f"the 448² backbone step launched {counts}, expected {want}")
+    ptok, pgrads = backbone_grads("einsum")
+    tok_err = float((tok - ptok).abs().max())
+    bnames = [n for n in pgrads if not n.endswith("key.bias")]
+    worst = max((rel_l2(bgrads[n], pgrads[n]), n) for n in bnames)
+    print(f"  backbone forward and backward on [{BIG_TRAIN_BATCH},{BIG_IMAGE},{BIG_IMAGE},3], {big_kw} (T = {BIG_T}), "
+          f"float32, \"pallas\" (launches {counts}) vs autograd through \"einsum\": tokens max_abs {tok_err:.3e} (atol "
+          f"{MODEL_F32_ATOL}); worst gradient rel_l2 {worst[0]:.3e} ({worst[1]}; < {TRAIN_GRAD_REL_L2})")
+    check(tok_err <= MODEL_F32_ATOL, "448² backbone tokens: flash kernels vs einsum")
+    check(worst[0] < TRAIN_GRAD_REL_L2, "a 448² backbone gradient: flash kernels vs einsum")
+    del tok, ptok, bgrads, pgrads, bx, gtok
+    torch.cuda.empty_cache()
+
     # phase 6: the production recipe at full width and depth
     recipe = dict(fast_math=True, fuse_preprocessing=True)
     recipe_counts, _ = train("phase 6, training (the production recipe)", **recipe)
-    want = {"mha_fwd": 0, "mha_bwd": 0, "ln_bwd_stats": n_ln * TRAIN_STEPS, "ln_bwd_dx": n_ln * TRAIN_STEPS,
-            "loss_sums_fwd": n_teachers * (TRAIN_STEPS + evals), "loss_sums_bwd": n_teachers * TRAIN_STEPS,
-            "loss_input_copies": 0}
+    want = expected_launches(TRAIN_STEPS, forward_only(0))
     print(f"  launches {recipe_counts}, expected {want}")
     check(recipe_counts == want, "kernel launch counts of the recipe's training path are off")
     kernel_vs_plain(RECIPE_LOSS_RTOL, **recipe)
@@ -605,7 +841,6 @@ def main() -> int:
     # phase 7: timings
     print(f"phase 7: timings on {card}:")
     x1 = torch.from_numpy(requests[0]).cuda()
-    x64 = torch.from_numpy(requests[3][:64]).cuda()
     with torch.inference_mode():
         for _ in range(5):
             model.forward_feature(x1)
@@ -682,6 +917,49 @@ def main() -> int:
             7 * n * q.element_size(), 10 * TRAIN_BATCH * 12 * 197 ** 2 * 64, dtype, f"[{TRAIN_BATCH},197,12,64]")
         if dtype == bf16:
             record["mha_bwd"] = res
+    # K7 at serving's [64, 197] and 448² images' [16, 785]; K9 and K8 at
+    # training's [16, 197] and [16, 785], each against its plain part, and
+    # the pair against the plain backward and SDPA's flash backward (bf16),
+    # fed from the matching forward's output and log-sum-exp
+    for dtype in (torch.float32, bf16):
+        for b, t in ((64, 197), (BIG_BATCH, BIG_T)):
+            q, k, v = packed_qkv(b, t, dtype, gen)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            n, bh = q.numel(), b * HEADS
+            res = kernel_row("K7 flash_fwd", {
+                "plain": lambda: attention.flash_fwd_plain(q, k, v), "kernel": lambda: attention.flash_fwd(q, k, v),
+                "library": lambda: sdpa(qt, kt, vt)}, 4 * n * q.element_size() + bh * t * 4,
+                4 * bh * t * t * HEAD_DIM, dtype, f"[{b},{t},12,64]")
+            if dtype == bf16 and t == BIG_T:
+                record["flash_fwd"] = res
+        for t in (197, BIG_T):
+            q, k, v = packed_qkv(TRAIN_BATCH, t, dtype, gen)
+            do = torch.randn(TRAIN_BATCH, t, HEADS, HEAD_DIM, device="cuda", generator=gen).to(dtype)
+            o, lse = attention.flash_fwd(q, k, v)
+            _, di = attention.flash_dq(q, k, v, o, lse, do)
+            n, bh, es = q.numel(), TRAIN_BATCH * HEADS, q.element_size()
+            shape = f"[{TRAIN_BATCH},{t},12,64]"
+            r9 = kernel_row("K9 flash_dq", {
+                "plain": lambda: attention.flash_dq_plain(q, k, v, o, lse, do),
+                "kernel": lambda: attention.flash_dq(q, k, v, o, lse, do)},
+                6 * n * es + 2 * bh * t * 4, 6 * bh * t * t * HEAD_DIM, dtype, shape)
+            r8 = kernel_row("K8 flash_dkv", {
+                "plain": lambda: attention.flash_dkv_plain(q, k, v, lse, di, do),
+                "kernel": lambda: attention.flash_dkv(q, k, v, lse, di, do)},
+                6 * n * es + 2 * bh * t * 4, 8 * bh * t * t * HEAD_DIM, dtype, shape)
+            pair = {"plain": lambda: attention.flash_bwd_plain(q, k, v, o, lse, do),
+                    "kernel": lambda: attention.flash_bwd(q, k, v, o, lse, do)}
+            if dtype == bf16:
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                out, lse_s, cq, ck, mq, mk, seed, offset, _ = torch.ops.aten._scaled_dot_product_flash_attention(
+                    qt, kt, vt)
+                dout = torch.empty_like(out).copy_(do.transpose(1, 2))
+                pair["library"] = lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                    dout, qt, kt, vt, out, lse_s, cq, ck, mq, mk, 0.0, False, seed, offset)
+            kernel_row("K9 + K8 flash backward", pair, 8 * n * es + bh * t * 4, 14 * bh * t * t * HEAD_DIM, dtype,
+                       shape)
+            if dtype == bf16 and t == BIG_T:
+                record["flash_dq"], record["flash_dkv"] = r9, r8
     for dtype, s in [(bf16, 16), (bf16, 31), (bf16, 64), (torch.float32, 64)]:
         x, g, w, mean, r = ln_inputs(TRAIN_BATCH, 768, s, dtype, gen)
         s1, s2 = ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)[:2]
@@ -751,13 +1029,18 @@ def main() -> int:
                           kernel_errors[("loss_sums_fwd", TRAIN_BATCH, max(teacher_dims), bf16, torch.float32)]),
         "loss_sums_bwd": ("csrc/fused_loss.cu", "theia_tpu/ops/fused_loss.py:54",
                           kernel_errors[("loss_sums_bwd", TRAIN_BATCH, max(teacher_dims), bf16, torch.float32)]),
+        # the Pallas kernels of JAX's TPU flash attention library, which
+        # theia_tpu/ops/attention.py:151 (_flash_attention) calls
+        **{name: ("csrc/flash_attn.cu", f"{FLASH_LIBRARY}:{line}", kernel_errors[(name, bf16, BIG_BATCH, BIG_T)])
+           for name, line in (("flash_fwd", 331), ("flash_dkv", 796), ("flash_dq", 1146))},
     }
     rows = []
     for name, (src, replaces, err) in meta.items():
         t, bound, by = record[name]
         # launches on the path that runs the kernel: the recipe's training,
         # or for the attention kernels, which the recipe skips, exact mode's
-        launches = recipe_counts[name] or exact_counts[name]
+        # (the flash kernels: exact mode's through attention_impl="flash")
+        launches = recipe_counts[name] or exact_counts[name] or flash_counts[name]
         rows.append({
             "name": name, "route": "cuda", "source": f"theia_tpu_torch/{src}", "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],

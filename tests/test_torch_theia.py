@@ -91,6 +91,25 @@ def test_forward_feature_and_predict_match_jax(cddsv_pair):
         np.testing.assert_allclose(got[t].numpy(), np.asarray(want[t]), atol=1e-3, rtol=0, err_msg=t)
 
 
+def test_flash_attention_forward_feature_matches_jax(monkeypatch):
+    """The exact-mode Theia with attention_impl="flash" (the plain flash
+    versions on the CPU; JAX runs einsum there), at 224² and on 448² images
+    without resize and with interpolated position embeddings (T = 785)."""
+    monkeypatch.setitem(tvit.BACKBONE_CONFIGS, TINY, dataclasses.replace(tvit.BACKBONE_CONFIGS[TINY],
+                                                                         attention_impl="flash"))
+    jmodel, params, tmodel = _pair(TINY, CDDSV, "cls")
+    assert tmodel.backbone.cfg.attention_impl == "flash"
+    rng = np.random.default_rng(7)
+    for imgs, kw, tokens in ((_images(2, seed=6), {}, 196),
+                             (rng.integers(0, 256, (1, 448, 448, 3), dtype=np.uint8),
+                              dict(do_resize=False, interpolate_pos_encoding=True), 784)):
+        want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(imgs), method=jmodel.forward_feature, **kw))
+        with torch.no_grad():
+            got = tmodel.forward_feature(torch.from_numpy(imgs), **kw).numpy()
+        assert got.shape == want.shape == (len(imgs), tokens, 192)
+        np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_recipe_model_matches_jax(dtype):
     """The training recipe's model: fast_math and fuse_preprocessing."""

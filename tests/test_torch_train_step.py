@@ -219,6 +219,17 @@ def _check_trajectory(jax_params, case, jstate, jlosses, model, state, losses):
         assert all(counts[n] == (1 if n.startswith("translator.") else STEPS) for n in got)
 
 
+def test_flash_attention_train_steps_match_jax(jax_params, monkeypatch):
+    """The exact-mode step with attention_impl="flash" (FlashFunction, its
+    CPU forward and backward the plain flash versions) against the JAX step
+    (einsum attention off the TPU)."""
+    monkeypatch.setitem(tvit.BACKBONE_CONFIGS, TINY, dataclasses.replace(tvit.BACKBONE_CONFIGS[TINY],
+                                                                         attention_impl="flash"))
+    jstate, jlosses, model, state, losses = _run_both(jax_params, "f32")
+    assert model.backbone.cfg.attention_impl == "flash"
+    _check_trajectory(jax_params, "f32", jstate, jlosses, model, state, losses)
+
+
 def test_recipe_train_steps_match_jax(jax_params):
     """The production recipe's step in float32 compute: fast_math,
     fuse_preprocessing, the fused loss, bf16 moments."""

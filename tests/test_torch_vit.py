@@ -85,14 +85,16 @@ def test_preprocess_images_matches_jax(hw):
     np.testing.assert_array_equal(got_nchw.numpy(), got.numpy())
 
 
-def _backbones(variant, fast_math=False, dtypes=(jnp.float32, torch.float32), fuse_preprocessing=False):
+def _backbones(variant, fast_math=False, dtypes=(jnp.float32, torch.float32), fuse_preprocessing=False,
+               attention_impl="pallas"):
     name = NAMES[variant]
     cfg = dataclasses.replace(jvit.BACKBONE_CONFIGS[name], num_layers=2, fast_math=fast_math)
     num_reg = 7 if variant == "reg" else 0
     jmodel = jvit.ViTBackbone(cfg, variant=variant, num_reg_tokens=num_reg, dtype=dtypes[0],
                               fuse_preprocessing=fuse_preprocessing)
     params = jmodel.init(jax.random.PRNGKey(1), jnp.zeros((1, 224, 224, 3), jnp.float32), False)["params"]
-    tcfg = dataclasses.replace(tvit.BACKBONE_CONFIGS[name], num_layers=2, fast_math=fast_math)
+    tcfg = dataclasses.replace(tvit.BACKBONE_CONFIGS[name], num_layers=2, fast_math=fast_math,
+                               attention_impl=attention_impl)
     tmodel = tvit.ViTBackbone(tcfg, variant=variant, num_reg_tokens=num_reg, dtype=dtypes[1],
                               fuse_preprocessing=fuse_preprocessing)
     sd = state_dict_from_jax({"backbone_module": params}, {}, variant=variant)
@@ -124,6 +126,58 @@ def test_backbone_interpolate_pos_encoding_matches_jax():
         got = tmodel(torch.from_numpy(x), interpolate_pos_encoding=True, **FLAGS).numpy()
     assert got.shape == want.shape == (1, 1 + 15 * 15, 192)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["cls", "reg"])
+def test_flash_backbone_matches_jax(variant):
+    """attention_impl="flash": the port's flash path (its plain versions on
+    the CPU) against the JAX backbone (einsum attention off the TPU)."""
+    jmodel, params, tmodel = _backbones(variant, attention_impl="flash")
+    x = np.random.default_rng(4).standard_normal((2, 224, 224, 3), dtype=np.float32)
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x), **FLAGS))
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(x), **FLAGS).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("attention_impl", ["flash", "pallas"])
+def test_448_images_with_interpolated_pos_encoding_match_jax(attention_impl):
+    """uint8 448² images, no resize, interpolated position embeddings:
+    T = 1 + 28² = 785, past K1/K2's 256, so "pallas" takes the flash route
+    too. Without the resize no rounding pass runs, so the backbone's atol
+    holds."""
+    jmodel, params, tmodel = _backbones("cls", attention_impl=attention_impl)
+    imgs = np.random.default_rng(6).integers(0, 256, (1, 448, 448, 3), dtype=np.uint8)
+    kw = dict(do_resize=False, interpolate_pos_encoding=True)
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(imgs), **kw))
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(imgs), **kw).numpy()
+    assert got.shape == want.shape == (1, 785, 192)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("fuse_preprocessing, size", [(False, 240), (True, 224)])
+def test_training_after_inference_mode_serving(fuse_preprocessing, size):
+    """Constants cached on the device by a call under torch.inference_mode()
+    (the resize matrices of the position-embedding interpolation, the fused
+    embed's scale and shift) stay usable by a later step that autograd
+    differentiates: the gradients equal those of a run with nothing cached."""
+    _, _, tmodel = _backbones("cls", fuse_preprocessing=fuse_preprocessing)
+    imgs = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (1, size, size, 3), dtype=np.uint8))
+    kw = dict(do_resize=False, interpolate_pos_encoding=True) if size != 224 else {}
+
+    def grads():
+        (g,) = torch.autograd.grad(tmodel(imgs, **kw).square().sum(), tmodel.model.embeddings.position_embeddings)
+        return g
+
+    for f in (timage._resize_matrix_on, timage._channel_constant, tvit._fused_constants):
+        f.cache_clear()
+    want = grads()
+    for f in (timage._resize_matrix_on, timage._channel_constant, tvit._fused_constants):
+        f.cache_clear()
+    with torch.inference_mode():
+        tmodel(imgs, **kw)
+    torch.testing.assert_close(grads(), want, atol=0, rtol=0)
 
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

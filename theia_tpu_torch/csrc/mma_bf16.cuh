@@ -1,6 +1,7 @@
 // bf16 tensor-core building blocks shared by the attention kernels
-// (mha_fwd.cu, mha_bwd.cu): mma.sync m16n8k16 with float32 accumulation,
-// transposing ldmatrix, cp.async staging, and bf16 packing.
+// (mha_fwd.cu, mha_bwd.cu, flash_attn.cu): mma.sync m16n8k16 with float32
+// accumulation, transposing ldmatrix, cp.async staging, bf16 packing, and
+// the A-fragment loads, products and stores over rows staged with pitch HD + 8.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 * g + tq): A holds rows g
 // and g + 8, columns 2tq, 2tq + 1 (and + 8); B holds columns g, rows 2tq,
@@ -75,6 +76,68 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat
     }
   }
   cp_async_commit();
+}
+
+// A fragments of 16 rows of a slab (rows r0 .. r0 + 15, token stride ts),
+// straight from global memory; rows past T are zeros.
+template <int HD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[HD / 16][4], const __nv_bfloat16* x, int64_t ts, int r0,
+                                       int t) {
+  const int lane = threadIdx.x & 31;
+  const int ra = r0 + (lane >> 2);
+  const int rb = ra + 8;
+  const int c = 2 * (lane & 3);
+#pragma unroll
+  for (int s = 0; s < HD / 16; ++s) {
+    const int d = s * 16 + c;
+    a[s][0] = ra < t ? load_u32(x + ra * ts + d) : 0u;
+    a[s][1] = rb < t ? load_u32(x + rb * ts + d) : 0u;
+    a[s][2] = ra < t ? load_u32(x + ra * ts + d + 8) : 0u;
+    a[s][3] = rb < t ? load_u32(x + rb * ts + d + 8) : 0u;
+  }
+}
+
+// acc (an 8-column tile) += A (16 rows x HD) times rows n*8 .. n*8 + 7 of a
+// staged [.][HD + 8] tensor, transposed: C[i][j] += sum_d A[i][d] X[n*8 + j][d].
+template <int HD>
+__device__ __forceinline__ void mma_rows(float (&acc)[4], const uint32_t (&a)[HD / 16][4],
+                                         const __nv_bfloat16* xs, int n) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* row = xs + (n * 8 + (lane >> 2)) * (HD + 8) + 2 * (lane & 3);
+#pragma unroll
+  for (int s = 0; s < HD / 16; ++s) mma_bf16_16816(acc, a[s], load_u32(row + s * 16), load_u32(row + s * 16 + 8));
+}
+
+// acc[HD / 8 tiles] += A (16 x 16, as four packed registers) times rows
+// j*16 .. j*16 + 15 of a staged [.][HD + 8] tensor; its B fragments come
+// from a transposing ldmatrix, two 8-column tiles at a time.
+template <int HD>
+__device__ __forceinline__ void mma_cols(float (&acc)[HD / 8][4], const uint32_t (&a)[4], const __nv_bfloat16* xs,
+                                         int j) {
+  const int lane = threadIdx.x & 31;
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lcol = (lane >> 4) * 8;
+#pragma unroll
+  for (int n = 0; n < HD / 8; n += 2) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, xs + (j * 16 + lrow) * (HD + 8) + n * 8 + lcol);
+    mma_bf16_16816(acc[n], a, b[0], b[1]);
+    mma_bf16_16816(acc[n + 1], a, b[2], b[3]);
+  }
+}
+
+// Stores 16 rows (r0 ..) of an [HD]-wide accumulator as bf16, rows past T skipped.
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* x, int64_t ts, int r0, int t, const float (&acc)[HD / 8][4]) {
+  const int lane = threadIdx.x & 31;
+  const int ra = r0 + (lane >> 2);
+  const int rb = ra + 8;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int d = n * 8 + 2 * (lane & 3);
+    if (ra < t) *reinterpret_cast<uint32_t*>(x + ra * ts + d) = pack_bf16(acc[n][0], acc[n][1]);
+    if (rb < t) *reinterpret_cast<uint32_t*>(x + rb * ts + d) = pack_bf16(acc[n][2], acc[n][3]);
+  }
 }
 
 }  // namespace

@@ -21,7 +21,8 @@ import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCES = tuple(PACKAGE_DIR / "csrc" / name for name in ("mha_fwd.cu", "mha_bwd.cu", "ln_bwd.cu", "fused_loss.cu"))
+SOURCES = tuple(PACKAGE_DIR / "csrc" / name
+                for name in ("mha_fwd.cu", "mha_bwd.cu", "flash_attn.cu", "ln_bwd.cu", "fused_loss.cu"))
 HEADERS = (PACKAGE_DIR / "csrc" / "mma_bf16.cuh",)
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -94,6 +95,12 @@ def load() -> ctypes.CDLL:
             lib.theia_mha_fwd.restype = i32
             lib.theia_mha_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 6 + [i32, ctypes.c_float, ptr]
             lib.theia_mha_bwd.restype = i32
+            lib.theia_flash_fwd.argtypes = [ptr] * 5 + [i32] * 4 + [i64] * 4 + [i32, ctypes.c_float, ptr]
+            lib.theia_flash_fwd.restype = i32
+            lib.theia_flash_dq.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 8 + [i32, ctypes.c_float, ptr]
+            lib.theia_flash_dq.restype = i32
+            lib.theia_flash_dkv.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 6 + [i32, ctypes.c_float, ptr]
+            lib.theia_flash_dkv.restype = i32
             lib.theia_ln_bwd_partials.argtypes = [i64]
             lib.theia_ln_bwd_partials.restype = i32
             lib.theia_ln_bwd_stats.argtypes = [ptr] * 11 + [i32, i64, i32, ptr]

@@ -4,8 +4,10 @@ Port of theia_tpu/models/vit.py:36-67,103-148,169-552: uint8 preprocessing
 on the device, the patch embed, pre-LN blocks (eps 1e-12) with packed QKV,
 final LayerNorm. Two paths through a block:
   - exact (``fast_math`` off): attention through
-    ``ops.attention.packed_attention`` (the differentiable K1/K2 pair for
-    "pallas"), exact-erf GELU;
+    ``ops.attention.packed_attention`` with ``cfg.attention_impl`` (the
+    differentiable K1/K2 pair for "pallas" up to 256 tokens, the flash
+    kernels K7/K9/K8 for "flash" and for "pallas" past 256 tokens, e.g.
+    448² images with ``interpolate_pos_encoding``), exact-erf GELU;
   - ``fast_math``: the JAX ``ATTN_LAYOUT="bhqd_fused"`` branch, in plain
     PyTorch as XLA computed it outside any Pallas kernel: scores q·kᵀ and
     ``softmax(scores / sqrt(hd))`` in the compute dtype, the context kept
@@ -85,11 +87,14 @@ def _fused_resize_patch_matrix(
 def _fused_constants(cfg: "ViTBackboneConfig", device: torch.device) -> tuple[torch.Tensor, ...]:
     """``_fused_embed``'s float32 constants on ``device``, copied there once
     (no host-to-device copy a step): the resampling weights A [patch, K],
-    the per-channel scale 1/(255·std) on raw uint8 and shift −mean/std."""
+    the per-channel scale 1/(255·std) on raw uint8 and shift −mean/std.
+    Made outside inference mode, so that a training step may save them for
+    autograd after a call under ``torch.inference_mode()`` cached them."""
     a, _, _ = _fused_resize_patch_matrix(cfg.image_size, cfg.resize_size, cfg.crop_size, cfg.patch_size)
-    mean = torch.tensor(cfg.image_mean, dtype=torch.float32)
-    std = torch.tensor(cfg.image_std, dtype=torch.float32)
-    return tuple(c.to(device) for c in (torch.from_numpy(a), 1.0 / (255.0 * std), -mean / std))
+    with torch.inference_mode(False):
+        mean = torch.tensor(cfg.image_mean, dtype=torch.float32)
+        std = torch.tensor(cfg.image_std, dtype=torch.float32)
+        return tuple(c.to(device) for c in (torch.from_numpy(a), 1.0 / (255.0 * std), -mean / std))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,9 +115,11 @@ class ViTBackboneConfig:
     crop_size: int = 224
     image_mean: tuple[float, float, float] = (0.5, 0.5, 0.5)
     image_std: tuple[float, float, float] = (0.5, 0.5, 0.5)
-    # "pallas": the hand-written CUDA kernel (plain PyTorch on CPU tensors);
-    # "einsum": plain PyTorch everywhere. The JAX package defaults to
-    # "einsum"; the port's main path runs the kernel.
+    # "pallas": the hand-written CUDA kernels K1/K2 (the flash kernels past
+    # 256 tokens); "flash": the tiled flash kernels K7/K9/K8 at any token
+    # count; both plain PyTorch on CPU tensors. "einsum": plain PyTorch
+    # everywhere. The JAX package defaults to "einsum"; the port's main path
+    # runs the kernels.
     attention_impl: str = "pallas"
     fast_math: bool = False
 

@@ -87,15 +87,20 @@ def _resize_matrix_on(
     """``_resize_matrix`` as a device tensor, copied to the device once.
 
     Cached so a serving loop does not issue a synchronous host-to-device
-    copy per call."""
+    copy per call. Made outside inference mode: a matrix first cached by a
+    call under ``torch.inference_mode()`` is still one autograd may save
+    (the position-embedding interpolation of a training step)."""
     mat = _resize_matrix(in_size, out_size, a, scale, antialias)
-    return torch.from_numpy(mat).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(mat).to(device=device, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=16)
 def _channel_constant(values: tuple[float, ...], device: torch.device) -> torch.Tensor:
-    """Per-channel float32 constant shaped [C, 1, 1] for NCHW broadcasting."""
-    return torch.tensor(values, dtype=torch.float32).reshape(-1, 1, 1).to(device)
+    """Per-channel float32 constant shaped [C, 1, 1] for NCHW broadcasting
+    (made outside inference mode, as ``_resize_matrix_on``)."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.float32).reshape(-1, 1, 1).to(device)
 
 
 def _resize_nchw(

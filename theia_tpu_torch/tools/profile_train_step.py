@@ -1,12 +1,14 @@
 """Where the time of the port's distillation train step goes, on one GPU.
 
-    python -m theia_tpu_torch.tools.profile_train_step [--batch 16] [--steps 3] [--recipe] [--trace FILE]
+    python -m theia_tpu_torch.tools.profile_train_step [--batch 16] [--steps 3] [--recipe]
+        [--attention pallas|flash] [--trace FILE]
 
 Builds Theia-Base cddsv (seeded random weights, float32 params, bf16
 compute) with the recipe's optimizer (masked AdamW, bf16 moments), as
 ``chip_smoke.py`` trains it (``--recipe``: with the production recipe's
-``fast_math`` and ``fuse_preprocessing``; else the exact mode), and after
-warmup prints:
+``fast_math`` and ``fuse_preprocessing``; else the exact mode, whose
+encoder attention is ``--attention``: K1/K2, or the flash kernels
+K7/K9/K8), and after warmup prints:
   - the step's phases by CUDA events, each ended by a synchronize: forward
     and loss, backward (``torch.autograd.grad``), optimizer update;
   - device time by kernel class over ``--steps`` whole steps, from
@@ -18,6 +20,7 @@ warmup prints:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -34,6 +37,9 @@ MODEL = "theaiinstitute/theia-base-patch16-224-cddsv"
 CLASSES = (
     ("K1 mha_fwd", ("mha_fwd",)),
     ("K2 mha_bwd", ("mha_bwd",)),
+    ("K7 flash_fwd", ("flash_fwd",)),
+    ("K9 flash_dq", ("flash_dq",)),
+    ("K8 flash_dkv", ("flash_dkv",)),
     ("K3 ln_bwd_stats", ("ln_bwd_stats", "ln_bwd_finish")),
     ("K4 ln_bwd_dx", ("ln_bwd_dx",)),
     ("K5 loss_sums_fwd", ("loss_sums_partial", "loss_sums_finish")),
@@ -74,12 +80,15 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--recipe", action="store_true", help="fast_math and fuse_preprocessing on")
+    parser.add_argument("--attention", choices=("pallas", "flash"), default="pallas",
+                        help="the encoder's attention_impl (the exact mode's; fast_math does not use it)")
     parser.add_argument("--trace", default=None, help="write the chrome trace here")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
         return 1
     from theia_tpu_torch.foundation.common import get_model_feature_size
+    from theia_tpu_torch.models import vit
     from theia_tpu_torch.models.hub import build_theia, parse_model_name
     from theia_tpu_torch.models.losses import get_loss, main_loss_from_terms
     from theia_tpu_torch.train.optim import constant_with_warmup, make_optimizer, scaled_lr
@@ -88,14 +97,19 @@ def main(argv: list[str] | None = None) -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    _, teachers = parse_model_name(MODEL)
+    backbone, teachers = parse_model_name(MODEL)
     rng = np.random.default_rng(1)
     images = torch.from_numpy(rng.integers(0, 256, (args.batch, 224, 224, 3), dtype=np.uint8)).cuda()
     targets = {t: torch.from_numpy(rng.standard_normal((args.batch, *get_model_feature_size(t, keep_spatial=True)),
                                                        dtype=np.float32)).to("cuda", torch.bfloat16)
                for t in teachers}
     flags = dict(fast_math=True, fuse_preprocessing=True) if args.recipe else {}
-    model = build_theia(MODEL, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(2), **flags)
+    saved = vit.BACKBONE_CONFIGS[backbone]
+    vit.BACKBONE_CONFIGS[backbone] = dataclasses.replace(saved, attention_impl=args.attention)
+    try:
+        model = build_theia(MODEL, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(2), **flags)
+    finally:
+        vit.BACKBONE_CONFIGS[backbone] = saved
     tx = make_optimizer(constant_with_warmup(scaled_lr(2e-3, args.batch, 1), 2), weight_decay=0.01,
                         moment_dtype=torch.bfloat16)
     state = TrainState.create(dict(model.named_parameters()), tx)
@@ -121,7 +135,8 @@ def main(argv: list[str] | None = None) -> int:
         torch.cuda.synchronize()
         for name, a, b in (("forward + loss", 0, 1), ("backward", 1, 2), ("optimizer update", 2, 3)):
             phases[name].append(ev[a].elapsed_time(ev[b]))
-    print(f"{MODEL}, batch {args.batch}, float32 params, bf16 compute, {flags or 'exact mode'} ({card})")
+    print(f"{MODEL}, batch {args.batch}, float32 params, bf16 compute, {flags or 'exact mode'}, attention "
+          f"{args.attention} ({card})")
     for name, ms in phases.items():
         print(f"  phase {name}: {np.median(ms):.3f} ms (median of 3, synchronized between phases)")
 
