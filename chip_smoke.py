@@ -6,10 +6,12 @@ CUDA device, nvcc and nothing of JAX. Phases, each of which raises on
 failure (the script then exits nonzero and prints no result):
 
 1. the card's name and power limit (nvidia-smi);
-2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes);
+2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes),
+   ptxas's registers and spills, and K1's resident blocks per SM;
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
-   64] as views of a packed QKV projection, K7 (flash forward), K9 (flash
+   64] as views of a packed QKV projection and over a sweep of head dim x
+   T (K1: T at the edges of its 64-key chunks), K7 (flash forward), K9 (flash
    dQ) and K8 (flash dK, dV) at [B, 197|204, 12, 64] and [16, 785, 12, 64]
    as such views and over a sweep of head dim x T, K3 and K4
    (LayerNormSpatial backward) at every ladder LayerNorm of the Theia-Base
@@ -40,7 +42,9 @@ failure (the script then exits nonzero and prints no result):
    exact launch counts (K1 = K2 = 0, K3-K6 on every step), one float32
    step on the kernel path against the plain path, and ``forward_feature``
    with the fused preprocessing against the unfused one;
-7. timings with CUDA events after warmup, and each kernel's bound.
+7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
+   also with the stream held, the device's time alone), and each kernel's
+   bound and library call.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -75,6 +79,11 @@ KERNEL_BF16_REL_L2 = 1e-2
 # the largest T whose float32 K2 passes fit a block's shared memory, by head
 # dim (csrc/mha_bwd.cu); every other head dim takes every T <= 256
 K2_F32_MAX_T = {112: 224, 128: 196}
+# the same for float32 K1 (csrc/mha_fwd.cu smem_bytes_f32 within 227 KB)
+K1_F32_MAX_T = {80: 228, 96: 196, 112: 172, 128: 152}
+# K1 over every head dim it takes and the edges of its key chunks (64) and
+# of its limit (256)
+K1_SWEEP_T = (1, 17, 63, 64, 65, 128, 197, 204, 255, 256)
 # K7-K9 take any T: the sweep's token counts span 1 to 13 tiles of 64
 FLASH_SWEEP_T = (1, 17, 130, 257, 785)
 # 448² uint8 images without resize: 28² patches and the CLS token
@@ -132,7 +141,8 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"\d(mha_\w+?|flash_\w+?|ln_bwd_\w+?)(?:ILi(\d+)E|If?E|I13__nv_bfloat16E|E)", mangled)
+            m = re.search(r"\d(mha_\w+?|flash_\w+?|ln_bwd_\w+?)(?:ILi(\d+)E(?:Li(\d+)E)?|If?E|I13__nv_bfloat16E|E)",
+                          mangled)
             loss = re.search(r"\d(loss_sums_[a-z]+)(?:I(\w+?)Lb([01])E)?", mangled)
             name = m.group(1) if m else mangled
             if loss:
@@ -143,7 +153,7 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
                                      for x in re.findall(r"f|13__nv_bfloat16|S\d*_", loss.group(2)))
                     name += f"<{types},{'vec8' if loss.group(3) == '1' else 'scalar'}>"
             elif m and m.group(2):
-                name += f"<{m.group(2)}>"
+                name += f"<{m.group(2)}{f',{m.group(3)}' if m.group(3) else ''}>"
             elif m and "ln_bwd" in name and "finish" not in name:
                 name += "<bf16>" if "bfloat16" in mangled else "<f32>"
         elif "spill stores" in line:
@@ -264,6 +274,41 @@ def compare_kernels(attention, ln_pallas) -> dict:
                 want = attention.mha_bwd_plain(q, k, v, do)
                 errors[("mha_bwd", dtype, b, t)] = compare(
                     f"K2 mha_bwd {dn} [{b},{t},12,64]", got, want, dtype, KERNEL_F32_ATOL)
+    # K1 over every head dim it takes and the edges of T, heads as views of a packed projection
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in worst:
+        for hd in range(16, 129, 16):
+            for t in K1_SWEEP_T:
+                qkv = torch.randn(2, t, 3 * 2 * hd, device="cuda", generator=gen).to(dtype)
+                q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+                if dtype == torch.float32 and t > K1_F32_MAX_T.get(hd, t):
+                    try:  # past the float32 kernel's shared memory: the wrapper must raise
+                        attention.mha_fwd(q, k, v)
+                    except RuntimeError:
+                        continue
+                    raise AssertionError(f"K1 float32 took [2,{t},2,{hd}], past its shared memory")
+                got = attention.mha_fwd(q, k, v).float()
+                want = attention.mha_fwd_plain(*(x.float() for x in (q, k, v)))
+                err = float((got - want).abs().max()) if dtype == torch.float32 else rel_l2(got, want)
+                worst[dtype] = max(worst[dtype], err)
+    print(f"  K1 mha_fwd [2, T, 2, hd], hd 16..128 x T in {K1_SWEEP_T}: float32 worst max_abs_err "
+          f"{worst[torch.float32]:.3e} (atol {KERNEL_F32_ATOL}), bf16 worst rel_l2 {worst[torch.bfloat16]:.3e} "
+          f"(< {KERNEL_BF16_REL_L2})")
+    check(worst[torch.float32] <= KERNEL_F32_ATOL and worst[torch.bfloat16] < KERNEL_BF16_REL_L2,
+          "K1 disagrees with its plain version in the shape sweep")
+    # scores spread over hundreds: some p = exp(S - max) fall below 2^-90, where
+    # the bf16 kernel's rows take the IEEE division (csrc/mha_fwd.cu div_rn)
+    wide = 0.0
+    for hd in (64, 128):
+        for t in (197, 256):
+            qkv = torch.randn(2, t, 3 * 2 * hd, device="cuda", generator=gen)
+            qkv[..., : 2 * hd] *= 40
+            q, k, v = (y.view(2, t, 2, hd) for y in qkv.to(torch.bfloat16).split(2 * hd, dim=-1))
+            wide = max(wide, rel_l2(attention.mha_fwd(q, k, v).float(),
+                                    attention.mha_fwd_plain(q.float(), k.float(), v.float())))
+    print(f"  K1 mha_fwd bf16 [2, 197|256, 2, 64|128], scores x 40 (p below 2^-90): worst rel_l2 {wide:.3e} "
+          f"(< {KERNEL_BF16_REL_L2})")
+    check(wide < KERNEL_BF16_REL_L2, "K1 disagrees with its plain version where probabilities vanish")
     # K2 over every head dim it takes and the edges of T, heads as views of a packed projection
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype in worst:
@@ -465,8 +510,16 @@ def main() -> int:
     lib_path = build.build()
     build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.relative_to(here)}")
-    for name, usage in ptxas_usage(lib_path.with_suffix(".log").read_text()):
-        print(f"  ptxas: {name}: {usage}")
+    usage = ptxas_usage(lib_path.with_suffix(".log").read_text())
+    for name, line in usage:
+        print(f"  ptxas: {name}: {line}")
+    usage = dict(usage)
+    # K1 bf16 at the main path's T = 197: two chunks of 64 keys a warpgroup
+    k1 = f"mha_fwd_bf16<{HEAD_DIM},2>"
+    k1_blocks = build.load().theia_mha_fwd_bf16_blocks_per_sm(197, HEAD_DIM)
+    print(f"  K1 {k1} (T = 197): ptxas {usage.get(k1)}; {k1_blocks} resident blocks per SM "
+          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor, 256 threads a block)")
+    check(k1 in usage and k1_blocks > 0, f"K1's ptxas line or occupancy query is missing ({k1_blocks})")
 
     # phase 3: kernel vs plain; float32 phases run with TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -867,6 +920,11 @@ def main() -> int:
             for _ in range(3):
                 m.forward_feature(x64)
             ms = cuda_ms(lambda: m.forward_feature(x64), 20)
+            if name == "bf16":
+                # device time: 4 calls (~660 launches) stay within the launch queue while the stream is held
+                held = statistics.mean(cuda_ms(lambda: m.forward_feature(x64), 4, hold=True) for _ in range(3))
+                print(f"  forward_feature B=64 bf16 with the stream held: {held:.3f} ms/batch (CUDA events, "
+                      f"3 x 4 calls); back to back: {ms:.3f} ms/batch (20 calls) ({card})")
             # the host's time to enqueue one call, the stream held by a sleep meanwhile
             enqueue = []
             for _ in range(5):
@@ -898,6 +956,23 @@ def main() -> int:
         return t, bound, by
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_backward(q, k, v, do):
+        """One PyTorch call for dQ, dK, dV of attention over [B, T, H, hd]:
+        SDPA's flash backward (bf16) or its memory-efficient backward
+        (float32, which flash does not take), fed from the matching SDPA
+        forward's output and log-sum-exp."""
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if q.dtype == bf16:
+            out, lse, cq, ck, mq, mk, seed, offset, _ = torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt)
+            dout = torch.empty_like(out).copy_(do.transpose(1, 2))
+            return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dout, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset)
+        out, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(qt, kt, vt, None, True)
+        dout = torch.empty_like(out).copy_(do.transpose(1, 2))
+        return lambda: torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            dout, qt, kt, vt, None, out, lse, seed, offset, 0.0, [True, True, True, False])
+
     for dtype in (torch.float32, bf16):
         q, k, v = packed_qkv(64, 197, dtype, gen)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -913,14 +988,15 @@ def main() -> int:
         do = torch.randn(TRAIN_BATCH, 197, HEADS, HEAD_DIM, device="cuda", generator=gen).to(dtype)
         n = q.numel()
         res = kernel_row("K2 mha_bwd", {
-            "plain": lambda: attention.mha_bwd_plain(q, k, v, do), "kernel": lambda: attention.mha_bwd(q, k, v, do)},
+            "plain": lambda: attention.mha_bwd_plain(q, k, v, do), "kernel": lambda: attention.mha_bwd(q, k, v, do),
+            "library": sdpa_backward(q, k, v, do)},
             7 * n * q.element_size(), 10 * TRAIN_BATCH * 12 * 197 ** 2 * 64, dtype, f"[{TRAIN_BATCH},197,12,64]")
         if dtype == bf16:
             record["mha_bwd"] = res
     # K7 at serving's [64, 197] and 448² images' [16, 785]; K9 and K8 at
     # training's [16, 197] and [16, 785], each against its plain part, and
-    # the pair against the plain backward and SDPA's flash backward (bf16),
-    # fed from the matching forward's output and log-sum-exp
+    # the pair against the plain backward and SDPA's backward
+    # (``sdpa_backward``)
     for dtype in (torch.float32, bf16):
         for b, t in ((64, 197), (BIG_BATCH, BIG_T)):
             q, k, v = packed_qkv(b, t, dtype, gen)
@@ -948,14 +1024,7 @@ def main() -> int:
                 "kernel": lambda: attention.flash_dkv(q, k, v, lse, di, do)},
                 6 * n * es + 2 * bh * t * 4, 8 * bh * t * t * HEAD_DIM, dtype, shape)
             pair = {"plain": lambda: attention.flash_bwd_plain(q, k, v, o, lse, do),
-                    "kernel": lambda: attention.flash_bwd(q, k, v, o, lse, do)}
-            if dtype == bf16:
-                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                out, lse_s, cq, ck, mq, mk, seed, offset, _ = torch.ops.aten._scaled_dot_product_flash_attention(
-                    qt, kt, vt)
-                dout = torch.empty_like(out).copy_(do.transpose(1, 2))
-                pair["library"] = lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                    dout, qt, kt, vt, out, lse_s, cq, ck, mq, mk, 0.0, False, seed, offset)
+                    "kernel": lambda: attention.flash_bwd(q, k, v, o, lse, do), "library": sdpa_backward(q, k, v, do)}
             kernel_row("K9 + K8 flash backward", pair, 8 * n * es + bh * t * 4, 14 * bh * t * t * HEAD_DIM, dtype,
                        shape)
             if dtype == bf16 and t == BIG_T:

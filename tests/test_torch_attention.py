@@ -26,6 +26,17 @@ from theia_tpu_torch.ops import attention as tattn
 
 H, HD = 3, 64
 TOKENS = (196, 197, 204)  # nocls, cls, reg (7 registers)
+# the bf16 kernel's tile edges: its key chunks of 64 (one key, one short of a
+# chunk, a whole one, one past) and its limit of 256; head dims 16, 64 (the
+# main path's), 80 (a partial 64-column atom) and 128
+EDGE_TOKENS = (1, 63, 64, 65, 256)
+EDGE_HEAD_DIMS = (16, 64, 80, 128)
+# the card's sweep: every head dim the kernel takes, T at those edges and at
+# the encoder's token counts
+SWEEP_TOKENS = (1, 17, 63, 64, 65, 128, 197, 204, 255, 256)
+# the largest T whose float32 staging fits a block's 227 KB, by head dim
+# (csrc/mha_fwd.cu smem_bytes_f32); other head dims take every T <= 256
+F32_MAX_T = {80: 228, 96: 196, 112: 172, 128: 152}
 
 
 def _qkv(t, b=2, h=H, hd=HD, seed=0):
@@ -113,6 +124,25 @@ def test_plain_matches_both_references_bf16(t):
     want_kernel = _unpack(np.asarray(_pallas_kernel_interpret(*packed), np.float32), b=2)
     got_kernel_path = tattn.mha_fwd(tq, tk, tv)
     assert _rel_l2(got_kernel_path.float().numpy(), want_kernel) < 1e-2
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("hd", EDGE_HEAD_DIMS)
+@pytest.mark.parametrize("t", EDGE_TOKENS)
+def test_plain_matches_pallas_kernel_at_tile_edges(t, hd, dtype):
+    """The reference the card holds the kernel to (``mha_fwd`` on CPU
+    tensors) against the TPU kernel body in interpret mode, at the shapes
+    where the kernel's tiles end."""
+    q, k, v = _qkv(t, b=1, h=2, hd=hd, seed=13)
+    if dtype == "float32":
+        want = _pallas_kernel_interpret(*(jnp.asarray(_pack(x)) for x in (q, k, v)))
+        got = tattn.mha_fwd(*(torch.from_numpy(x) for x in (q, k, v)))
+        np.testing.assert_allclose(got.numpy(), _unpack(np.asarray(want), b=1), atol=1e-5, rtol=0)
+    else:
+        want = _pallas_kernel_interpret(*(jnp.asarray(_pack(x), jnp.bfloat16) for x in (q, k, v)))
+        got = tattn.mha_fwd(*(_bf16(x) for x in (q, k, v)))
+        assert got.dtype == torch.bfloat16
+        assert _rel_l2(got.float().numpy(), _unpack(np.asarray(want, np.float32), b=1)) < 1e-2
 
 
 def test_dispatch_on_cpu_tensors():
@@ -249,6 +279,46 @@ def test_cuda_kernel_matches_plain(cuda, t, dtype):
     else:
         want = tattn.mha_fwd_plain(q.float(), k.float(), v.float())
         assert _rel_l2(got.float().cpu().numpy(), want.cpu().numpy()) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", range(16, 129, 16))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_cuda_kernel_matches_plain_over_the_sweep(cuda, dtype, hd):
+    """K1 against its plain version at every head dim and every T of the
+    sweep, on views of a packed projection; a float32 shape past the
+    kernel's shared memory raises."""
+    gen = torch.Generator().manual_seed(hd)
+    for t in SWEEP_TOKENS:
+        qkv = torch.randn(2, t, 3 * 2 * hd, generator=gen).to(cuda, dtype)
+        q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+        if dtype == torch.float32 and t > F32_MAX_T.get(hd, t):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                tattn.mha_fwd(q, k, v)
+            continue
+        before = tattn.MHA_FWD_LAUNCHES
+        got = tattn.mha_fwd(q, k, v)
+        torch.cuda.synchronize()
+        assert tattn.MHA_FWD_LAUNCHES == before + 1
+        want = tattn.mha_fwd_plain(q.float(), k.float(), v.float())
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+        else:
+            assert _rel_l2(got.float().cpu().numpy(), want.cpu().numpy()) < 1e-2, (t, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", (64, 128))
+@pytest.mark.parametrize("t", (197, 256))
+def test_cuda_kernel_bf16_with_vanishing_probabilities(cuda, t, hd):
+    """Scores spread over hundreds, so that some p = exp(S - max) fall below
+    2^-90 and the bf16 kernel takes the IEEE division for their rows."""
+    qkv = torch.randn(2, t, 3 * 2 * hd, generator=torch.Generator().manual_seed(t + hd))
+    qkv[..., : 2 * hd] *= 40
+    q, k, v = (y.view(2, t, 2, hd) for y in qkv.to(cuda, torch.bfloat16).split(2 * hd, dim=-1))
+    got = tattn.mha_fwd(q, k, v)
+    want = tattn.mha_fwd_plain(q.float(), k.float(), v.float())
+    assert _rel_l2(got.float().cpu().numpy(), want.cpu().numpy()) < 1e-2
 
 
 @pytest.mark.gpu

@@ -41,6 +41,7 @@ SLICE_MODULES = [
     "theia_tpu_torch.train.optim",
     "theia_tpu_torch.train.state",
     "theia_tpu_torch.train.step",
+    "theia_tpu_torch.tools.check_div_rn",
     "theia_tpu_torch.tools.profile_train_step",
 ]
 

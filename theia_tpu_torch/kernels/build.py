@@ -23,7 +23,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(PACKAGE_DIR / "csrc" / name
                 for name in ("mha_fwd.cu", "mha_bwd.cu", "flash_attn.cu", "ln_bwd.cu", "fused_loss.cu"))
-HEADERS = (PACKAGE_DIR / "csrc" / "mma_bf16.cuh",)
+HEADERS = tuple(PACKAGE_DIR / "csrc" / name for name in ("div_rn.cuh", "mma_bf16.cuh", "wgmma_bf16.cuh"))
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -93,6 +93,8 @@ def load() -> ctypes.CDLL:
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.theia_mha_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, i64, i32, ctypes.c_float, ptr]
             lib.theia_mha_fwd.restype = i32
+            lib.theia_mha_fwd_bf16_blocks_per_sm.argtypes = [i32, i32]
+            lib.theia_mha_fwd_bf16_blocks_per_sm.restype = i32
             lib.theia_mha_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 6 + [i32, ctypes.c_float, ptr]
             lib.theia_mha_bwd.restype = i32
             lib.theia_flash_fwd.argtypes = [ptr] * 5 + [i32] * 4 + [i64] * 4 + [i32, ctypes.c_float, ptr]
