@@ -7,11 +7,13 @@ failure (the script then exits nonzero and prints no result):
 
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes),
-   ptxas's registers and spills, and K1's resident blocks per SM;
+   ptxas's registers and spills, and the resident blocks per SM of K1 bf16
+   and of K2 float32's two passes;
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
    64] as views of a packed QKV projection and over a sweep of head dim x
-   T (K1: T at the edges of its 64-key chunks), K7 (flash forward), K9 (flash
+   T (K1: T at the edges of its 64-key chunks; K2: of its 8-key tiles and
+   16-row warps), K7 (flash forward), K9 (flash
    dQ) and K8 (flash dK, dV) at [B, 197|204, 12, 64] and [16, 785, 12, 64]
    as such views and over a sweep of head dim x T, K3 and K4
    (LayerNormSpatial backward) at every ladder LayerNorm of the Theia-Base
@@ -46,17 +48,19 @@ failure (the script then exits nonzero and prints no result):
    also with the stream held, the device's time alone), and each kernel's
    bound and library call.
 
-The last two lines of standard output are the kernels' JSON record and
+The last two lines of standard output are the kernels' JSON record (the
+bf16 figures; ``mha_bwd`` also carries its float32 ones under
+``"float32"``, with the 3xTF32 tensor-core floor) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
 directory without the package beside it, the script exits nonzero.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
-import re
 import statistics
 import subprocess
 import sys
@@ -77,8 +81,12 @@ KERNEL_F32_ATOL = 2e-5
 KERNEL_F32_REL_L2 = 1e-5  # K3/K4 sums over up to 3.1M elements
 KERNEL_BF16_REL_L2 = 1e-2
 # the largest T whose float32 K2 passes fit a block's shared memory, by head
-# dim (csrc/mha_bwd.cu); every other head dim takes every T <= 256
-K2_F32_MAX_T = {112: 224, 128: 196}
+# dim (csrc/mha_bwd.cu smem_bytes_f32 within 227 KB); every other head dim
+# takes every T <= 256
+K2_F32_MAX_T = {112: 240, 128: 216}
+# K2 over every head dim it takes and the edges of its 8-key (8-query) tiles,
+# its 16-row warps and its limit (256)
+K2_SWEEP_T = (1, 8, 15, 16, 17, 63, 64, 65, 130, 197, 255, 256)
 # the same for float32 K1 (csrc/mha_fwd.cu smem_bytes_f32 within 227 KB)
 K1_F32_MAX_T = {80: 228, 96: 196, 112: 172, 128: 152}
 # K1 over every head dim it takes and the edges of its key chunks (64) and
@@ -126,41 +134,12 @@ TRAIN_STEPS = 20
 FLASH_TRAIN_STEPS = 10
 # the recipe, theia_tpu/configs/training/frame_level.yaml
 BASE_LR, BASE_BATCH, BASE_WORLD, WARMUP_STEPS = 2e-3, 64, 8, 2
-# torch.cuda._sleep's unit is an SM clock cycle; at most 1.98 GHz on an H100
-SLEEP_CYCLES_PER_MS = 2_000_000
 # JAX's TPU flash attention library, whose three Pallas kernels K7-K9 replace
 FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # the H100 SXM's published peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-
-
-def ptxas_usage(log: str) -> list[tuple[str, str]]:
-    """(kernel, "N registers, spills ...") for each kernel in nvcc's -Xptxas=-v output."""
-    out, name, spills = [], "?", ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            mangled = line.split("'")[1]
-            m = re.search(r"\d(mha_\w+?|flash_\w+?|ln_bwd_\w+?)(?:ILi(\d+)E(?:Li(\d+)E)?|If?E|I13__nv_bfloat16E|E)",
-                          mangled)
-            loss = re.search(r"\d(loss_sums_[a-z]+)(?:I(\w+?)Lb([01])E)?", mangled)
-            name = m.group(1) if m else mangled
-            if loss:
-                name = loss.group(1)
-                if loss.group(2):
-                    # float is "f"; bf16 is "13__nv_bfloat16", or "S<n>_" where it repeats
-                    types = ",".join("f32" if x == "f" else "bf16"
-                                     for x in re.findall(r"f|13__nv_bfloat16|S\d*_", loss.group(2)))
-                    name += f"<{types},{'vec8' if loss.group(3) == '1' else 'scalar'}>"
-            elif m and m.group(2):
-                name += f"<{m.group(2)}{f',{m.group(3)}' if m.group(3) else ''}>"
-            elif m and "ln_bwd" in name and "finish" not in name:
-                name += "<bf16>" if "bfloat16" in mangled else "<f32>"
-        elif "spill stores" in line:
-            spills = line.strip()
-        elif "Used" in line and "registers" in line:
-            out.append((name, f"{line.split('Used', 1)[1].strip()}; {spills}"))
-    return out
+TF32_FLOPS = 495e12  # on the tensor cores; a 3xTF32 product issues three
 
 
 def rel_l2(got: torch.Tensor | np.ndarray, want: torch.Tensor | np.ndarray) -> float:
@@ -171,43 +150,6 @@ def rel_l2(got: torch.Tensor | np.ndarray, want: torch.Tensor | np.ndarray) -> f
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def cuda_ms(fn, iters: int, hold: bool = False) -> float:
-    """Mean device milliseconds per call over ``iters`` back-to-back calls.
-
-    ``hold``: the stream first sleeps for twice the host's time to enqueue
-    the calls (measured on one call, at least ~50 ms), so that the host
-    enqueues them while the device waits and the events time the device's
-    work alone, without the gaps of a host slower than the kernels. The
-    calls must stay within the launch queue's depth (~1000 kernels)."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if hold:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda._sleep(int(max(50.0, 2 * iters * host_ms) * SLEEP_CYCLES_PER_MS))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def interleaved_ms(fns: dict, iters: int = 20, hold: bool = True) -> dict:
-    """Each function's ms, timed in the order a, b, ..., ..., b, a after
-    warmup; device time with the stream held (``cuda_ms``) unless ``hold``
-    is False, which times back-to-back calls as the host issues them."""
-    for fn in fns.values():
-        for _ in range(3):
-            fn()
-    order = list(fns) + list(reversed(fns))
-    times = {k: [] for k in fns}
-    for k in order:
-        times[k].append(cuda_ms(fns[k], iters, hold))
-    return {k: sum(v) / len(v) for k, v in times.items()}
 
 
 def bound_ms(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -313,7 +255,7 @@ def compare_kernels(attention, ln_pallas) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype in worst:
         for hd in range(16, 129, 16):
-            for t in (1, 17, 130, 256):
+            for t in K2_SWEEP_T:
                 qkv = torch.randn(2, t, 3 * 2 * hd, device="cuda", generator=gen).to(dtype)
                 q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
                 do = torch.randn(2, t, 2, hd, device="cuda", generator=gen).to(dtype)
@@ -326,7 +268,7 @@ def compare_kernels(attention, ln_pallas) -> dict:
                 got, want = attention.mha_bwd(q, k, v, do).float(), attention.mha_bwd_plain(q, k, v, do).float()
                 err = float((got - want).abs().max()) if dtype == torch.float32 else rel_l2(got, want)
                 worst[dtype] = max(worst[dtype], 0.0 if want.norm() == 0 else err)
-    print(f"  K2 mha_bwd [2, T, 2, hd], hd 16..128 x T in (1, 17, 130, 256): float32 worst max_abs_err "
+    print(f"  K2 mha_bwd [2, T, 2, hd], hd 16..128 x T in {K2_SWEEP_T}: float32 worst max_abs_err "
           f"{worst[torch.float32]:.3e} (atol {KERNEL_F32_ATOL}), bf16 worst rel_l2 {worst[torch.bfloat16]:.3e} "
           f"(< {KERNEL_BF16_REL_L2})")
     check(worst[torch.float32] <= KERNEL_F32_ATOL and worst[torch.bfloat16] < KERNEL_BF16_REL_L2,
@@ -494,6 +436,7 @@ def main() -> int:
     from theia_tpu_torch.train.optim import constant_with_warmup, make_optimizer, scaled_lr
     from theia_tpu_torch.train.state import TrainState
     from theia_tpu_torch.train.step import make_eval_step, make_train_step
+    from theia_tpu_torch.tools.timing import cuda_ms, interleaved_ms, ptxas_usage, sdpa_backward
 
     # phase 1: the card
     card = subprocess.run(
@@ -520,6 +463,13 @@ def main() -> int:
     print(f"  K1 {k1} (T = 197): ptxas {usage.get(k1)}; {k1_blocks} resident blocks per SM "
           "(cudaOccupancyMaxActiveBlocksPerMultiprocessor, 256 threads a block)")
     check(k1 in usage and k1_blocks > 0, f"K1's ptxas line or occupancy query is missing ({k1_blocks})")
+    # K2 float32 (3xTF32) at the main path's head dim and T = 197: its two passes
+    for cols, k2 in enumerate((f"mha_bwd_rows_f32<{HEAD_DIM}>", f"mha_bwd_cols_f32<{HEAD_DIM}>")):
+        threads = ctypes.c_int(0)
+        k2_blocks = build.load().theia_mha_bwd_f32_blocks_per_sm(197, HEAD_DIM, cols, ctypes.byref(threads))
+        print(f"  K2 {k2} (T = 197): ptxas {usage.get(k2)}; {k2_blocks} resident blocks per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block)")
+        check(k2 in usage and k2_blocks > 0, f"K2's ptxas line or occupancy query is missing ({k2_blocks})")
 
     # phase 3: kernel vs plain; float32 phases run with TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -957,22 +907,6 @@ def main() -> int:
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def sdpa_backward(q, k, v, do):
-        """One PyTorch call for dQ, dK, dV of attention over [B, T, H, hd]:
-        SDPA's flash backward (bf16) or its memory-efficient backward
-        (float32, which flash does not take), fed from the matching SDPA
-        forward's output and log-sum-exp."""
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if q.dtype == bf16:
-            out, lse, cq, ck, mq, mk, seed, offset, _ = torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt)
-            dout = torch.empty_like(out).copy_(do.transpose(1, 2))
-            return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                dout, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset)
-        out, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(qt, kt, vt, None, True)
-        dout = torch.empty_like(out).copy_(do.transpose(1, 2))
-        return lambda: torch.ops.aten._scaled_dot_product_efficient_attention_backward(
-            dout, qt, kt, vt, None, out, lse, seed, offset, 0.0, [True, True, True, False])
-
     for dtype in (torch.float32, bf16):
         q, k, v = packed_qkv(64, 197, dtype, gen)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -987,12 +921,22 @@ def main() -> int:
         q, k, v = packed_qkv(TRAIN_BATCH, 197, dtype, gen)
         do = torch.randn(TRAIN_BATCH, 197, HEADS, HEAD_DIM, device="cuda", generator=gen).to(dtype)
         n = q.numel()
+        flops = 10 * TRAIN_BATCH * 12 * 197 ** 2 * 64
         res = kernel_row("K2 mha_bwd", {
             "plain": lambda: attention.mha_bwd_plain(q, k, v, do), "kernel": lambda: attention.mha_bwd(q, k, v, do),
             "library": sdpa_backward(q, k, v, do)},
-            7 * n * q.element_size(), 10 * TRAIN_BATCH * 12 * 197 ** 2 * 64, dtype, f"[{TRAIN_BATCH},197,12,64]")
+            7 * n * q.element_size(), flops, dtype, f"[{TRAIN_BATCH},197,12,64]")
         if dtype == bf16:
             record["mha_bwd"] = res
+        else:
+            # float32 K2 runs its products as 3xTF32 on the tensor cores: its
+            # time against that floor too, beside the FMA bound
+            (t, bound, by), tc_bound = res, 3 * flops / TF32_FLOPS * 1e3
+            k2_f32 = {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+                      "max_abs_err": kernel_errors[("mha_bwd", dtype, TRAIN_BATCH, 197)], "bound_ms": bound,
+                      "bound_by": by, "tf32x3_bound_ms": tc_bound}
+            print(f"    K2 float32: kernel / bound {t['kernel'] / bound:.2f}x ({by}, FMA peak); kernel / 3xTF32 "
+                  f"tensor-core floor ({tc_bound * 1e3:.1f} us) {t['kernel'] / tc_bound:.2f}x")
     # K7 at serving's [64, 197] and 448² images' [16, 785]; K9 and K8 at
     # training's [16, 197] and [16, 785], each against its plain part, and
     # the pair against the plain backward and SDPA's backward
@@ -1114,6 +1058,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"theia_tpu_torch/{src}", "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
             "bound_ms": bound, "bound_by": by, "library_ms": t.get("library"),
+            **({"float32": k2_f32} if name == "mha_bwd" else {}),
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

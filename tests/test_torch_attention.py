@@ -6,9 +6,11 @@ the autograd function (gradcheck in float64); the dispatch, the wrappers'
 checks, and (on a card) the CUDA kernels against the plain versions.
 
 Tolerances: float32 atol 1e-5 (same math, sums in another order); bf16
-inputs relative L2 < 1e-2 forward and < 2e-2 backward (the probabilities,
-dS and the outputs round to bf16, one bf16 ulp is 2^-8 relative, and a
-rounding may land either side; the backward chains two such roundings).
+inputs relative L2 < 1e-2 forward and < 2e-2 backward at the encoder's
+token counts, < 1e-2 backward at the kernel's tile edges (the
+probabilities, dS and the outputs round to bf16, one bf16 ulp is 2^-8
+relative, and a rounding may land either side; the backward chains two
+such roundings).
 """
 
 import functools
@@ -37,6 +39,15 @@ SWEEP_TOKENS = (1, 17, 63, 64, 65, 128, 197, 204, 255, 256)
 # the largest T whose float32 staging fits a block's 227 KB, by head dim
 # (csrc/mha_fwd.cu smem_bytes_f32); other head dims take every T <= 256
 F32_MAX_T = {80: 228, 96: 196, 112: 172, 128: 152}
+# the backward's tile edges: its 8-key (8-query) tiles and 16-row warps (one
+# token, one short of a tile, whole ones, one past) and its limit of 256;
+# head dims 16, 64 (the main path's), 80 and 128 (float32: the column pass
+# in two sweeps)
+BWD_EDGE_TOKENS = (1, 15, 16, 17, 64, 65, 256)
+# the card's sweep of the backward, and the largest T whose float32 passes
+# fit a block's 227 KB (csrc/mha_bwd.cu smem_bytes_f32)
+BWD_SWEEP_TOKENS = (1, 8, 15, 16, 17, 63, 64, 65, 130, 197, 255, 256)
+BWD_F32_MAX_T = {112: 240, 128: 216}
 
 
 def _qkv(t, b=2, h=H, hd=HD, seed=0):
@@ -227,6 +238,33 @@ def test_bwd_plain_matches_pallas_kernel_bf16(t):
         assert _rel_l2(got[:, :, i].float().numpy(), _unpack(np.asarray(w, np.float32), b=2)) < 2e-2
 
 
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("hd", EDGE_HEAD_DIMS)
+@pytest.mark.parametrize("t", BWD_EDGE_TOKENS)
+def test_bwd_plain_matches_pallas_kernel_at_tile_edges(t, hd, dtype):
+    """The reference the card holds the backward kernel to (``mha_bwd`` on
+    CPU tensors) against the TPU kernel body in interpret mode, at the shapes
+    where the kernel's tiles end. At T = 1, dQ and dK are exactly 0 on both
+    sides (softmax over one key)."""
+    q, k, v = _qkv(t, b=1, h=2, hd=hd, seed=14)
+    do = np.random.default_rng(15).standard_normal(q.shape, dtype=np.float32)
+    if dtype == "float32":
+        want = _pallas_bwd_interpret(*(jnp.asarray(_pack(x)) for x in (q, k, v, do)))
+        got = tattn.mha_bwd(*(torch.from_numpy(x) for x in (q, k, v, do)))
+        for i, w in enumerate(want):
+            np.testing.assert_allclose(got[:, :, i].numpy(), _unpack(np.asarray(w), b=1), atol=1e-5, rtol=0)
+    else:
+        want = _pallas_bwd_interpret(*(jnp.asarray(_pack(x), jnp.bfloat16) for x in (q, k, v, do)))
+        got = tattn.mha_bwd(*(_bf16(x) for x in (q, k, v, do)))
+        assert got.dtype == torch.bfloat16
+        for i, w in enumerate(want):
+            g, w = got[:, :, i].float().numpy(), _unpack(np.asarray(w, np.float32), b=1)
+            if not np.any(w):
+                np.testing.assert_array_equal(g, w)
+            else:
+                assert _rel_l2(g, w) < 1e-2, (i, _rel_l2(g, w))
+
+
 def test_autograd_function_gradcheck_f64():
     b, t, h, hd = 2, 5, 2, 16
     qkv = torch.randn(b, t, 3 * h * hd, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
@@ -345,3 +383,25 @@ def test_cuda_bwd_kernel_matches_plain(cuda, t, dtype):
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
     else:
         assert _rel_l2(got.float().cpu().numpy(), want.float().cpu().numpy()) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", range(16, 129, 16))
+def test_cuda_bwd_kernel_f32_matches_plain_over_the_sweep(cuda, hd):
+    """K2 float32 (3xTF32) against its plain version at every head dim and
+    every T of the sweep, on views of a packed projection; a shape past the
+    passes' shared memory raises."""
+    gen = torch.Generator().manual_seed(100 + hd)
+    for t in BWD_SWEEP_TOKENS:
+        qkv = torch.randn(2, t, 3 * 2 * hd, generator=gen).to(cuda)
+        q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+        do = torch.randn(2, t, 2, hd, generator=gen).to(cuda)
+        if t > BWD_F32_MAX_T.get(hd, t):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                tattn.mha_bwd(q, k, v, do)
+            continue
+        before = tattn.MHA_BWD_LAUNCHES
+        got = tattn.mha_bwd(q, k, v, do)
+        torch.cuda.synchronize()
+        assert tattn.MHA_BWD_LAUNCHES == before + 1
+        torch.testing.assert_close(got, tattn.mha_bwd_plain(q, k, v, do), atol=2e-5, rtol=0)

@@ -18,7 +18,9 @@
 // ~34 MB (10 us at 3.35 TB/s) and do 4.8 GFLOP (5 us on the tensor cores):
 // memory. Each slab is small (T <= 256), so what a version does about it
 // is keep every T x T quantity out of device memory and read Q, K, V, dO
-// where they lie.
+// where they lie. In float32 the same 4.8 GFLOP take 71 us at the CUDA
+// cores' 67 TFLOP/s, and 29 us as three tf32 products each at the tensor
+// cores' 495: operations, so float32 runs on the tensor cores too.
 //
 // The design problem is the two reduction directions: dQ sums over keys,
 // dK and dV over queries. The TPU kernel holds the whole T x T P and dS of
@@ -42,31 +44,62 @@
 //   memory and no row reduction is needed. Q, dO (or K, V) are staged with
 //   cp.async in rows padded by 16 bytes.
 //
-// float32, CUDA cores (mha_bwd_rows, mha_bwd_cols): no tensor-core
-//   instruction multiplies in full float32, so the products run as FMAs. A
-//   warp owns 4 rows (keys), a lane keys (queries) lane, lane + 32, ...;
-//   the staged tensors keep rows padded by 4 elements. Both passes compute
-//   S and dP with one dot-product order and one expf, with the scale
-//   multiply pinned (__fmul_rn), so a P and a dS are the same numbers in
-//   both. A launch uses the most warps (8, 4 or 2) whose buffers fit the
-//   card's shared memory; float32 hd = 112 above T = 224 and hd = 128 above
-//   T = 196 fit none and return cudaErrorInvalidValue.
+// float32, tensor cores as 3xTF32 (mha_bwd_rows_f32, mha_bwd_cols_f32):
+//   no tensor-core instruction multiplies in full float32, so each product
+//   is three tf32 mma.sync m16n8k8 over operands split into big and small
+//   halves (mma_tf32.cuh), ~2^-21 relative, against the 2^-11 of one tf32
+//   product. On the H100 these passes are bound by latency, not by the
+//   tensor cores: more resident warps and fewer instructions moved them,
+//   more independent chains of products did not (PERF.md, section 6), so
+//   the design goes for resident warps and few instructions.
+//   Row pass: 4 warps share a group of 16 query rows, part p holding key
+//   tiles p, p + 4, ...: a thread keeps 4 floats of S, then P, for each of
+//   its tiles (32 registers at T = 256), which fits 16 warps a block in the
+//   128 registers a thread that one block of 512 threads may use (hd <= 64;
+//   8 warps above). S = Q K^T is formed a k-step at a time over the warp's
+//   tiles, so one k-step of Q is live; the parts' maxima, sums and row sums
+//   meet in shared memory behind a named barrier of the group. dP = dO V^T
+//   is formed once a tile, kept for dS, and summed into rowsum(dP * P). dQ
+//   = dS K takes each dS tile straight from the accumulators as its A
+//   operand, with the reduction index permuted and K's B fragments read
+//   down columns in the same order; parts 1..3 park their partial dQ in
+//   dQ, dK and dV, which part 0 adds in part order (the column pass writes
+//   dK and dV afterwards). Column pass: a warp owns 16 keys and streams over
+//   8-query tiles, 8 warps a block (one block a SM: K, V and the dK, dV
+//   accumulators take ~250 registers a thread); S^T = K Q^T and dP^T = V dO^T
+//   put P^T and dS^T in the
+//   accumulator layout that is the A operand of dV = P^T dO and dK = dS^T Q,
+//   so nothing is transposed through shared memory. Both passes add S's and
+//   dP's terms in one order (the column pass issues its correction terms
+//   transposed), with the scale multiply pinned (__fmul_rn), the exact expf
+//   and the IEEE division, so a P and a dS are the same numbers in both. The
+//   other operand (dO in the row pass, K and V in the column pass) is read
+//   once from global memory, kept in registers as float32 and split at each
+//   use; for HD >= 112 the column pass takes dV and dK in two sweeps
+//   over the queries (S^T formed twice), so that no sweep holds more than
+//   three HD-wide fragments a thread. K and V (Q and dO) are staged whole
+//   with cp.async (K and V as two groups, so that S starts before V has
+//   arrived) in rows of pitch HD + 4 floats, which reads 32 distinct
+//   banks both along rows (B of S and dP: address g * pitch + tq) and down
+//   columns (B of dQ, dK, dV: 2tq * pitch + g). A block needs 2 *
+//   round8(T) * (HD + 4) * 4 bytes and a little more: hd = 112 takes T <=
+//   240 and hd = 128 T <= 216 within the card's 227 KB; past that the
+//   launch returns cudaErrorInvalidValue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int kMaxT = 256;
 constexpr int kMaxHd = 128;
-constexpr int kRows = 4;                  // rows (row pass) or keys (column pass) per warp
-constexpr int kPerLane = kMaxT / 32;      // keys (row pass) or queries (column pass) per lane
-constexpr int kDimsPerLane = kMaxHd / 32;
-constexpr int kMaxWarps = 8;
 
 struct Strides {
   int64_t b;
@@ -87,358 +120,6 @@ struct Layout {
     return static_cast<int64_t>(slab / heads) * s.b + static_cast<int64_t>(slab % heads) * hd;
   }
 };
-
-__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-
-// acc + a . b over four elements, in element order (both passes use this
-// one order, so S and dP come out the same in both).
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  acc = fmaf(a.w, b.w, acc);
-  return acc;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__host__ __device__ constexpr int round4(int t) { return (t + 3) & ~3; }
-
-// Copy `rows` token rows of a slab (row r at src + r * stride) into shared
-// rows of pitch hd + 4; rows from T up to `rows` become zeros.
-__device__ __forceinline__ void stage_quads(float* dst, const float* src, int64_t stride, int t, int rows, int hd) {
-  const int pitch = hd + 4;
-  const int quads = hd / 4;
-  for (int i = threadIdx.x; i < rows * quads; i += blockDim.x) {
-    const int r = i / quads;
-    const int c = (i - r * quads) * 4;
-    *reinterpret_cast<float4*>(dst + r * pitch + c) =
-        r < t ? *reinterpret_cast<const float4*>(src + r * stride + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// Shared memory of either pass: two staged [round4(T)][hd + 4] tensors,
-// the column pass's row statistics [3][round4(T)], and per warp kRows rows
-// of hd (two of them) and of round4(T) (one in the row pass, two in the
-// column pass); all float32.
-size_t smem_bytes(int t, int hd, int warps, bool cols) {
-  const size_t t4 = round4(t);
-  size_t bytes = 2 * t4 * (hd + 4) * sizeof(float);
-  if (cols) bytes += 3 * t4 * sizeof(float);
-  bytes += static_cast<size_t>(warps) * kRows * (2 * hd + (cols ? 2 : 1) * t4) * sizeof(float);
-  return bytes;
-}
-
-// ---------------------------------------------------------------------------
-// float32, CUDA cores: row pass (dQ and the row statistics)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kMaxWarps * 32)
-    mha_bwd_rows(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ dout, float* __restrict__ dq, float* __restrict__ stats, Layout lay,
-                 float scale, int rows_per_block) {
-  constexpr int R = kRows;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int t = lay.t;
-  const int hd = lay.hd;
-  const int pitch = hd + 4;
-  const int t4 = round4(t);
-  const int warps = blockDim.x >> 5;
-  float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + t4 * pitch;
-  float* qbuf = vs + t4 * pitch;         // [warps][R][hd]
-  float* obuf = qbuf + warps * R * hd;                      // [warps][R][hd]
-  float* dsbuf = obuf + warps * R * hd;                     // [warps][R][t4]
-
-  const int slab = blockIdx.x;
-  const int64_t in_off = lay.head(lay.qkv, slab);
-  stage_quads(ks, k + in_off, lay.qkv.t, t, t4, hd);
-  stage_quads(vs, v + in_off, lay.qkv.t, t, t4, hd);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row_begin = blockIdx.y * rows_per_block;
-  const int row_end = min(t, row_begin + rows_per_block);
-  const int r0 = row_begin + warp * R;
-  if (r0 >= row_end) return;  // no block-wide barrier follows
-  float* qw = qbuf + warp * R * hd;
-  float* ow = obuf + warp * R * hd;
-  float* dsw = dsbuf + warp * R * t4;
-
-  const int64_t do_off = lay.head(lay.dout, slab);
-  for (int idx = lane; idx < R * hd; idx += 32) {
-    const int rr = idx / hd;
-    const int d = idx - rr * hd;
-    const int row = r0 + rr;
-    const bool in = row < row_end;
-    qw[idx] = in ? q[in_off + row * lay.qkv.t + d] : 0.f;
-    ow[idx] = in ? dout[do_off + row * lay.dout.t + d] : 0.f;
-  }
-  __syncwarp();
-
-  // S = Q K^T and dP = dO V^T for R rows at once; lane owns keys lane + 32 i.
-  float s[R][kPerLane], dp[R][kPerLane];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) s[r][i] = dp[r][i] = 0.f;
-  for (int d = 0; d < hd; d += 4) {
-    float4 qv[R], ov[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      qv[r] = load4(qw + r * hd + d);  // broadcast
-      ov[r] = load4(ow + r * hd + d);
-    }
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int j = lane + 32 * i;
-      if (j < t) {
-        const float4 kv = load4(ks + j * pitch + d);
-        const float4 vv = load4(vs + j * pitch + d);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          s[r][i] = dot4(qv[r], kv, s[r][i]);
-          dp[r][i] = dot4(ov[r], vv, dp[r][i]);
-        }
-      }
-    }
-  }
-
-  // Per row: softmax, the row sum of dP * P, and dS.
-  float* st = stats + static_cast<int64_t>(slab) * 3 * t;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int j = lane + 32 * i;
-      s[r][i] = j < t ? __fmul_rn(s[r][i], scale) : -INFINITY;  // never fused into the exp's argument
-      m = fmaxf(m, s[r][i]);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int j = lane + 32 * i;
-      s[r][i] = j < t ? expf(s[r][i] - m) : 0.f;
-      l += s[r][i];
-    }
-    l = warp_sum(l);
-    float rs = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int j = lane + 32 * i;
-      if (j < t) {
-        s[r][i] = s[r][i] / l;  // P
-        rs += dp[r][i] * s[r][i];
-      }
-    }
-    rs = warp_sum(rs);
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int j = lane + 32 * i;
-      if (j < t4) dsw[r * t4 + j] = j < t ? s[r][i] * (dp[r][i] - rs) * scale : 0.f;
-    }
-    const int row = r0 + r;
-    if (lane == 0 && row < row_end) {
-      st[row] = m;
-      st[t + row] = l;
-      st[2 * t + row] = rs;
-    }
-  }
-  __syncwarp();
-
-  // dQ = dS K: lane owns dims lane + 32 i, for R rows at once.
-  float acc[R][kDimsPerLane];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] = 0.f;
-  for (int j = 0; j < t; ++j) {
-    float dsv[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) dsv[r] = dsw[r * t4 + j];  // broadcast
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < hd) {
-        const float kv = ks[j * pitch + d];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r][i] = fmaf(dsv[r], kv, acc[r][i]);
-      }
-    }
-  }
-  const int64_t g_off = lay.head(lay.grad, slab);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = r0 + r;
-    if (row < row_end) {
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) dq[g_off + row * lay.grad.t + d] = acc[r][i];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32, CUDA cores: column pass (dK and dV)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kMaxWarps * 32)
-    mha_bwd_cols(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv,
-                 const float* __restrict__ stats, Layout lay, float scale, int keys_per_block) {
-  constexpr int R = kRows;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int t = lay.t;
-  const int hd = lay.hd;
-  const int pitch = hd + 4;
-  const int t4 = round4(t);
-  const int warps = blockDim.x >> 5;
-  float* qs = reinterpret_cast<float*>(smem);
-  float* os = qs + t4 * pitch;
-  float* mst = os + t4 * pitch;  // [3][t4]: max, sum, rowsum
-  float* kbuf = mst + 3 * t4;                              // [warps][R][hd]
-  float* vbuf = kbuf + warps * R * hd;                     // [warps][R][hd]
-  float* pbuf = vbuf + warps * R * hd;                     // [warps][R][t4]
-  float* dsbuf = pbuf + warps * R * t4;                    // [warps][R][t4]
-
-  const int slab = blockIdx.x;
-  const int64_t in_off = lay.head(lay.qkv, slab);
-  const int64_t do_off = lay.head(lay.dout, slab);
-  stage_quads(qs, q + in_off, lay.qkv.t, t, t4, hd);
-  stage_quads(os, dout + do_off, lay.dout.t, t, t4, hd);
-  const float* st = stats + static_cast<int64_t>(slab) * 3 * t;
-  for (int i = threadIdx.x; i < 3 * t; i += blockDim.x) {
-    const int which = i / t;
-    mst[which * t4 + (i - which * t)] = st[i];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int key_begin = blockIdx.y * keys_per_block;
-  const int key_end = min(t, key_begin + keys_per_block);
-  const int c0 = key_begin + warp * R;
-  if (c0 >= key_end) return;  // no block-wide barrier follows
-  float* kw = kbuf + warp * R * hd;
-  float* vw = vbuf + warp * R * hd;
-  float* pw = pbuf + warp * R * t4;
-  float* dsw = dsbuf + warp * R * t4;
-  for (int idx = lane; idx < R * hd; idx += 32) {
-    const int rr = idx / hd;
-    const int d = idx - rr * hd;
-    const int key = c0 + rr;
-    const bool in = key < key_end;
-    kw[idx] = in ? k[in_off + key * lay.qkv.t + d] : 0.f;
-    vw[idx] = in ? v[in_off + key * lay.qkv.t + d] : 0.f;
-  }
-  __syncwarp();
-
-  // S and dP for R keys at once; lane owns queries lane + 32 i. Same
-  // element order as the row pass: S[i][j] = sum_d q[i][d] k[j][d].
-  float s[R][kPerLane], dp[R][kPerLane];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) s[r][i] = dp[r][i] = 0.f;
-  for (int d = 0; d < hd; d += 4) {
-    float4 kv[R], vv[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      kv[r] = load4(kw + r * hd + d);  // broadcast
-      vv[r] = load4(vw + r * hd + d);
-    }
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int qi = lane + 32 * i;
-      if (qi < t) {
-        const float4 qv = load4(qs + qi * pitch + d);
-        const float4 ov = load4(os + qi * pitch + d);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          s[r][i] = dot4(qv, kv[r], s[r][i]);
-          dp[r][i] = dot4(ov, vv[r], dp[r][i]);
-        }
-      }
-    }
-  }
-
-  // P and dS with the row pass's statistics.
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int qi = lane + 32 * i;
-    if (qi < t4) {
-      const bool in = qi < t;
-      const float m = in ? mst[qi] : 0.f;
-      const float l = in ? mst[t4 + qi] : 1.f;
-      const float rs = in ? mst[2 * t4 + qi] : 0.f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float p = in ? expf(__fmul_rn(s[r][i], scale) - m) / l : 0.f;  // as the row pass rounds it
-        pw[r * t4 + qi] = in ? p : 0.f;
-        dsw[r * t4 + qi] = in ? p * (dp[r][i] - rs) * scale : 0.f;
-      }
-    }
-  }
-  __syncwarp();
-
-  // dV = P^T dO and dK = dS^T Q: lane owns dims lane + 32 i, for R keys.
-  float av[R][kDimsPerLane], ak[R][kDimsPerLane];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) av[r][i] = ak[r][i] = 0.f;
-  for (int qi = 0; qi < t; ++qi) {
-    float pv[R], dsv[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      pv[r] = pw[r * t4 + qi];  // broadcast
-      dsv[r] = dsw[r * t4 + qi];
-    }
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < hd) {
-        const float ov = os[qi * pitch + d];
-        const float qv = qs[qi * pitch + d];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          av[r][i] = fmaf(pv[r], ov, av[r][i]);
-          ak[r][i] = fmaf(dsv[r], qv, ak[r][i]);
-        }
-      }
-    }
-  }
-  const int64_t g_off = lay.head(lay.grad, slab);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int key = c0 + r;
-    if (key < key_end) {
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) {
-          dk[g_off + key * lay.grad.t + d] = ak[r][i];
-          dv[g_off + key * lay.grad.t + d] = av[r][i];
-        }
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -665,6 +346,447 @@ __global__ void __launch_bounds__(kTcWarps * 32)
 }
 
 // ---------------------------------------------------------------------------
+// float32: 3xTF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+// The row pass's block shape may be set with -D (THEIA_K2_ROW_SPLIT,
+// THEIA_K2_ROW_WARPS) to time the alternatives (tools/time_mha_bwd.py
+// --ablations); the defaults are the fastest measured.
+#ifndef THEIA_K2_ROW_SPLIT
+#define THEIA_K2_ROW_SPLIT 4
+#endif
+
+constexpr int kRowSplit = THEIA_K2_ROW_SPLIT;  // warps that share a 16-row group, each with 1/kRowSplit of the keys
+constexpr int kRowMaxWarps = 16;
+static_assert(kRowSplit <= 4, "parts 1 .. kRowSplit - 1 park their dQ in dQ, dK and dV");
+
+// Warps a row-pass block: 16 (one block a SM at 128 registers a thread) up
+// to hd = 64, 8 above, where S, dP, dO and dQ's fragments pass 128.
+template <int HD>
+__host__ __device__ constexpr int row_warps() {
+#ifdef THEIA_K2_ROW_WARPS
+  return THEIA_K2_ROW_WARPS;
+#else
+  return HD <= 64 ? 16 : 8;
+#endif
+}
+
+template <int HD>
+__host__ __device__ constexpr int row_rows() {  // rows a row-pass block
+  return 16 * row_warps<HD>() / kRowSplit;
+}
+
+constexpr int kColWarps = 8;                     // warps a column-pass block
+constexpr int kColKeys = 16 * kColWarps;         // keys a column-pass block
+constexpr int kColTwoSweepsMinHd = 112;          // dV and dK in two sweeps from this head dim
+
+__host__ __device__ constexpr int round8(int t) { return (t + 7) & ~7; }
+
+// Shared memory: two staged [round8(T)][HD + 4] float32 tensors, and in the
+// column pass the row statistics [3][round8(T)], in the row pass the key
+// parts' max, sum and row sum [3][kRowMaxWarps][16].
+size_t smem_bytes_f32(int t, int hd, bool cols) {
+  const size_t t8 = round8(t);
+  return (2 * t8 * (hd + 4) + 3 * (cols ? t8 : kRowMaxWarps * 16)) * sizeof(float);
+}
+
+// Copy `rows` token rows of a slab (row r at src + r * stride) into shared
+// rows of pitch HD + 4 with cp.async, as one commit group; rows from T up to
+// `rows` become zeros.
+template <int HD>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, int64_t stride, int t, int rows) {
+  constexpr int kVecs = HD / 4;  // 16-byte vectors per row
+  for (int i = threadIdx.x; i < rows * kVecs; i += blockDim.x) {
+    const int r = i / kVecs;
+    const int c = (i - r * kVecs) * 4;
+    float* d = dst + r * (HD + 4) + c;
+    if (r < t) {
+      cp_async16(d, src + r * stride + c);
+    } else {
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  cp_async_commit();
+}
+
+// The A fragment of rows r0 .. r0 + 15 of a slab (token stride ts) at
+// columns col .. col + 7, from global memory; rows past T are zeros.
+__device__ __forceinline__ void load_a_f32(float (&a)[4], const float* x, int64_t ts, int r0, int t, int col) {
+  const int lane = threadIdx.x & 31;
+  const int ra = r0 + (lane >> 2);
+  const int rb = ra + 8;
+  const float* pa = x + ra * ts + col + (lane & 3);
+  const float* pb = x + rb * ts + col + (lane & 3);
+  a[0] = ra < t ? pa[0] : 0.f;
+  a[1] = rb < t ? pb[0] : 0.f;
+  a[2] = ra < t ? pa[4] : 0.f;
+  a[3] = rb < t ? pb[4] : 0.f;
+}
+
+// The A operand of an HD-deep product over rows r0 .. r0 + 15 of a slab,
+// read once from global memory and kept as float32 (HD / 2 registers a
+// thread), split into tf32 halves at each use (three instructions an
+// element, which costs less than the registers the halves would hold).
+template <int HD>
+struct RowsA {
+  float raw[HD / 8][4];
+
+  __device__ __forceinline__ void load(const float* x, int64_t ts, int r0, int t) {
+#pragma unroll
+    for (int s = 0; s < HD / 8; ++s) load_a_f32(raw[s], x, ts, r0, t, 8 * s);
+  }
+};
+
+// c (an 8-column tile) = A times rows n*8 .. n*8 + 7 of a staged [.][HD + 4]
+// tensor, transposed: C[i][j] = sum_d A[i][d] X[n*8 + j][d].
+template <bool kSmallAFirst, int HD>
+__device__ __forceinline__ void mma_rows_f32(float (&c)[4], const RowsA<HD>& a, const float* xs, int n) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < HD / 8; ++s) {
+    uint32_t a_big[4], a_small[4], b_big[2], b_small[2];
+    split_tf32(a.raw[s], a_big, a_small);
+    b_rows<HD + 4>(xs, 8 * n, 8 * s, b_big, b_small);
+    mma_3xtf32<kSmallAFirst>(c, a_big, a_small, b_big, b_small);
+  }
+}
+
+// acc[HD / 8 tiles] += C (a 16 x 8 accumulator tile over rows n*8 ..
+// n*8 + 7 of a staged [.][HD + 4] tensor, as the A operand) times those rows.
+template <int HD>
+__device__ __forceinline__ void mma_cols_f32(float (&acc)[HD / 8][4], const float (&c)[4], const float* xs, int n) {
+  uint32_t a_big[4], a_small[4];
+  c_as_a(c, a_big, a_small);
+#pragma unroll
+  for (int m = 0; m < HD / 8; ++m) {
+    uint32_t b_big[2], b_small[2];
+    b_cols<HD + 4>(xs, 8 * n, 8 * m, b_big, b_small);
+    mma_3xtf32(acc[m], a_big, a_small, b_big, b_small);
+  }
+}
+
+// The KS warps of a row group (named barrier 1 + group) combine their
+// partial values a, b of rows g and g + 8 in part order, through red[KS][16],
+// so that all of them end with the same numbers.
+template <typename Op>
+__device__ __forceinline__ void combine_parts(float* red, int group, int part, float& a, float& b, Op op) {
+  constexpr int KS = kRowSplit;
+  if constexpr (KS > 1) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    if ((lane & 3) == 0) {
+      red[part * 16 + g] = a;
+      red[part * 16 + g + 8] = b;
+    }
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(KS * 32) : "memory");
+    a = red[g];
+    b = red[g + 8];
+#pragma unroll
+    for (int p = 1; p < KS; ++p) {
+      a = op(a, red[p * 16 + g]);
+      b = op(b, red[p * 16 + g + 8]);
+    }
+  }
+}
+
+// acc += 16 rows (r0 ..) of an [HD]-wide tensor in global memory, read past
+// L1 (another warp wrote them), rows past T skipped.
+template <int HD>
+__device__ __forceinline__ void add_rows_f32(float (&acc)[HD / 8][4], const float* x, int64_t ts, int r0, int t) {
+  const int lane = threadIdx.x & 31;
+  const int ra = r0 + (lane >> 2);
+  const int rb = ra + 8;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int d = n * 8 + 2 * (lane & 3);
+    if (ra < t) {
+      const float2 y = __ldcg(reinterpret_cast<const float2*>(x + ra * ts + d));
+      acc[n][0] += y.x;
+      acc[n][1] += y.y;
+    }
+    if (rb < t) {
+      const float2 y = __ldcg(reinterpret_cast<const float2*>(x + rb * ts + d));
+      acc[n][2] += y.x;
+      acc[n][3] += y.y;
+    }
+  }
+}
+
+// Stores 16 rows (r0 ..) of an [HD]-wide accumulator, rows past T skipped.
+template <int HD>
+__device__ __forceinline__ void store_rows_f32(float* x, int64_t ts, int r0, int t, const float (&acc)[HD / 8][4]) {
+  const int lane = threadIdx.x & 31;
+  const int ra = r0 + (lane >> 2);
+  const int rb = ra + 8;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int d = n * 8 + 2 * (lane & 3);
+    if (ra < t) *reinterpret_cast<float2*>(x + ra * ts + d) = make_float2(acc[n][0], acc[n][1]);
+    if (rb < t) *reinterpret_cast<float2*>(x + rb * ts + d) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// A row group is KS = kRowSplit warps that own the same 16 query rows;
+// part p of a group holds key tiles p, p + KS, ... Their partial maxima,
+// sums and row sums meet in shared memory; their partial dQ sums in global
+// memory, parts 1 .. 3 parking theirs in dQ, dK and dV (which the column
+// pass writes afterwards) for part 0 to add in part order.
+template <int HD>
+__global__ void __launch_bounds__(row_warps<HD>() * 32)
+    mha_bwd_rows_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const float* __restrict__ dout, float* dq, float* dk, float* dv, float* __restrict__ stats,
+                     Layout lay, int row_blocks, float scale) {
+  constexpr int KS = kRowSplit;
+  static_assert(row_warps<HD>() <= kRowMaxWarps && row_warps<HD>() % KS == 0, "a block holds whole row groups");
+  constexpr int kPitch = HD + 4;
+  constexpr int kTiles = kMaxKeyTiles / KS;  // key tiles a warp holds at most
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = lay.t;
+  const int t8 = round8(t);
+  float* ks = reinterpret_cast<float*>(smem);  // [t8][kPitch]
+  float* vs = ks + t8 * kPitch;                // [t8][kPitch]
+  float* red = vs + t8 * kPitch;               // [3][kRowMaxWarps / KS][KS][16]: the parts' max, sum, row sum
+
+  const int slab = blockIdx.x / row_blocks;  // head-major: a slab's blocks share its K, V in L2
+  const int64_t in_off = lay.head(lay.qkv, slab);
+  stage_rows_f32<HD>(ks, k + in_off, lay.qkv.t, t, t8);  // a commit group each: S needs K only
+  stage_rows_f32<HD>(vs, v + in_off, lay.qkv.t, t, t8);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int group = warp / KS;
+  const int part = warp - group * KS;
+  const int r0 = (blockIdx.x - slab * row_blocks) * row_rows<HD>() + group * 16;
+  cp_async_wait<1>();
+  __syncthreads();  // K is in shared memory
+  if (r0 >= t) {  // the group's KS warps leave together, once their part of V has landed
+    cp_async_wait<0>();
+    asm volatile("bar.arrive 15, %0;\n" ::"r"(row_warps<HD>() * 32) : "memory");
+    return;
+  }
+
+  // S = Q K^T a k-step at a time over this warp's key tiles, so that one
+  // k-step of Q is live: tile i holds keys 8n .. 8n+7, n = KS i + part;
+  // element e of a tile is row (e < 2 ? a : b), key 8n + 2*tq + (e & 1).
+  // Then P in place.
+  const int key_tiles = t8 / 8;
+  float sc[kTiles][4] = {};
+#pragma unroll 1
+  for (int s = 0; s < HD / 8; ++s) {
+    float a[4];
+    uint32_t a_big[4], a_small[4];
+    load_a_f32(a, q + in_off, lay.qkv.t, r0, t, 8 * s);
+    split_tf32(a, a_big, a_small);
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      if (KS * i + part < key_tiles) {
+        uint32_t b_big[2], b_small[2];
+        b_rows<kPitch>(ks, 8 * (KS * i + part), 8 * s, b_big, b_small);
+        mma_3xtf32(sc[i], a_big, a_small, b_big, b_small);
+      }
+    }
+  }
+  RowsA<HD> oa;  // loaded once S is formed, to keep registers free for it
+  oa.load(dout + lay.head(lay.dout, slab), lay.dout.t, r0, t);
+  const auto fmax2 = [](float x, float y) { return fmaxf(x, y); };
+  const auto sum2 = [](float x, float y) { return x + y; };
+  float* red_group = red + group * KS * 16;
+  constexpr int kRedStride = kRowMaxWarps * 16;  // between the max, sum and row-sum slots
+  float m_a = -INFINITY, m_b = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    const int n = KS * i + part;
+    if (n < key_tiles) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = n * 8 + 2 * tq + (e & 1);
+        sc[i][e] = key < t ? __fmul_rn(sc[i][e], scale) : -INFINITY;  // as the column pass rounds it
+      }
+      m_a = fmaxf(m_a, fmaxf(sc[i][0], sc[i][1]));
+      m_b = fmaxf(m_b, fmaxf(sc[i][2], sc[i][3]));
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m_a = fmaxf(m_a, __shfl_xor_sync(0xffffffffu, m_a, off));
+    m_b = fmaxf(m_b, __shfl_xor_sync(0xffffffffu, m_b, off));
+  }
+  combine_parts(red_group, group, part, m_a, m_b, fmax2);
+  float l_a = 0.f, l_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    const int n = KS * i + part;
+    if (n < key_tiles) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = n * 8 + 2 * tq + (e & 1);
+        sc[i][e] = key < t ? expf(sc[i][e] - (e < 2 ? m_a : m_b)) : 0.f;
+      }
+      l_a += sc[i][0] + sc[i][1];
+      l_b += sc[i][2] + sc[i][3];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  combine_parts(red_group + kRedStride, group, part, l_a, l_b, sum2);
+
+  cp_async_wait<0>();
+  asm volatile("bar.sync 15, %0;\n" ::"r"(row_warps<HD>() * 32) : "memory");  // every thread's V is in shared memory
+  // P, dP = dO V^T one 8-key tile at a time (kept), and rowsum(dP * P).
+  float dp[kTiles][4];
+  float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    const int n = KS * i + part;
+    if (n < key_tiles) {
+      sc[i][0] /= l_a;
+      sc[i][1] /= l_a;
+      sc[i][2] /= l_b;
+      sc[i][3] /= l_b;
+      mma_rows_f32<true>(dp[i], oa, vs, n);
+      rs_a += dp[i][0] * sc[i][0] + dp[i][1] * sc[i][1];
+      rs_b += dp[i][2] * sc[i][2] + dp[i][3] * sc[i][3];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    rs_a += __shfl_xor_sync(0xffffffffu, rs_a, off);
+    rs_b += __shfl_xor_sync(0xffffffffu, rs_b, off);
+  }
+  combine_parts(red_group + 2 * kRedStride, group, part, rs_a, rs_b, sum2);
+
+  // dS in place of P; then dQ = dS K, each dS tile the A operand of its 8
+  // keys.
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    if (KS * i + part < key_tiles) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[i][e] = sc[i][e] * (dp[i][e] - (e < 2 ? rs_a : rs_b)) * scale;
+    }
+  }
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    const int n = KS * i + part;
+    if (n < key_tiles) mma_cols_f32<HD>(acc, sc[i], ks, n);
+  }
+  const int64_t g_off = lay.head(lay.grad, slab);
+  if constexpr (KS > 1) {
+    float* const parked[3] = {dq + g_off, dk + g_off, dv + g_off};
+    if (part > 0) store_rows_f32<HD>(parked[part - 1], lay.grad.t, r0, t, acc);
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(KS * 32) : "memory");
+    if (part > 0) return;
+#pragma unroll
+    for (int p = 1; p < KS; ++p) add_rows_f32<HD>(acc, parked[p - 1], lay.grad.t, r0, t);
+  }
+  store_rows_f32<HD>(dq + g_off, lay.grad.t, r0, t, acc);
+  if (tq == 0) {
+    float* st = stats + static_cast<int64_t>(slab) * 3 * t;
+    const int ra = r0 + g;
+    const int rb = ra + 8;
+    if (ra < t) {
+      st[ra] = m_a;
+      st[t + ra] = l_a;
+      st[2 * t + ra] = rs_a;
+    }
+    if (rb < t) {
+      st[rb] = m_b;
+      st[t + rb] = l_b;
+      st[2 * t + rb] = rs_b;
+    }
+  }
+}
+
+// One sweep of a column-pass warp over the 8-query tiles of its slab: S^T =
+// K Q^T and (for dK) dP^T = V dO^T for its 16 keys k0 .., then P^T and dS^T
+// as the A operands of dV = P^T dO and dK = dS^T Q; stores what it formed.
+template <int HD, bool kDV, bool kDK>
+__device__ __forceinline__ void cols_sweep(const float* qs, const float* os, const float* mst, int t,
+                                           const float* kg, const float* vg, int64_t ts, int k0, float* dk, float* dv,
+                                           int64_t gts, float scale) {
+  constexpr int kSteps = HD / 8;
+  const int t8 = round8(t);
+  const int tq = (threadIdx.x & 31) & 3;
+  RowsA<HD> ka, va;
+  ka.load(kg, ts, k0, t);
+  if constexpr (kDK) va.load(vg, ts, k0, t);
+  float av[kDV ? kSteps : 1][4], ak[kDK ? kSteps : 1][4];
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kDV) av[n][e] = 0.f;
+      if constexpr (kDK) ak[n][e] = 0.f;
+    }
+  }
+  for (int n = 0; n < t8 / 8; ++n) {
+    // row e of the tile is key (e < 2 ? a : b), query 8n + 2*tq + (e & 1);
+    // the correction terms are issued transposed (<false>), so S and dP add
+    // the row pass's terms in its order
+    float s4[4], d4[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_rows_f32<false>(s4, ka, qs, n);
+    if constexpr (kDK) mma_rows_f32<false>(d4, va, os, n);
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = n * 8 + 2 * tq + (e & 1);
+      p[e] = qi < t ? expf(__fmul_rn(s4[e], scale) - mst[qi]) / mst[t8 + qi] : 0.f;  // as the row pass rounds it
+      ds[e] = p[e] * (d4[e] - mst[2 * t8 + qi]) * scale;
+    }
+    if constexpr (kDV) mma_cols_f32<HD>(av, p, os, n);
+    if constexpr (kDK) mma_cols_f32<HD>(ak, ds, qs, n);
+  }
+  if constexpr (kDV) store_rows_f32<HD>(dv, gts, k0, t, av);
+  if constexpr (kDK) store_rows_f32<HD>(dk, gts, k0, t, ak);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kColWarps * 32)
+    mha_bwd_cols_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv,
+                     const float* __restrict__ stats, Layout lay, int key_blocks, float scale) {
+  constexpr int kPitch = HD + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = lay.t;
+  const int t8 = round8(t);
+  float* qs = reinterpret_cast<float*>(smem);  // [t8][kPitch]
+  float* os = qs + t8 * kPitch;                // [t8][kPitch]
+  float* mst = os + t8 * kPitch;               // [3][t8]: max, sum, row sum
+
+  const int slab = blockIdx.x / key_blocks;
+  const int64_t in_off = lay.head(lay.qkv, slab);
+  stage_rows_f32<HD>(qs, q + in_off, lay.qkv.t, t, t8);
+  stage_rows_f32<HD>(os, dout + lay.head(lay.dout, slab), lay.dout.t, t, t8);
+  const float* st = stats + static_cast<int64_t>(slab) * 3 * t;
+  for (int i = threadIdx.x; i < 3 * t8; i += blockDim.x) {
+    const int which = i / t8;
+    const int qi = i - which * t8;
+    mst[i] = qi < t ? st[which * t + qi] : (which == 1 ? 1.f : 0.f);
+  }
+  const int k0 = (blockIdx.x - slab * key_blocks) * kColKeys + (threadIdx.x >> 5) * 16;
+  cp_async_wait<0>();
+  __syncthreads();  // Q, dO and the statistics are in shared memory
+  if (k0 >= t) return;
+
+  const int64_t g_off = lay.head(lay.grad, slab);
+  float* dkp = dk + g_off;
+  float* dvp = dv + g_off;
+  if constexpr (HD >= kColTwoSweepsMinHd) {  // K, V, dK and dV fragments together would pass the registers
+    cols_sweep<HD, true, false>(qs, os, mst, t, k + in_off, v + in_off, lay.qkv.t, k0, dkp, dvp, lay.grad.t, scale);
+    cols_sweep<HD, false, true>(qs, os, mst, t, k + in_off, v + in_off, lay.qkv.t, k0, dkp, dvp, lay.grad.t, scale);
+  } else {
+    cols_sweep<HD, true, true>(qs, os, mst, t, k + in_off, v + in_off, lay.qkv.t, k0, dkp, dvp, lay.grad.t, scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -676,48 +798,46 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
-// The most warps (8, 4 or 2) whose shared memory fits the device; 0 if none.
-int pick_warps(int t, int hd, bool cols, size_t limit) {
-  for (int w = kMaxWarps; w >= 2; w >>= 1) {
-    if (smem_bytes(t, hd, w, cols) <= limit) return w;
+// f(std::integral_constant<int, hd>{}) for hd in 16..128 step 16.
+template <typename F>
+int with_hd(int hd, F&& f) {
+  switch (hd) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    default: return f(std::integral_constant<int, 128>{});
   }
-  return 0;
 }
 
+// Both float32 passes; a T whose staging passes the card's shared memory
+// fails in cudaFuncSetAttribute (cudaErrorInvalidValue) before either runs.
+template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk, void* dv,
                float* stats, int slabs, const Layout& lay, float scale, cudaStream_t stream) {
-  int dev = 0;
-  int limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int t = lay.t;
+  const int row_blocks = (lay.t + row_rows<HD>() - 1) / row_rows<HD>();
+  const int key_blocks = (lay.t + kColKeys - 1) / kColKeys;
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
   const float* op = static_cast<const float*>(dout);
-
-  const int wr = pick_warps(t, lay.hd, false, limit);
-  const int wc = pick_warps(t, lay.hd, true, limit);
-  if (wr == 0 || wc == 0) return static_cast<int>(cudaErrorInvalidValue);
-
-  const size_t smem_r = smem_bytes(t, lay.hd, wr, false);
-  err = allow_smem(mha_bwd_rows, smem_r);
+  float* dqp = static_cast<float*>(dq);
+  float* dkp = static_cast<float*>(dk);
+  float* dvp = static_cast<float*>(dv);
+  const size_t smem_r = smem_bytes_f32(lay.t, HD, false);
+  const size_t smem_c = smem_bytes_f32(lay.t, HD, true);
+  cudaError_t err = allow_smem(mha_bwd_rows_f32<HD>, smem_r);
+  if (err == cudaSuccess) err = allow_smem(mha_bwd_cols_f32<HD>, smem_c);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = wr * kRows;
-  const dim3 grid_r(slabs, (t + rows - 1) / rows);
-  mha_bwd_rows<<<grid_r, wr * 32, smem_r, stream>>>(qp, kp, vp, op, static_cast<float*>(dq), stats, lay, scale,
-                                                    rows);
+  mha_bwd_rows_f32<HD><<<slabs * row_blocks, row_warps<HD>() * 32, smem_r, stream>>>(
+      qp, kp, vp, op, dqp, dkp, dvp, stats, lay, row_blocks, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem_c = smem_bytes(t, lay.hd, wc, true);
-  err = allow_smem(mha_bwd_cols, smem_c);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int keys = wc * kRows;
-  const dim3 grid_c(slabs, (t + keys - 1) / keys);
-  mha_bwd_cols<<<grid_c, wc * 32, smem_c, stream>>>(qp, kp, vp, op, static_cast<float*>(dk),
-                                                    static_cast<float*>(dv), stats, lay, scale, keys);
+  mha_bwd_cols_f32<HD><<<slabs * key_blocks, kColWarps * 32, smem_c, stream>>>(qp, kp, vp, op, dkp, dvp, stats, lay,
+                                                                             key_blocks, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -743,6 +863,14 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout, v
   mha_bwd_cols_bf16<HD><<<slabs * blocks, kTcWarps * 32, smem_c, stream>>>(
       qp, kp, vp, op, static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, lay, blocks, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
+  cudaError_t err = allow_smem(kernel, smem);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 }  // namespace
@@ -773,17 +901,25 @@ int theia_mha_bwd(const void* q, const void* k, const void* v, const void* dout,
   const Layout lay{t, heads, hd, {in_bstride, in_tstride}, {do_bstride, do_tstride}, {out_bstride, out_tstride}};
   const int slabs = batch * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
-  switch (hd) {
-    case 16: return launch_bf16<16>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
-    case 32: return launch_bf16<32>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
-    case 48: return launch_bf16<48>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
-    case 64: return launch_bf16<64>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
-    case 80: return launch_bf16<80>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
-    case 96: return launch_bf16<96>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
-    case 112: return launch_bf16<112>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
-    default: return launch_bf16<128>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
-  }
+  return with_hd(hd, [&](auto h) {
+    constexpr int HD = decltype(h)::value;
+    return dtype == 0 ? launch_f32<HD>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s)
+                      : launch_bf16<HD>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
+  });
+}
+
+// Resident blocks per SM of the float32 row pass (cols = 0) or column pass
+// (cols = 1) at T tokens and head dim hd
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with the threads of one
+// of its blocks in *threads; a negative cudaError_t if the query failed.
+int theia_mha_bwd_f32_blocks_per_sm(int t, int hd, int cols, int* threads) {
+  if (t < 1 || t > kMaxT || hd < 16 || hd > kMaxHd || hd % 16 != 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return with_hd(hd, [&](auto h) {
+    constexpr int HD = decltype(h)::value;
+    *threads = cols ? kColWarps * 32 : row_warps<HD>() * 32;
+    return cols ? blocks_per_sm(mha_bwd_cols_f32<HD>, *threads, smem_bytes_f32(t, HD, true))
+                : blocks_per_sm(mha_bwd_rows_f32<HD>, *threads, smem_bytes_f32(t, HD, false));
+  });
 }
 
 }  // extern "C"

@@ -23,7 +23,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(PACKAGE_DIR / "csrc" / name
                 for name in ("mha_fwd.cu", "mha_bwd.cu", "flash_attn.cu", "ln_bwd.cu", "fused_loss.cu"))
-HEADERS = tuple(PACKAGE_DIR / "csrc" / name for name in ("div_rn.cuh", "mma_bf16.cuh", "wgmma_bf16.cuh"))
+HEADERS = tuple(PACKAGE_DIR / "csrc" / name for name in ("div_rn.cuh", "mma_bf16.cuh", "mma_tf32.cuh", "wgmma_bf16.cuh"))
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -97,6 +97,8 @@ def load() -> ctypes.CDLL:
             lib.theia_mha_fwd_bf16_blocks_per_sm.restype = i32
             lib.theia_mha_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 6 + [i32, ctypes.c_float, ptr]
             lib.theia_mha_bwd.restype = i32
+            lib.theia_mha_bwd_f32_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+            lib.theia_mha_bwd_f32_blocks_per_sm.restype = i32
             lib.theia_flash_fwd.argtypes = [ptr] * 5 + [i32] * 4 + [i64] * 4 + [i32, ctypes.c_float, ptr]
             lib.theia_flash_fwd.restype = i32
             lib.theia_flash_dq.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 8 + [i32, ctypes.c_float, ptr]
