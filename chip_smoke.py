@@ -7,15 +7,16 @@ failure (the script then exits nonzero and prints no result):
 
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes),
-   ptxas's registers and spills, and the resident blocks per SM of K1 bf16
-   and of K2 float32's two passes;
+   ptxas's registers and spills, and the resident blocks per SM of K1 bf16,
+   of K2 float32's two passes and of float32 K9 and K8;
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
    64] as views of a packed QKV projection and over a sweep of head dim x
    T (K1: T at the edges of its 64-key chunks; K2: of its 8-key tiles and
    16-row warps), K7 (flash forward), K9 (flash
    dQ) and K8 (flash dK, dV) at [B, 197|204, 12, 64] and [16, 785, 12, 64]
-   as such views and over a sweep of head dim x T, K3 and K4
+   as such views and over a sweep of head dim x T (float32 K9/K8 also at
+   the edges of their 16-row groups and 64-row tiles), K3 and K4
    (LayerNormSpatial backward) at every ladder LayerNorm of the Theia-Base
    cddsv heads, K5 and K6 (the fused loss's sums and d pred) at the five
    cddsv teachers' [16, D] and over a sweep of B and D;
@@ -49,8 +50,9 @@ failure (the script then exits nonzero and prints no result):
    bound and library call.
 
 The last two lines of standard output are the kernels' JSON record (the
-bf16 figures; ``mha_bwd`` also carries its float32 ones under
-``"float32"``, with the 3xTF32 tensor-core floor) and
+bf16 figures; ``mha_bwd``, ``flash_dq`` and ``flash_dkv`` also carry their
+float32 ones under ``"float32"``, with the 3xTF32 tensor-core floor, and
+``flash_dkv``'s the pair K9 + K8's under ``"pair"``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
 directory without the package beside it, the script exits nonzero.
 """
@@ -94,6 +96,9 @@ K1_F32_MAX_T = {80: 228, 96: 196, 112: 172, 128: 152}
 K1_SWEEP_T = (1, 17, 63, 64, 65, 128, 197, 204, 255, 256)
 # K7-K9 take any T: the sweep's token counts span 1 to 13 tiles of 64
 FLASH_SWEEP_T = (1, 17, 130, 257, 785)
+# and float32 K9/K8 (3xTF32) also at the edges of their 16-row groups and
+# 64-row tiles
+FLASH_F32_EDGE_T = (15, 16, 63, 64, 65)
 # 448² uint8 images without resize: 28² patches and the CLS token
 BIG_IMAGE, BIG_T = 448, 1 + (448 // 16) ** 2
 BIG_BATCH, BIG_TRAIN_BATCH = 16, 4
@@ -328,7 +333,8 @@ def compare_flash_kernels(attention) -> dict:
     """Phase 3, K7, K9 and K8 against their plain versions: at the serving and
     training shapes [1|64, 197|204, 12, 64] and [1|16, 197|204, 12, 64], at
     448² images' [16, 785, 12, 64], and over head dims 16..128 x
-    FLASH_SWEEP_T; float32 and bf16. The max abs errors."""
+    FLASH_SWEEP_T (float32 also FLASH_F32_EDGE_T); float32 and bf16. The max
+    abs errors."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     errors = {}
     shapes = [(1, 197), (64, 197), (1, 204), (64, 204), (16, 197), (16, 204), (BIG_BATCH, BIG_T)]
@@ -347,7 +353,7 @@ def compare_flash_kernels(attention) -> dict:
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for hd in range(16, 129, 16):
-            for t in FLASH_SWEEP_T:
+            for t in FLASH_SWEEP_T + (FLASH_F32_EDGE_T if dtype == torch.float32 else ()):
                 for name, (got, want) in flash_case(attention, 2, t, 2, hd, dtype, gen).items():
                     err, rel, ok = flash_error(got, want, dtype, name in ("lse", "di"))
                     check(ok, f"{name} {dtype} [2,{t},2,{hd}] disagrees with its plain version: max abs {err:.3e}, "
@@ -356,7 +362,8 @@ def compare_flash_kernels(attention) -> dict:
                     # bf16: a case within the absolute floor (exact result 0) counts as 0
                     bad = err if dtype == torch.float32 else (rel if err > KERNEL_F32_ATOL else 0.0)
                     worst[key] = max(worst.get(key, 0.0), bad)
-    print(f"  K7/K9/K8 flash [2, T, 2, hd], hd 16..128 x T in {FLASH_SWEEP_T}: float32 worst max_abs_err " +
+    print(f"  K7/K9/K8 flash [2, T, 2, hd], hd 16..128 x T in {FLASH_SWEEP_T} (float32 also {FLASH_F32_EDGE_T}): "
+          "float32 worst max_abs_err " +
           ", ".join(f"{n} {worst[(n, torch.float32)]:.3e}" for n in ("flash_fwd", "flash_dq", "flash_dkv")) +
           f" (atol {KERNEL_F32_ATOL}); bf16 worst rel_l2 " +
           ", ".join(f"{n} {worst[(n, torch.bfloat16)]:.3e}" for n in ("flash_fwd", "flash_dq", "flash_dkv")) +
@@ -470,6 +477,13 @@ def main() -> int:
         print(f"  K2 {k2} (T = 197): ptxas {usage.get(k2)}; {k2_blocks} resident blocks per SM "
               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block)")
         check(k2 in usage and k2_blocks > 0, f"K2's ptxas line or occupancy query is missing ({k2_blocks})")
+    # K9 and K8 float32 (3xTF32) at the main path's head dim
+    for dkv, kernel in enumerate((f"flash_dq_f32<{HEAD_DIM}>", f"flash_dkv_f32<{HEAD_DIM}>")):
+        threads = ctypes.c_int(0)
+        blocks = build.load().theia_flash_bwd_f32_blocks_per_sm(HEAD_DIM, dkv, ctypes.byref(threads))
+        print(f"  {('K9', 'K8')[dkv]} {kernel}: ptxas {usage.get(kernel)}; {blocks} resident blocks per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block)")
+        check(kernel in usage and blocks > 0, f"{kernel}'s ptxas line or occupancy query is missing ({blocks})")
 
     # phase 3: kernel vs plain; float32 phases run with TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -906,6 +920,9 @@ def main() -> int:
         return t, bound, by
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the float32 records of the kernels whose float32 runs on the tensor
+    # cores (K2 at [16, 197], K9 and K8 at [16, 785])
+    f32_records = {}
 
     for dtype in (torch.float32, bf16):
         q, k, v = packed_qkv(64, 197, dtype, gen)
@@ -932,9 +949,10 @@ def main() -> int:
             # float32 K2 runs its products as 3xTF32 on the tensor cores: its
             # time against that floor too, beside the FMA bound
             (t, bound, by), tc_bound = res, 3 * flops / TF32_FLOPS * 1e3
-            k2_f32 = {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
-                      "max_abs_err": kernel_errors[("mha_bwd", dtype, TRAIN_BATCH, 197)], "bound_ms": bound,
-                      "bound_by": by, "tf32x3_bound_ms": tc_bound}
+            f32_records["mha_bwd"] = {
+                "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+                "max_abs_err": kernel_errors[("mha_bwd", dtype, TRAIN_BATCH, 197)], "bound_ms": bound,
+                "bound_by": by, "tf32x3_bound_ms": tc_bound}
             print(f"    K2 float32: kernel / bound {t['kernel'] / bound:.2f}x ({by}, FMA peak); kernel / 3xTF32 "
                   f"tensor-core floor ({tc_bound * 1e3:.1f} us) {t['kernel'] / tc_bound:.2f}x")
     # K7 at serving's [64, 197] and 448² images' [16, 785]; K9 and K8 at
@@ -969,10 +987,25 @@ def main() -> int:
                 6 * n * es + 2 * bh * t * 4, 8 * bh * t * t * HEAD_DIM, dtype, shape)
             pair = {"plain": lambda: attention.flash_bwd_plain(q, k, v, o, lse, do),
                     "kernel": lambda: attention.flash_bwd(q, k, v, o, lse, do), "library": sdpa_backward(q, k, v, do)}
-            kernel_row("K9 + K8 flash backward", pair, 8 * n * es + bh * t * 4, 14 * bh * t * t * HEAD_DIM, dtype,
-                       shape)
+            rp = kernel_row("K9 + K8 flash backward", pair, 8 * n * es + bh * t * 4, 14 * bh * t * t * HEAD_DIM, dtype,
+                            shape)
             if dtype == bf16 and t == BIG_T:
                 record["flash_dq"], record["flash_dkv"] = r9, r8
+            elif dtype == torch.float32:
+                # float32 K9 and K8 run their products as 3xTF32 on the
+                # tensor cores: their times against that floor too
+                for key, label, (tm, bound, by), products in (("flash_dq", "K9", r9, 6), ("flash_dkv", "K8", r8, 8),
+                                                              ("pair", "K9 + K8", rp, 14)):
+                    tc_bound = 3 * products * bh * t * t * HEAD_DIM / TF32_FLOPS * 1e3
+                    print(f"    {label} float32 {shape}: kernel / bound {tm['kernel'] / bound:.2f}x ({by}, FMA peak); "
+                          f"kernel / 3xTF32 tensor-core floor ({tc_bound * 1e3:.1f} us) {tm['kernel'] / tc_bound:.2f}x")
+                    if t == BIG_T:
+                        f32_records[key] = {
+                            "ms": tm["kernel"], "plain_ms": tm["plain"], "library_ms": tm.get("library"),
+                            "bound_ms": bound, "bound_by": by, "tf32x3_bound_ms": tc_bound}
+    for key in ("flash_dq", "flash_dkv"):
+        f32_records[key]["max_abs_err"] = kernel_errors[(key, torch.float32, BIG_BATCH, BIG_T)]
+    f32_records["flash_dkv"]["pair"] = f32_records.pop("pair")
     for dtype, s in [(bf16, 16), (bf16, 31), (bf16, 64), (torch.float32, 64)]:
         x, g, w, mean, r = ln_inputs(TRAIN_BATCH, 768, s, dtype, gen)
         s1, s2 = ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)[:2]
@@ -1058,7 +1091,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"theia_tpu_torch/{src}", "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
             "bound_ms": bound, "bound_by": by, "library_ms": t.get("library"),
-            **({"float32": k2_f32} if name == "mha_bwd" else {}),
+            **({"float32": f32_records[name]} if name in f32_records else {}),
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -74,6 +74,26 @@ def test_plain_matches_the_tpu_flash_kernels_in_interpret_mode(t, dtype):
     torch.testing.assert_close(di, want_di, atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("hd", (16, 80, 128))
+@pytest.mark.parametrize("t", (1, 65, 130))
+def test_plain_backward_matches_the_tpu_flash_kernels_across_head_dims(t, hd):
+    """The float32 flash backward (K9's and K8's plain versions) against
+    jax.vjp of the reference's flash path in interpret mode, at head dims
+    beside 64 and at T = 1 (dQ and dK exactly 0), one past a 64-row tile and
+    two tiles and two rows: the shapes the float32 kernels are held to on the
+    card."""
+    q, k, v, do = _arrays((1, t, H, hd), 4, seed=t * 1000 + hd)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda a, b, c: jattn._flash_attention(a, b, c, jnp.float32), *map(jnp.asarray, (q, k, v)))
+        want_grads = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = tattn.flash_fwd_plain(tq, tk, tv)
+    _close(o, want, torch.float32, None)
+    grads = tattn.flash_bwd_plain(tq, tk, tv, o, lse, tdo)
+    for i, w in enumerate(want_grads):
+        _close(grads[:, :, i], w, torch.float32, None)
+
+
 def test_plain_matches_einsum_where_the_reference_flash_path_refuses():
     """T = 785 (448² images): the reference pads to 896 and asks for blocks of
     512, which its library refuses; the port's plain versions (and kernels)
@@ -244,3 +264,30 @@ def test_cuda_pallas_past_max_t_runs_the_flash_kernels(cuda):
     torch.cuda.synchronize()
     after = _counts()
     assert [after[n] - before[n] for n in COUNTERS] == [0, 0, 1, 1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", (1, 15, 16, 17, 63, 64, 65, 130, 197, 257, 785))
+@pytest.mark.parametrize("hd", (16, 32, 48, 64, 80, 96, 112, 128))
+def test_cuda_float32_backward_kernels_match_plain(cuda, hd, t):
+    """Float32 K9 and K8 (3xTF32) against their plain versions at every head
+    dim and at the edges of their 16-row groups, 8-column tiles and 64-row
+    tiles, on views of a packed projection; one launch each."""
+    gen = torch.Generator().manual_seed(hd * 1000 + t)
+    qkv = torch.randn(2, t, 3 * 2 * hd, generator=gen).to(cuda)
+    q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+    do = torch.randn(2, t, 2, hd, generator=gen).to(cuda)
+    o, lse = tattn.flash_fwd(q, k, v)
+    before = _counts()
+    dq, di = tattn.flash_dq(q, k, v, o, lse, do)
+    dk, dv = tattn.flash_dkv(q, k, v, lse, di, do)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert {n: after[n] - before[n] for n in COUNTERS} == {
+        "MHA_FWD_LAUNCHES": 0, "MHA_BWD_LAUNCHES": 0, "FLASH_FWD_LAUNCHES": 0, "FLASH_DKV_LAUNCHES": 1,
+        "FLASH_DQ_LAUNCHES": 1}
+    want_dq, want_di = tattn.flash_dq_plain(q, k, v, o, lse, do)
+    want_dk, want_dv = tattn.flash_dkv_plain(q, k, v, lse, di, do)
+    assert float(want_di.norm()) == 0 or _rel_l2(di.cpu(), want_di.cpu()) <= 1e-5
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)

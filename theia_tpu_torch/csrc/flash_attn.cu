@@ -45,12 +45,33 @@
 //   S^T = K Q^T and dP^T = V dO^T, whose accumulators are the A operands of
 //   dV = P^T dO and dK = dS^T Q, as K2's column pass does.
 //
-// float32, CUDA cores (flash_*_f32): no tensor-core instruction multiplies
-//   in full float32, so the products run as FMAs, as in K1 and K2: 16 warps
-//   of 4 rows a block, lane j owning keys (or queries) j and j + 32 of a
-//   tile, then dims j, j + 32, ... of the outputs. Tiles are staged once per
-//   step (no double buffer). Both backward passes compute S and dP in one
-//   dot-product order, so P and dS agree between them.
+// float32 forward, CUDA cores (flash_fwd_f32): the products run as FMAs, as
+//   in K1: 16 warps of 4 rows a block, lane j owning keys j and j + 32 of a
+//   tile, then dims j, j + 32, ... of the output. Tiles are staged once per
+//   step (no double buffer).
+//
+// float32 backward, tensor cores as 3xTF32 (flash_dq_f32, flash_dkv_f32): no
+//   tensor-core instruction multiplies in full float32, so each product is
+//   three tf32 mma.sync m16n8k8 over operands split into big and small
+//   halves (mma_tf32.cuh), ~2^-21 relative, as in K2's float32 passes. At
+//   [16, 785, 12, 64] the pair does 106 GFLOP: 1.58 ms at the CUDA cores'
+//   67 TFLOP/s, 0.64 ms as three tf32 products at the tensor cores' 495.
+//   A block owns 64 rows (queries in dQ, keys in dK/dV) and streams the
+//   other side in double-buffered cp.async tiles of 64, rows past T
+//   zero-filled and masked by bounds. Each 16-row group is two warps that
+//   take alternate 8-column tiles of a streamed tile and add their partial
+//   sums once, at the end, in part order. The block's own rows (Q and dO; K
+//   and V) are staged once in shared memory and each k-step's A fragment is
+//   read there, so a thread holds only its accumulators and its S and dP
+//   tiles. dQ: S = Q K^T, dP = dO V^T, then dS, still in the accumulators,
+//   is the A operand of dQ += dS K with K read down columns (c_as_a,
+//   b_cols), so dS never leaves registers. dK, dV: S^T = K Q^T and dP^T =
+//   V dO^T issue their correction terms transposed, so S and dP add the dQ
+//   pass's terms in its order and, with the scale multiply pinned and the
+//   exact expf, P and dS are the numbers the dQ pass forms; P^T and dS^T
+//   are the A operands of dV += P^T dO and dK += dS^T Q. The two choices
+//   of the block's shape are -D switches (THEIA_FLASH_F32_SPLIT,
+//   THEIA_FLASH_F32_HELD_A), timed in PERF.md.
 //
 // No atomics: each pass owns one reduction direction, so the results are
 // deterministic. wgmma, TMA and warp specialisation are later work.
@@ -60,7 +81,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -459,20 +483,19 @@ __global__ void __launch_bounds__(kTcThreads)
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32 forward: CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;                    // rows (keys in the dK/dV pass) a warp
-constexpr int kPerLane = kTile / 32;        // keys (queries) of a tile a lane owns
+constexpr int kRows = 4;                    // rows a warp
+constexpr int kPerLane = kTile / 32;        // keys of a tile a lane owns
 constexpr int kDimsPerLane = kMaxHd / 32;   // output dims a lane owns
 static_assert(kWarps * kRows == kTile, "a block owns one tile of rows");
 
 __device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-// acc + a . b over four elements, in element order (every pass uses this
-// one order, so S and dP come out the same in both backward passes).
+// acc + a . b over four elements, in element order.
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -503,7 +526,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t 
   }
 }
 
-// Shared memory of the float32 kernels: `tiles` staged [kTile][hd + 4]
+// Shared memory of the float32 forward: `tiles` staged [kTile][hd + 4]
 // tiles, `stats` floats, and per warp `row_bufs` [kRows][hd] buffers and
 // `key_bufs` [kRows][kTile] buffers.
 size_t smem_bytes_f32(int hd, int tiles, int stats, int row_bufs, int key_bufs) {
@@ -630,250 +653,434 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ o, const float* __restrict__ dout, const float* __restrict__ lse,
-                 float* __restrict__ di, float* __restrict__ dq, Layout lay, int q_tiles, float scale) {
-  constexpr int R = kRows;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int t = lay.t;
-  const int hd = lay.hd;
-  const int pitch = hd + 4;
-  float* ks = reinterpret_cast<float*>(smem);  // [kTile][pitch]
-  float* vs = ks + kTile * pitch;              // [kTile][pitch]
-  float* qbuf = vs + kTile * pitch;            // [kWarps][R][hd]
-  float* obuf = qbuf + kWarps * R * hd;        // [kWarps][R][hd]: dO
-  float* dsbuf = obuf + kWarps * R * hd;       // [kWarps][R][kTile]
-  const int slab = blockIdx.x / q_tiles;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = (blockIdx.x - slab * q_tiles) * kTile + warp * R;
-  const int64_t ts = lay.qkv.t;
-  const int64_t in_off = lay.head(lay.qkv, slab);
-  const int64_t o_off = lay.head(lay.out, slab);
-  float* qw = qbuf + warp * R * hd;
-  float* ow = obuf + warp * R * hd;
-  float* dsw = dsbuf + warp * R * kTile;
-  load_rows(qw, q + in_off, ts, r0, t, hd);
-  load_rows(ow, dout + lay.head(lay.dout, slab), lay.dout.t, r0, t, hd);
-  __syncwarp();
+// ---------------------------------------------------------------------------
+// float32 backward: 3xTF32 on the tensor cores
+// ---------------------------------------------------------------------------
 
-  // di = rowsum(O * dO) in float32, stored for the dK/dV pass; and lse
-  float dir[R], lr[R];
-  const float* ls = lse + static_cast<int64_t>(slab) * t;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = r0 + r;
-    float x = 0.f;
-    if (row < t) {
-      for (int d = lane; d < hd; d += 32) x = fmaf(o[o_off + row * lay.out.t + d], ow[r * hd + d], x);
-    }
-    dir[r] = warp_sum(x);
-    lr[r] = row < t ? ls[row] : 0.f;
-    if (lane == 0 && row < t) di[static_cast<int64_t>(slab) * t + row] = dir[r];
-  }
+// The block shape may be set with -D to time the alternatives
+// (tools/time_mha_bwd.py --kernel flash --ablations); the defaults are the
+// fastest measured.
+//   THEIA_FLASH_F32_SPLIT: warps that share a 16-row group, each taking
+//     every SPLIT-th 8-column tile of a streamed tile (1 or 2); their
+//     partial sums meet once, at the end, in part order.
+//   THEIA_FLASH_F32_HELD_A: 1 holds the A operand of the block's own rows
+//     (Q, dO in dQ; K, V in dK/dV) in registers as float32, 0 stages those
+//     rows once in shared memory and reads each k-step's fragment there.
+#ifndef THEIA_FLASH_F32_SPLIT
+#define THEIA_FLASH_F32_SPLIT 2
+#endif
+#ifndef THEIA_FLASH_F32_HELD_A
+#define THEIA_FLASH_F32_HELD_A 0
+#endif
 
-  float acc[R][kDimsPerLane];
+constexpr int kF32Split = THEIA_FLASH_F32_SPLIT;
+constexpr bool kF32HeldA = THEIA_FLASH_F32_HELD_A != 0;
+constexpr int kF32Threads = 32 * (kTile / 16) * kF32Split;
+constexpr int kF32Cols = kTile / 8 / kF32Split;  // 8-column tiles of a streamed tile a warp takes
+static_assert(kF32Split == 1 || kF32Split == 2, "a part's partial sums are parked in the staging buffers");
+
+// Blocks a SM the launch bounds ask for: two of 256 threads (128 registers a
+// thread) where the staged A operand leaves room for it.
+template <int HD>
+__host__ __device__ constexpr int f32_min_blocks() {
+  return !kF32HeldA && kF32Split == 2 && HD <= 64 ? 2 : 1;
+}
+
+// Shared memory: two double-buffered streamed [kTile][HD + 4] tiles, the
+// block's own two (unless held in registers), and in dK/dV the streamed
+// tiles' lse and di, [2][2][kTile].
+template <int HD>
+size_t smem_bytes_bwd_f32(bool dkv) {
+  return ((kF32HeldA ? 4 : 6) * static_cast<size_t>(kTile) * (HD + 4) + (dkv ? 4 * kTile : 0)) * sizeof(float);
+}
+
+// The A operand of a warp's 16 rows, held in registers as float32 (RowsA,
+// from global memory) and read a k-step at a time.
+template <int HD>
+struct HeldA : RowsA<HD> {
+  __device__ __forceinline__ void frag(int s, float (&a)[4]) const {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] = 0.f;
-  for (int key0 = 0; key0 < t; key0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile(ks, k + in_off, ts, key0, t, hd);
-    stage_tile(vs, v + in_off, ts, key0, t, hd);
-    __syncthreads();
-    if (r0 >= t) continue;
-    // S = Q K^T and dP = dO V^T for R rows; lane owns keys lane + 32 i
-    float s[R][kPerLane], dp[R][kPerLane];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) s[r][i] = dp[r][i] = 0.f;
-    for (int d = 0; d < hd; d += 4) {
-      float4 qv[R], ov[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        qv[r] = load4(qw + r * hd + d);  // broadcast
-        ov[r] = load4(ow + r * hd + d);
-      }
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const float4 kv = load4(ks + (lane + 32 * i) * pitch + d);
-        const float4 vv = load4(vs + (lane + 32 * i) * pitch + d);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          s[r][i] = dot4(qv[r], kv, s[r][i]);
-          dp[r][i] = dot4(ov[r], vv, dp[r][i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const float p = key0 + lane + 32 * i < t ? expf(s[r][i] * scale - lr[r]) : 0.f;
-        dsw[r * kTile + lane + 32 * i] = (dp[r][i] - dir[r]) * p * scale;
-      }
-    __syncwarp();
-    // dQ += dS K: lane owns dims lane + 32 i, for R rows
-    for (int j = 0; j < kTile; ++j) {
-      float dsv[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) dsv[r] = dsw[r * kTile + j];  // broadcast
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) {
-          const float kv = ks[j * pitch + d];
-#pragma unroll
-          for (int r = 0; r < R; ++r) acc[r][i] = fmaf(dsv[r], kv, acc[r][i]);
-        }
-      }
-    }
-    __syncwarp();  // dS is read before the next tile overwrites it
+    for (int e = 0; e < 4; ++e) a[e] = this->raw[s][e];
   }
-  if (r0 >= t) return;
-  const int64_t g_off = lay.head(lay.grad, slab);
+};
+
+// The same read from the block's rows staged in shared memory (pitch HD + 4,
+// 32 distinct banks as b_rows); `rows` is the warp's first row.
+template <int HD>
+struct StagedA {
+  const float* rows;
+
+  __device__ __forceinline__ void frag(int s, float (&a)[4]) const {
+    const int lane = threadIdx.x & 31;
+    const float* p = rows + (lane >> 2) * (HD + 4) + 8 * s + (lane & 3);
+    a[0] = p[0];
+    a[1] = p[8 * (HD + 4)];
+    a[2] = p[4];
+    a[3] = p[8 * (HD + 4) + 4];
+  }
+};
+
+template <int HD>
+using OwnA = std::conditional_t<kF32HeldA, HeldA<HD>, StagedA<HD>>;
+
+// The block's A operand for the 16 rows r0 .. of x (token stride ts): loaded
+// into registers, or pointed at its rows staged at `staged` (row b0 first).
+template <int HD>
+__device__ __forceinline__ void own_a(OwnA<HD>& a, const float* x, int64_t ts, int r0, int t, const float* staged,
+                                      int b0) {
+  if constexpr (kF32HeldA) {
+    a.load(x, ts, r0, t);
+  } else {
+    a.rows = staged + (r0 - b0) * (HD + 4);
+  }
+}
+
+// 4 bytes global -> shared (cp.async.ca: .cg takes only 16).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(src));
+}
+
+// lse and di of the queries r .. r + kTile - 1 into dst[2][kTile], as one
+// commit group; queries from T on become zeros.
+__device__ __forceinline__ void stage_stats(float* dst, const float* lse, const float* di, int r, int t) {
+  for (int i = threadIdx.x; i < 2 * kTile; i += blockDim.x) {
+    const int qi = r + (i & (kTile - 1));
+    if (qi < t) {
+      cp_async4(dst + i, (i < kTile ? lse : di) + qi);
+    } else {
+      dst[i] = 0.f;
+    }
+  }
+  cp_async_commit();
+}
+
+// Whether a warp's 8-column tile i holds a row of a streamed tile that has
+// `rows` rows below T. A tile past them would add only zeros: a streamed
+// tile's last (kPartial) pass skips it; the full tiles run without the test,
+// which costs more inside the unrolled k-steps than the work it saves.
+template <bool kPartial>
+__device__ __forceinline__ bool live_cols(int i, int part, int rows) {
+  return !kPartial || 8 * (kF32Split * i + part) < rows;
+}
+
+// S (or S^T) and dP (or dP^T) over a warp's kF32Cols 8-column tiles n =
+// kF32Split i + part of a streamed tile: x's A operand against the rows of
+// xs, y's against the rows of ys, a k-step at a time, so that one k-step of
+// each A operand is split and live (tiles live_cols skips stay 0).
+// kSmallAFirst as mma_3xtf32.
+template <bool kPartial, bool kSmallAFirst, int HD>
+__device__ __forceinline__ void scores_f32(float (&sc)[kF32Cols][4], float (&dp)[kF32Cols][4], const OwnA<HD>& x,
+                                           const float* xs, const OwnA<HD>& y, const float* ys, int part, int rows) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = r0 + r;
-    if (row < t) {
+  for (int i = 0; i < kF32Cols; ++i) {
 #pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) dq[g_off + row * lay.grad.t + d] = acc[r][i];
+    for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < HD / 8; ++s) {
+    float a[4];
+    uint32_t a_big[4], a_small[4], b_big[2], b_small[2];
+    x.frag(s, a);
+    split_tf32(a, a_big, a_small);
+#pragma unroll
+    for (int i = 0; i < kF32Cols; ++i) {
+      if (live_cols<kPartial>(i, part, rows)) {
+        b_rows<HD + 4>(xs, 8 * (kF32Split * i + part), 8 * s, b_big, b_small);
+        mma_3xtf32<kSmallAFirst>(sc[i], a_big, a_small, b_big, b_small);
+      }
+    }
+    y.frag(s, a);
+    split_tf32(a, a_big, a_small);
+#pragma unroll
+    for (int i = 0; i < kF32Cols; ++i) {
+      if (live_cols<kPartial>(i, part, rows)) {
+        b_rows<HD + 4>(ys, 8 * (kF32Split * i + part), 8 * s, b_big, b_small);
+        mma_3xtf32<kSmallAFirst>(dp[i], a_big, a_small, b_big, b_small);
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A part's accumulator into (park) or added from (unpark) red[HD / 8][4][32],
+// lane-major, so each access reads 32 distinct banks.
+template <int HD>
+__device__ __forceinline__ void park(float* red, const float (&acc)[HD / 8][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < HD / 8; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[(m * 4 + e) * 32 + lane] = acc[m][e];
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void unpark(const float* red, float (&acc)[HD / 8][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < HD / 8; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] += red[(m * 4 + e) * 32 + lane];
+  }
+}
+
+// A warp's work on one streamed key tile of K9 (`rows` keys below T): S =
+// Q K^T and dP = dO V^T on its 8-key tiles, P = exp(S * scale - lse), dS =
+// (dP - di) * P * scale in the accumulators, and dQ += dS K.
+template <bool kPartial, int HD>
+__device__ __forceinline__ void dq_tile(float (&acc)[HD / 8][4], const OwnA<HD>& qa, const OwnA<HD>& oa,
+                                        const float* kt, const float* vt, int part, int rows, float lse_a, float lse_b,
+                                        float di_a, float di_b, float scale) {
+  const int tq = threadIdx.x & 3;
+  // element e of tile i is row (e < 2 ? a : b), key 8n + 2tq + (e & 1)
+  float sc[kF32Cols][4], dp[kF32Cols][4];
+  scores_f32<kPartial, true, HD>(sc, dp, qa, kt, oa, vt, part, rows);
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+    const int key0 = 8 * (kF32Split * i + part) + 2 * tq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // zero-filled keys give S = 0 and P = exp(-lse) != 0: masked by bounds
+      const float p = key0 + (e & 1) < rows ? expf(__fmul_rn(sc[i][e], scale) - (e < 2 ? lse_a : lse_b)) : 0.f;
+      sc[i][e] = (dp[i][e] - (e < 2 ? di_a : di_b)) * p * scale;  // dS, as dK/dV forms it
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+    if (live_cols<kPartial>(i, part, rows)) mma_cols_f32<HD>(acc, sc[i], kt, kF32Split * i + part);
+  }
+}
+
+// K9, dQ. A block owns 64 query rows; each row group (16 rows) is
+// kF32Split warps. Over the key tiles (K and V double-buffered with
+// cp.async): S = Q K^T and dP = dO V^T on the warp's 8-key tiles, P =
+// exp(S * scale - lse), dS = (dP - di) * P * scale in the accumulators, and
+// dQ += dS K with each dS tile as the A operand of its 8 keys (c_as_a) and
+// K read down columns (b_cols).
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, f32_min_blocks<HD>())
+    flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ o, const float* __restrict__ dout, const float* __restrict__ lse,
+                 float* __restrict__ di, float* __restrict__ dq, Layout lay, int q_tiles, float scale) {
+  constexpr int kPitch = HD + 4;
+  constexpr int kBuf = kTile * kPitch;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);  // [2][kTile][kPitch]
+  float* vs = ks + 2 * kBuf;                   // [2][kTile][kPitch]
+  float* own = vs + 2 * kBuf;                  // [2][kTile][kPitch]: the block's Q and dO rows, unless held
+  const int t = lay.t;
+  const int slab = blockIdx.x / q_tiles;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int group = warp / kF32Split;
+  const int part = warp - group * kF32Split;
+  const int b0 = (blockIdx.x - slab * q_tiles) * kTile;
+  const int r0 = b0 + group * 16;
+  const int row_a = r0 + (lane >> 2);
+  const int row_b = row_a + 8;
+  const int64_t ts = lay.qkv.t;
+  const int64_t in_off = lay.head(lay.qkv, slab);
+  const float* qh = q + in_off;
+  const float* kh = k + in_off;
+  const float* vh = v + in_off;
+  const float* doh = dout + lay.head(lay.dout, slab);
+  const int k_tiles = (t + kTile - 1) / kTile;
+
+  if constexpr (!kF32HeldA) {
+    stage_rows_f32<HD>(own, qh + b0 * ts, ts, t - b0, kTile);
+    stage_rows_f32<HD>(own + kBuf, doh + b0 * lay.dout.t, lay.dout.t, t - b0, kTile);
+  }
+  stage_rows_f32<HD>(ks, kh, ts, t, kTile);
+  stage_rows_f32<HD>(vs, vh, ts, t, kTile);
+  OwnA<HD> qa, oa;
+  own_a<HD>(qa, qh, ts, r0, t, own, b0);
+  own_a<HD>(oa, doh, lay.dout.t, r0, t, own + kBuf, b0);
+  if constexpr (!kF32HeldA) {
+    cp_async_wait<2>();
+    __syncthreads();  // the block's own rows are in shared memory
+  }
+  // di = rowsum(O * dO) in float32 for rows g and g + 8, stored for dK/dV; and lse
+  float di_a = 0.f, di_b = 0.f;
+  {
+    const float* oh = o + lay.head(lay.out, slab);
+#pragma unroll
+    for (int s = 0; s < HD / 8; ++s) {
+      float x[4], y[4];
+      load_a_f32(x, oh, lay.out.t, r0, t, 8 * s);
+      oa.frag(s, y);
+      di_a = fmaf(x[2], y[2], fmaf(x[0], y[0], di_a));
+      di_b = fmaf(x[3], y[3], fmaf(x[1], y[1], di_b));
+    }
+  }
+  di_a = quad_sum(di_a);
+  di_b = quad_sum(di_b);
+  const float* ls = lse + static_cast<int64_t>(slab) * t;
+  const float lse_a = row_a < t ? ls[row_a] : 0.f;
+  const float lse_b = row_b < t ? ls[row_b] : 0.f;
+  if (part == 0 && tq == 0) {
+    float* dst = di + static_cast<int64_t>(slab) * t;
+    if (row_a < t) dst[row_a] = di_a;
+    if (row_b < t) dst[row_b] = di_b;
+  }
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int m = 0; m < HD / 8; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+  for (int j = 0; j < k_tiles; ++j) {
+    const int cur = j & 1;
+    if (j + 1 < k_tiles) {
+      const int r = (j + 1) * kTile;
+      stage_rows_f32<HD>(ks + (cur ^ 1) * kBuf, kh + r * ts, ts, t - r, kTile);
+      stage_rows_f32<HD>(vs + (cur ^ 1) * kBuf, vh + r * ts, ts, t - r, kTile);
+      cp_async_wait<2>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j is in shared memory
+    if (r0 < t) {
+      const int rows = t - j * kTile;  // keys of the tile below T
+      if (rows >= kTile) {
+        dq_tile<false, HD>(acc, qa, oa, ks + cur * kBuf, vs + cur * kBuf, part, rows, lse_a, lse_b, di_a, di_b, scale);
+      } else {
+        dq_tile<true, HD>(acc, qa, oa, ks + cur * kBuf, vs + cur * kBuf, part, rows, lse_a, lse_b, di_a, di_b, scale);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer cur before it is staged again
+  }
+  if constexpr (kF32Split > 1) {
+    float* red = reinterpret_cast<float*>(smem) + group * 16 * HD;  // the staging is free now
+    if (part == 1) park<HD>(red, acc);
+    __syncthreads();
+    if (part == 1) return;
+    unpark<HD>(red, acc);
+  }
+  if (r0 < t) store_rows_f32<HD>(dq + lay.head(lay.grad, slab), lay.grad.t, r0, t, acc);
+}
+
+// A warp's work on one streamed query tile of K8 (`rows` queries below T,
+// their lse and di at lt[0 .. kTile) and lt[kTile ..)): S^T = K Q^T and
+// dP^T = V dO^T on its 8-query tiles, then P^T and dS^T in the accumulators
+// as the A operands of dV += P^T dO and dK += dS^T Q.
+template <bool kPartial, int HD>
+__device__ __forceinline__ void dkv_tile(float (&ak)[HD / 8][4], float (&av)[HD / 8][4], const OwnA<HD>& ka,
+                                         const OwnA<HD>& va, const float* qt, const float* ot, const float* lt,
+                                         int part, int rows, float scale) {
+  const int tq = threadIdx.x & 3;
+  const float* dt = lt + kTile;
+  // element e of tile i is key (e < 2 ? a : b), query 8n + 2tq + (e & 1)
+  float sc[kF32Cols][4], dp[kF32Cols][4];
+  scores_f32<kPartial, false, HD>(sc, dp, ka, qt, va, ot, part, rows);
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+    const int q0 = 8 * (kF32Split * i + part) + 2 * tq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = q0 + (e & 1);
+      const float p = qi < rows ? expf(__fmul_rn(sc[i][e], scale) - lt[qi]) : 0.f;  // as K9 rounds it
+      dp[i][e] = (dp[i][e] - dt[qi]) * p * scale;
+      sc[i][e] = p;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+    if (live_cols<kPartial>(i, part, rows)) {
+      mma_cols_f32<HD>(av, sc[i], ot, kF32Split * i + part);
+      mma_cols_f32<HD>(ak, dp[i], qt, kF32Split * i + part);
+    }
+  }
+}
+
+// K8, dK and dV. A block owns 64 keys; each key group (16) is kF32Split
+// warps. Over the query tiles (Q, dO, lse, di double-buffered with
+// cp.async): S^T = K Q^T and dP^T = V dO^T on the warp's 8-query tiles, with
+// the correction terms issued transposed (mma_3xtf32<false>), so that P and
+// dS are the numbers K9 forms; then P^T and dS^T in the accumulators are the
+// A operands of dV += P^T dO and dK += dS^T Q.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, f32_min_blocks<HD>())
     flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                   const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
                   float* __restrict__ dk, float* __restrict__ dv, Layout lay, int k_tiles, float scale) {
-  constexpr int R = kRows;
+  constexpr int kPitch = HD + 4;
+  constexpr int kBuf = kTile * kPitch;
   extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);       // [2][kTile][kPitch]
+  float* os = qs + 2 * kBuf;                        // [2][kTile][kPitch]: dO
+  float* own = os + 2 * kBuf;                       // [2][kTile][kPitch]: the block's K and V rows, unless held
+  float* stat = own + (kF32HeldA ? 0 : 2 * kBuf);  // [2][2][kTile]: lse, di
   const int t = lay.t;
-  const int hd = lay.hd;
-  const int pitch = hd + 4;
-  float* qs = reinterpret_cast<float*>(smem);  // [kTile][pitch]
-  float* os = qs + kTile * pitch;              // [kTile][pitch]: dO
-  float* lt = os + kTile * pitch;              // [kTile]: lse
-  float* dt = lt + kTile;                      // [kTile]: di
-  float* kbuf = dt + kTile;                    // [kWarps][R][hd]
-  float* vbuf = kbuf + kWarps * R * hd;        // [kWarps][R][hd]
-  float* pbuf = vbuf + kWarps * R * hd;        // [kWarps][R][kTile]
-  float* dsbuf = pbuf + kWarps * R * kTile;    // [kWarps][R][kTile]
   const int slab = blockIdx.x / k_tiles;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int c0 = (blockIdx.x - slab * k_tiles) * kTile + warp * R;
+  const int group = warp / kF32Split;
+  const int part = warp - group * kF32Split;
+  const int b0 = (blockIdx.x - slab * k_tiles) * kTile;
+  const int k0 = b0 + group * 16;
   const int64_t ts = lay.qkv.t;
+  const int64_t dts = lay.dout.t;
   const int64_t in_off = lay.head(lay.qkv, slab);
-  const int64_t do_off = lay.head(lay.dout, slab);
+  const float* qh = q + in_off;
+  const float* oh = dout + lay.head(lay.dout, slab);
   const float* lh = lse + static_cast<int64_t>(slab) * t;
   const float* dh = di + static_cast<int64_t>(slab) * t;
-  float* kw = kbuf + warp * R * hd;
-  float* vw = vbuf + warp * R * hd;
-  float* pw = pbuf + warp * R * kTile;
-  float* dsw = dsbuf + warp * R * kTile;
-  load_rows(kw, k + in_off, ts, c0, t, hd);
-  load_rows(vw, v + in_off, ts, c0, t, hd);
+  const int q_tiles = (t + kTile - 1) / kTile;
 
-  float av[R][kDimsPerLane], ak[R][kDimsPerLane];
+  if constexpr (!kF32HeldA) {
+    stage_rows_f32<HD>(own, k + in_off + b0 * ts, ts, t - b0, kTile);
+    stage_rows_f32<HD>(own + kBuf, v + in_off + b0 * ts, ts, t - b0, kTile);
+  }
+  // query tile r into buffer b: Q, dO, then lse and di (three commit groups)
+  const auto stage = [&](int b, int r) {
+    stage_rows_f32<HD>(qs + b * kBuf, qh + r * ts, ts, t - r, kTile);
+    stage_rows_f32<HD>(os + b * kBuf, oh + r * dts, dts, t - r, kTile);
+    stage_stats(stat + b * 2 * kTile, lh, dh, r, t);
+  };
+  stage(0, 0);
+  OwnA<HD> ka, va;
+  own_a<HD>(ka, k + in_off, ts, k0, t, own, b0);
+  own_a<HD>(va, v + in_off, ts, k0, t, own + kBuf, b0);
+
+  float av[HD / 8][4], ak[HD / 8][4];
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int m = 0; m < HD / 8; ++m) {
 #pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) av[r][i] = ak[r][i] = 0.f;
-  for (int q0 = 0; q0 < t; q0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile(qs, q + in_off, ts, q0, t, hd);
-    stage_tile(os, dout + do_off, lay.dout.t, q0, t, hd);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool in = q0 + i < t;
-      lt[i] = in ? lh[q0 + i] : 0.f;
-      dt[i] = in ? dh[q0 + i] : 0.f;
+    for (int e = 0; e < 4; ++e) av[m][e] = ak[m][e] = 0.f;
+  }
+  for (int j = 0; j < q_tiles; ++j) {
+    const int cur = j & 1;
+    if (j + 1 < q_tiles) {
+      stage(cur ^ 1, (j + 1) * kTile);
+      cp_async_wait<3>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and the block's own rows) are in shared memory
+    if (k0 < t) {
+      const int rows = t - j * kTile;  // queries of the tile below T
+      const float* lt = stat + cur * 2 * kTile;
+      if (rows >= kTile) {
+        dkv_tile<false, HD>(ak, av, ka, va, qs + cur * kBuf, os + cur * kBuf, lt, part, rows, scale);
+      } else {
+        dkv_tile<true, HD>(ak, av, ka, va, qs + cur * kBuf, os + cur * kBuf, lt, part, rows, scale);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer cur before it is staged again
+  }
+  if constexpr (kF32Split > 1) {
+    float* red = reinterpret_cast<float*>(smem) + group * 32 * HD;  // the staging is free now
+    if (part == 1) {
+      park<HD>(red, ak);
+      park<HD>(red + 16 * HD, av);
     }
     __syncthreads();
-    if (c0 >= t) continue;
-    // S and dP for R keys; lane owns queries lane + 32 i of the tile, in the
-    // dQ pass's element order: S[i][j] = sum_d q[i][d] k[j][d]
-    float s[R][kPerLane], dp[R][kPerLane];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) s[r][i] = dp[r][i] = 0.f;
-    for (int d = 0; d < hd; d += 4) {
-      float4 kv[R], vv[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        kv[r] = load4(kw + r * hd + d);  // broadcast
-        vv[r] = load4(vw + r * hd + d);
-      }
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const float4 qv = load4(qs + (lane + 32 * i) * pitch + d);
-        const float4 ov = load4(os + (lane + 32 * i) * pitch + d);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          s[r][i] = dot4(qv, kv[r], s[r][i]);
-          dp[r][i] = dot4(ov, vv[r], dp[r][i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int qi = lane + 32 * i;
-      const bool in = q0 + qi < t;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float p = in ? expf(s[r][i] * scale - lt[qi]) : 0.f;
-        pw[r * kTile + qi] = p;
-        dsw[r * kTile + qi] = (dp[r][i] - dt[qi]) * p * scale;
-      }
-    }
-    __syncwarp();
-    // dV += P^T dO and dK += dS^T Q: lane owns dims lane + 32 i, for R keys
-    for (int qi = 0; qi < kTile; ++qi) {
-      float pv[R], dsv[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        pv[r] = pw[r * kTile + qi];  // broadcast
-        dsv[r] = dsw[r * kTile + qi];
-      }
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) {
-          const float ov = os[qi * pitch + d];
-          const float qv = qs[qi * pitch + d];
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            av[r][i] = fmaf(pv[r], ov, av[r][i]);
-            ak[r][i] = fmaf(dsv[r], qv, ak[r][i]);
-          }
-        }
-      }
-    }
-    __syncwarp();  // P and dS are read before the next tile overwrites them
+    if (part == 1) return;
+    unpark<HD>(red, ak);
+    unpark<HD>(red + 16 * HD, av);
   }
-  if (c0 >= t) return;
+  if (k0 >= t) return;
   const int64_t g_off = lay.head(lay.grad, slab);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int key = c0 + r;
-    if (key < t) {
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) {
-          dk[g_off + key * lay.grad.t + d] = ak[r][i];
-          dv[g_off + key * lay.grad.t + d] = av[r][i];
-        }
-      }
-    }
-  }
+  store_rows_f32<HD>(dk + g_off, lay.grad.t, k0, t, ak);
+  store_rows_f32<HD>(dv + g_off, lay.grad.t, k0, t, av);
 }
 
 // ---------------------------------------------------------------------------
@@ -938,6 +1145,39 @@ int dkv_bf16(const void* q, const void* k, const void* v, const void* dout, cons
                 scale);
 }
 
+template <int HD>
+int dq_f32(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse, float* di,
+           void* dq, int blocks, int tiles, const Layout& lay, float scale, cudaStream_t s) {
+  return launch(flash_dq_f32<HD>, blocks, kF32Threads, smem_bytes_bwd_f32<HD>(false), s,
+                static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                static_cast<const float*>(o), static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), lay,
+                tiles, scale);
+}
+
+template <int HD>
+int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* di,
+            void* dk, void* dv, int blocks, int tiles, const Layout& lay, float scale, cudaStream_t s) {
+  return launch(flash_dkv_f32<HD>, blocks, kF32Threads, smem_bytes_bwd_f32<HD>(true), s,
+                static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv), lay,
+                tiles, scale);
+}
+
+// Resident blocks per SM of flash_dkv_f32<HD> (dkv) or flash_dq_f32<HD>
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a negative cudaError_t if
+// the query failed.
+template <int HD>
+int bwd_f32_blocks_per_sm(int dkv) {
+  const size_t smem = smem_bytes_bwd_f32<HD>(dkv != 0);
+  cudaError_t err = dkv ? allow_smem(flash_dkv_f32<HD>, smem) : allow_smem(flash_dq_f32<HD>, smem);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = dkv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_dkv_f32<HD>, kF32Threads, smem)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_dq_f32<HD>, kF32Threads, smem);
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 // Calls fn<HD>(args...) for the runtime head dim (a multiple of 16 up to 128).
 #define THEIA_FLASH_BY_HD(fn, hd, ...)                 \
   switch (hd) {                                        \
@@ -997,9 +1237,7 @@ int theia_flash_dq(const void* q, const void* k, const void* v, const void* o, c
   const int blocks = batch * heads * tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch(flash_dq_f32, blocks, kThreads, smem_bytes_f32(hd, 2, 0, 2, 1), s, static_cast<const float*>(q),
-                  static_cast<const float*>(k), static_cast<const float*>(v), static_cast<const float*>(o),
-                  static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), lay, tiles, scale);
+    THEIA_FLASH_BY_HD(dq_f32, hd, q, k, v, o, dout, lse, di, dq, blocks, tiles, lay, scale, s)
   }
   THEIA_FLASH_BY_HD(dq_bf16, hd, q, k, v, o, dout, lse, di, dq, blocks, tiles, lay, scale, s)
 }
@@ -1018,12 +1256,18 @@ int theia_flash_dkv(const void* q, const void* k, const void* v, const void* dou
   const int blocks = batch * heads * tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch(flash_dkv_f32, blocks, kThreads, smem_bytes_f32(hd, 2, 2 * kTile, 2, 2), s,
-                  static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-                  static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv), lay,
-                  tiles, scale);
+    THEIA_FLASH_BY_HD(dkv_f32, hd, q, k, v, dout, lse, di, dk, dv, blocks, tiles, lay, scale, s)
   }
   THEIA_FLASH_BY_HD(dkv_bf16, hd, q, k, v, dout, lse, di, dk, dv, blocks, tiles, lay, scale, s)
+}
+
+// Resident blocks per SM of the float32 K9 (dkv = 0) or K8 (dkv = 1) at head
+// dim hd, with the threads of one of their blocks in *threads; a negative
+// cudaError_t if the query failed.
+int theia_flash_bwd_f32_blocks_per_sm(int hd, int dkv, int* threads) {
+  if (hd < 16 || hd > kMaxHd || hd % 16 != 0) return -static_cast<int>(cudaErrorInvalidValue);
+  *threads = kF32Threads;
+  THEIA_FLASH_BY_HD(bwd_f32_blocks_per_sm, hd, dkv)
 }
 
 }  // extern "C"

@@ -390,81 +390,6 @@ size_t smem_bytes_f32(int t, int hd, bool cols) {
   return (2 * t8 * (hd + 4) + 3 * (cols ? t8 : kRowMaxWarps * 16)) * sizeof(float);
 }
 
-// Copy `rows` token rows of a slab (row r at src + r * stride) into shared
-// rows of pitch HD + 4 with cp.async, as one commit group; rows from T up to
-// `rows` become zeros.
-template <int HD>
-__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, int64_t stride, int t, int rows) {
-  constexpr int kVecs = HD / 4;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * kVecs; i += blockDim.x) {
-    const int r = i / kVecs;
-    const int c = (i - r * kVecs) * 4;
-    float* d = dst + r * (HD + 4) + c;
-    if (r < t) {
-      cp_async16(d, src + r * stride + c);
-    } else {
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  cp_async_commit();
-}
-
-// The A fragment of rows r0 .. r0 + 15 of a slab (token stride ts) at
-// columns col .. col + 7, from global memory; rows past T are zeros.
-__device__ __forceinline__ void load_a_f32(float (&a)[4], const float* x, int64_t ts, int r0, int t, int col) {
-  const int lane = threadIdx.x & 31;
-  const int ra = r0 + (lane >> 2);
-  const int rb = ra + 8;
-  const float* pa = x + ra * ts + col + (lane & 3);
-  const float* pb = x + rb * ts + col + (lane & 3);
-  a[0] = ra < t ? pa[0] : 0.f;
-  a[1] = rb < t ? pb[0] : 0.f;
-  a[2] = ra < t ? pa[4] : 0.f;
-  a[3] = rb < t ? pb[4] : 0.f;
-}
-
-// The A operand of an HD-deep product over rows r0 .. r0 + 15 of a slab,
-// read once from global memory and kept as float32 (HD / 2 registers a
-// thread), split into tf32 halves at each use (three instructions an
-// element, which costs less than the registers the halves would hold).
-template <int HD>
-struct RowsA {
-  float raw[HD / 8][4];
-
-  __device__ __forceinline__ void load(const float* x, int64_t ts, int r0, int t) {
-#pragma unroll
-    for (int s = 0; s < HD / 8; ++s) load_a_f32(raw[s], x, ts, r0, t, 8 * s);
-  }
-};
-
-// c (an 8-column tile) = A times rows n*8 .. n*8 + 7 of a staged [.][HD + 4]
-// tensor, transposed: C[i][j] = sum_d A[i][d] X[n*8 + j][d].
-template <bool kSmallAFirst, int HD>
-__device__ __forceinline__ void mma_rows_f32(float (&c)[4], const RowsA<HD>& a, const float* xs, int n) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-#pragma unroll
-  for (int s = 0; s < HD / 8; ++s) {
-    uint32_t a_big[4], a_small[4], b_big[2], b_small[2];
-    split_tf32(a.raw[s], a_big, a_small);
-    b_rows<HD + 4>(xs, 8 * n, 8 * s, b_big, b_small);
-    mma_3xtf32<kSmallAFirst>(c, a_big, a_small, b_big, b_small);
-  }
-}
-
-// acc[HD / 8 tiles] += C (a 16 x 8 accumulator tile over rows n*8 ..
-// n*8 + 7 of a staged [.][HD + 4] tensor, as the A operand) times those rows.
-template <int HD>
-__device__ __forceinline__ void mma_cols_f32(float (&acc)[HD / 8][4], const float (&c)[4], const float* xs, int n) {
-  uint32_t a_big[4], a_small[4];
-  c_as_a(c, a_big, a_small);
-#pragma unroll
-  for (int m = 0; m < HD / 8; ++m) {
-    uint32_t b_big[2], b_small[2];
-    b_cols<HD + 4>(xs, 8 * n, 8 * m, b_big, b_small);
-    mma_3xtf32(acc[m], a_big, a_small, b_big, b_small);
-  }
-}
-
 // The KS warps of a row group (named barrier 1 + group) combine their
 // partial values a, b of rows g and g + 8 in part order, through red[KS][16],
 // so that all of them end with the same numbers.
@@ -509,20 +434,6 @@ __device__ __forceinline__ void add_rows_f32(float (&acc)[HD / 8][4], const floa
       acc[n][2] += y.x;
       acc[n][3] += y.y;
     }
-  }
-}
-
-// Stores 16 rows (r0 ..) of an [HD]-wide accumulator, rows past T skipped.
-template <int HD>
-__device__ __forceinline__ void store_rows_f32(float* x, int64_t ts, int r0, int t, const float (&acc)[HD / 8][4]) {
-  const int lane = threadIdx.x & 31;
-  const int ra = r0 + (lane >> 2);
-  const int rb = ra + 8;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int d = n * 8 + 2 * (lane & 3);
-    if (ra < t) *reinterpret_cast<float2*>(x + ra * ts + d) = make_float2(acc[n][0], acc[n][1]);
-    if (rb < t) *reinterpret_cast<float2*>(x + rb * ts + d) = make_float2(acc[n][2], acc[n][3]);
   }
 }
 

@@ -1,32 +1,34 @@
-"""Time K2 float32, the attention backward (``csrc/mha_bwd.cu``), on one GPU
-against its plain version, SDPA's backward and other builds of its source.
+"""Time a float32 attention backward on one GPU against its plain version,
+SDPA's backward and other builds of its source: K2 (``csrc/mha_bwd.cu``) or
+the flash pair K9 + K8 (``csrc/flash_attn.cu``).
 
-    python -m theia_tpu_torch.tools.time_mha_bwd [--parent DIR] [--ablations]
+    python -m theia_tpu_torch.tools.time_mha_bwd [--kernel mha_bwd|flash_bwd] [--parent DIR] [--ablations]
 
 Builds the kernels (``kernels/build.py``) and prints ptxas's registers and
-spills of the float32 passes at hd = 64 and their resident blocks per SM at
-T = 197. ``--parent DIR`` also builds ``DIR/theia_tpu_torch/csrc/mha_bwd.cu``
-(an unpacked earlier tree); ``--ablations`` builds ``csrc/mha_bwd.cu`` once
-for each entry of ``ABLATIONS``, each undoing one choice of the kernel
-through the ``-D`` settings its source reads. The extra libraries build in
-parallel. Every build is held to ``mha_bwd_plain`` (max abs error within
-2e-5) at [16, 197, 12, 64] and [2, 17 | 65 | 256, 12, 64], then all are
-timed at [16, 197, 12, 64] as views of a packed projection, with SDPA's
-memory-efficient backward and the plain version, in the order a, b, ...,
-b, a (device time, the stream held while the host enqueues), twice after a
-round that warms the card. Exits nonzero without a card or on a
-disagreement.
+spills of the kernel's float32 passes at hd = 64 and their resident blocks
+per SM. ``--parent DIR`` also builds the same source of an unpacked earlier
+tree in DIR; ``--ablations`` builds the source once for each entry of the
+kernel's ``ablations``, each undoing one choice of the kernel through the
+``-D`` settings its source reads. The extra libraries build in parallel.
+Every build is held to the plain version (max abs error within 2e-5) at
+the check shapes, then all are timed at the timing shapes as views of a
+packed projection, with SDPA's memory-efficient backward and the plain
+version, in the order a, b, ..., b, a (device time, the stream held while
+the host enqueues), twice after a round that warms the card. Exits nonzero
+without a card or on a disagreement.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import math
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -35,24 +37,117 @@ from theia_tpu_torch.ops import attention
 from theia_tpu_torch.tools.timing import interleaved_ms, ptxas_usage, sdpa_backward
 
 F32_ATOL = 2e-5
-B, T, H, HD = 16, 197, 12, 64
-PASSES = (f"mha_bwd_rows_f32<{HD}>", f"mha_bwd_cols_f32<{HD}>")
-# name -> the -D settings of csrc/mha_bwd.cu and csrc/mma_tf32.cuh it builds with
-ABLATIONS = {
-    "rows_split1_warps4": ("THEIA_K2_ROW_SPLIT=1", "THEIA_K2_ROW_WARPS=4"),
-    "rows_split2_warps8": ("THEIA_K2_ROW_SPLIT=2", "THEIA_K2_ROW_WARPS=8"),
-    "rows_warps8": ("THEIA_K2_ROW_WARPS=8",),
-    "cvt_rna": ("THEIA_TF32_CVT_RNA",),
+H, HD = 12, 64
+PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+@dataclasses.dataclass(frozen=True)
+class Target:
+    source: str  # under theia_tpu_torch/csrc
+    passes: tuple[str, ...]  # ptxas names of its float32 kernels (the parent's where they differ)
+    ablations: dict[str, tuple[str, ...]]  # name -> the -D settings it builds with
+    checks: tuple[tuple[int, int, int], ...]  # (B, T, hd) held to the plain version, H = 2 where B = 2
+    timed: tuple[tuple[int, int], ...]  # (B, T) timed at [B, T, 12, 64]
+    signatures: dict[str, list]  # C function -> argtypes
+    launcher: Callable  # lib -> fn(*inputs) -> [B, T, 3, H, hd]
+    main: Callable  # the port's wrapper: fn(*inputs)
+    plain: Callable
+    inputs: Callable  # (q, k, v, do) -> the arguments of the three above
+
+
+def _strides(*xs):
+    return [s for x in xs for s in attention._outer_strides(x)]
+
+
+def _grads(q):
+    b, t, h, hd = q.shape
+    grads = torch.empty((b, t, 3, h, hd), dtype=q.dtype, device=q.device)
+    return grads, grads.unbind(2)
+
+
+def mha_launcher(lib: ctypes.CDLL):
+    """mha_bwd through another build of the library (no checks)."""
+    def run(q, k, v, do):
+        b, t, h, hd = q.shape
+        grads, (dq, dk, dv) = _grads(q)
+        stats = torch.empty((b * h, 3, t), dtype=torch.float32, device=q.device)
+        err = lib.theia_mha_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, t, hd, *_strides(q, do, dq), 0,
+                                1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed ({err})")
+        return grads
+    return run
+
+
+def flash_launcher(lib: ctypes.CDLL):
+    """K9 then K8 through another build of the library (no checks)."""
+    def run(q, k, v, o, lse, do):
+        b, t, h, hd = q.shape
+        grads, (dq, dk, dv) = _grads(q)
+        di = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+        scale, stream = 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream
+        err = lib.theia_flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                                 lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, h, t, hd, *_strides(q, o, do, dq), 0,
+                                 scale, stream)
+        err = err or lib.theia_flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                         di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, hd,
+                                         *_strides(q, do, dk), 0, scale, stream)
+        if err:
+            raise RuntimeError(f"launch failed ({err})")
+        return grads
+    return run
+
+
+TARGETS = {
+    "mha_bwd": Target(
+        source="mha_bwd.cu",
+        passes=(f"mha_bwd_rows_f32<{HD}>", f"mha_bwd_cols_f32<{HD}>"),
+        ablations={
+            "rows_split1_warps4": ("THEIA_K2_ROW_SPLIT=1", "THEIA_K2_ROW_WARPS=4"),
+            "rows_split2_warps8": ("THEIA_K2_ROW_SPLIT=2", "THEIA_K2_ROW_WARPS=8"),
+            "rows_warps8": ("THEIA_K2_ROW_WARPS=8",),
+            "cvt_rna": ("THEIA_TF32_CVT_RNA",),
+        },
+        checks=((16, 197, HD), (2, 17, HD), (2, 65, HD), (2, 256, HD)),
+        timed=((16, 197),),
+        signatures={"theia_mha_bwd": [PTR] * 8 + [I32] * 4 + [I64] * 6 + [I32, ctypes.c_float, PTR]},
+        launcher=mha_launcher,
+        main=attention.mha_bwd,
+        plain=attention.mha_bwd_plain,
+        inputs=lambda q, k, v, do: (q, k, v, do),
+    ),
+    "flash_bwd": Target(
+        source="flash_attn.cu",
+        passes=(f"flash_dq_f32<{HD}>", f"flash_dkv_f32<{HD}>", "flash_dq_f32", "flash_dkv_f32"),
+        ablations={
+            "split1": ("THEIA_FLASH_F32_SPLIT=1",),
+            "held_a": ("THEIA_FLASH_F32_HELD_A=1",),
+            "split1_held_a": ("THEIA_FLASH_F32_SPLIT=1", "THEIA_FLASH_F32_HELD_A=1"),
+            "cvt_rna": ("THEIA_TF32_CVT_RNA",),
+        },
+        checks=((16, 197, HD), (16, 785, HD),
+                *((2, t, hd) for hd in (16, 64, 80, 128) for t in (1, 15, 16, 17, 63, 64, 65, 130, 197))),
+        timed=((16, 197), (16, 785)),
+        signatures={"theia_flash_dq": [PTR] * 8 + [I32] * 4 + [I64] * 8 + [I32, ctypes.c_float, PTR],
+                    "theia_flash_dkv": [PTR] * 8 + [I32] * 4 + [I64] * 6 + [I32, ctypes.c_float, PTR]},
+        launcher=flash_launcher,
+        main=attention.flash_bwd,
+        plain=attention.flash_bwd_plain,
+        inputs=lambda q, k, v, do: (q, k, v, *attention.flash_fwd(q, k, v), do),  # K7's O and lse
+    ),
 }
 
 
-def print_ptxas(name: str, log: str) -> None:
+def print_ptxas(target: Target, name: str, log: str) -> None:
     usage = dict(ptxas_usage(log))
-    for k2 in PASSES:
-        print(f"  {name}: ptxas {k2}: {usage.get(k2)}")
+    for kernel in target.passes:
+        if kernel in usage:
+            print(f"  {name}: ptxas {kernel}: {usage[kernel]}")
 
 
-def build_libraries(sources: dict[str, tuple[Path, tuple[str, ...]]], work: Path) -> dict[str, ctypes.CDLL]:
+def build_libraries(target: Target, sources: dict[str, tuple[Path, tuple[str, ...]]],
+                    work: Path) -> dict[str, ctypes.CDLL]:
     """One shared library per (source, -D settings), nvcc processes in parallel."""
     procs = {}
     for name, (source, defines) in sources.items():
@@ -61,90 +156,93 @@ def build_libraries(sources: dict[str, tuple[Path, tuple[str, ...]]], work: Path
              str(work / f"lib{name}.so"), str(source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-4000:]}")
-        print_ptxas(name, log)
+        print_ptxas(target, name, log)
         lib = ctypes.CDLL(str(work / f"lib{name}.so"))
-        lib.theia_mha_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 6 + [i32, ctypes.c_float, ptr]
-        lib.theia_mha_bwd.restype = i32
+        for fn, argtypes in target.signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = I32
         libs[name] = lib
     return libs
 
 
-def launcher(lib: ctypes.CDLL):
-    """mha_bwd through another build of the library (no checks; views of a packed projection)."""
-    def run(q, k, v, do):
-        b, t, h, hd = q.shape
-        grads = torch.empty((b, t, 3, h, hd), dtype=q.dtype, device=q.device)
-        stats = torch.empty((b * h, 3, t), dtype=torch.float32, device=q.device)
-        dq, dk, dv = grads.unbind(2)
-        err = lib.theia_mha_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, t, hd,
-                                *attention._outer_strides(q), *attention._outer_strides(do),
-                                *attention._outer_strides(dq), 0, 1.0 / math.sqrt(hd),
-                                torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"launch failed ({err})")
-        return grads
-    return run
+def print_occupancy(kernel: str, lib: ctypes.CDLL) -> None:
+    """Resident blocks per SM of the port's float32 passes at hd = 64."""
+    threads = ctypes.c_int(0)
+    if kernel == "mha_bwd":
+        t = 197
+        for cols, name in enumerate(TARGETS[kernel].passes):
+            blocks = lib.theia_mha_bwd_f32_blocks_per_sm(t, HD, cols, ctypes.byref(threads))
+            print(f"  kernel: {name} at T = {t}: {blocks} resident blocks per SM of {threads.value} threads")
+    else:
+        for dkv, name in enumerate(TARGETS[kernel].passes[:2]):
+            blocks = lib.theia_flash_bwd_f32_blocks_per_sm(HD, dkv, ctypes.byref(threads))
+            print(f"  kernel: {name}: {blocks} resident blocks per SM of {threads.value} threads")
 
 
-def packed(b: int, t: int, gen: torch.Generator) -> tuple[torch.Tensor, ...]:
-    qkv = torch.randn(b, t, 3 * H * HD, device="cuda", generator=gen)
-    q, k, v = (y.view(b, t, H, HD) for y in qkv.split(H * HD, dim=-1))
-    return q, k, v, torch.randn(b, t, H, HD, device="cuda", generator=gen)
+def packed(b: int, t: int, h: int, hd: int, gen: torch.Generator) -> tuple[torch.Tensor, ...]:
+    qkv = torch.randn(b, t, 3 * h * hd, device="cuda", generator=gen)
+    q, k, v = (y.view(b, t, h, hd) for y in qkv.split(h * hd, dim=-1))
+    return q, k, v, torch.randn(b, t, h, hd, device="cuda", generator=gen)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parent", type=Path, help="an unpacked earlier tree whose csrc/mha_bwd.cu to time too")
-    parser.add_argument("--ablations", action="store_true", help="also time the builds of ABLATIONS")
+    parser.add_argument("--kernel", choices=sorted(TARGETS), default="mha_bwd",
+                        help="K2 (mha_bwd) or the flash pair K9 + K8 (flash_bwd)")
+    parser.add_argument("--parent", type=Path, help="an unpacked earlier tree whose source of the kernel to time too")
+    parser.add_argument("--ablations", action="store_true", help="also time the builds of the kernel's ablations")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_mha_bwd: no CUDA device", file=sys.stderr)
         return 1
+    target = TARGETS[args.kernel]
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
     lib_path = build.build()
-    lib = build.load()
-    print_ptxas("kernel", lib_path.with_suffix(".log").read_text())
-    for cols, k2 in enumerate(PASSES):
-        threads = ctypes.c_int(0)
-        blocks = lib.theia_mha_bwd_f32_blocks_per_sm(T, HD, cols, ctypes.byref(threads))
-        print(f"  kernel: {k2} at T = {T}: {blocks} resident blocks per SM of {threads.value} threads")
+    print_ptxas(target, "kernel", lib_path.with_suffix(".log").read_text())
+    print_occupancy(args.kernel, build.load())
     sources = {}
     if args.parent:
-        sources["parent"] = (args.parent / "theia_tpu_torch" / "csrc" / "mha_bwd.cu", ())
+        sources["parent"] = (args.parent / "theia_tpu_torch" / "csrc" / target.source, ())
     if args.ablations:
-        sources.update({name: (build.PACKAGE_DIR / "csrc" / "mha_bwd.cu", d) for name, d in ABLATIONS.items()})
-    fns = {"kernel": attention.mha_bwd}
+        sources.update({name: (build.PACKAGE_DIR / "csrc" / target.source, d) for name, d in target.ablations.items()})
+    fns = {"kernel": target.main}
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
-        fns.update({name: launcher(l) for name, l in build_libraries(sources, Path(work)).items()})
+        fns.update({name: target.launcher(lib) for name, lib in build_libraries(target, sources, Path(work)).items()})
         gen = torch.Generator(device="cuda").manual_seed(0)
-        for b, t in ((B, T), (2, 17), (2, 65), (2, 256)):
-            q, k, v, do = packed(b, t, gen)
-            want = attention.mha_bwd_plain(q, k, v, do)
-            errs = {name: float((fn(q, k, v, do) - want).abs().max()) for name, fn in fns.items()}
-            print(f"  [{b},{t},{H},{HD}] max abs error against mha_bwd_plain: "
-                  + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+        worst = dict.fromkeys(fns, 0.0)
+        for b, t, hd in target.checks:
+            q, k, v, do = packed(b, t, H if b > 2 else 2, hd, gen)
+            inputs = target.inputs(q, k, v, do)
+            want = target.plain(*inputs)
+            errs = {name: float((fn(*inputs) - want).abs().max()) for name, fn in fns.items()}
+            worst = {name: max(worst[name], e) for name, e in errs.items()}
+            if hd == HD and b > 2 or not all(e <= F32_ATOL for e in errs.values()):
+                print(f"  [{b},{t},{q.shape[2]},{hd}] max abs error against the plain version: "
+                      + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
             bad = [n for n, e in errs.items() if not e <= F32_ATOL]
             if bad:
-                print(f"time_mha_bwd: {bad} disagree with mha_bwd_plain (atol {F32_ATOL})", file=sys.stderr)
+                print(f"time_mha_bwd: {bad} disagree with the plain version (atol {F32_ATOL})", file=sys.stderr)
                 return 1
-        q, k, v, do = packed(B, T, gen)
-        timed = {name: (lambda fn=fn: fn(q, k, v, do)) for name, fn in fns.items()}
-        timed["plain"] = lambda: attention.mha_bwd_plain(q, k, v, do)
-        timed["sdpa"] = sdpa_backward(q, k, v, do)
-        for rep in range(3):  # the first round warms the card and is not printed
-            ms = interleaved_ms(timed)
-            if rep:
-                print(f"  [{B},{T},{H},{HD}] float32, device ms (order a..b..a, {card}): "
-                      + ", ".join(f"{n} {v:.4f}" for n, v in ms.items()))
+        print(f"  worst max abs error over the {len(target.checks)} check shapes: "
+              + ", ".join(f"{n} {e:.2e}" for n, e in worst.items()))
+        for b, t in target.timed:
+            q, k, v, do = packed(b, t, H, HD, gen)
+            inputs = target.inputs(q, k, v, do)
+            timed = {name: (lambda fn=fn: fn(*inputs)) for name, fn in fns.items()}
+            timed["plain"] = lambda: target.plain(*inputs)
+            timed["sdpa"] = sdpa_backward(q, k, v, do)
+            for rep in range(3):  # the first round warms the card and is not printed
+                ms = interleaved_ms(timed)
+                if rep:
+                    print(f"  [{b},{t},{H},{HD}] float32, device ms (order a..b..a, {card}): "
+                          + ", ".join(f"{n} {v:.4f}" for n, v in ms.items()))
     return 0
 
 
