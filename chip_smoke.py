@@ -8,7 +8,7 @@ failure (the script then exits nonzero and prints no result):
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes),
    ptxas's registers and spills, and the resident blocks per SM of K1 bf16,
-   of K2 float32's two passes and of float32 K9 and K8;
+   of K2 float32's two passes and of float32 K7, K9 and K8;
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
    64] as views of a packed QKV projection and over a sweep of head dim x
@@ -50,10 +50,10 @@ failure (the script then exits nonzero and prints no result):
    bound and library call.
 
 The last two lines of standard output are the kernels' JSON record (the
-bf16 figures; ``mha_bwd``, ``flash_dq`` and ``flash_dkv`` also carry their
-float32 ones under ``"float32"``, with the 3xTF32 tensor-core floor, and
-``flash_dkv``'s the pair K9 + K8's under ``"pair"``) and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
+bf16 figures; ``mha_bwd``, ``flash_fwd``, ``flash_dq`` and ``flash_dkv``
+also carry their float32 ones under ``"float32"``, with the 3xTF32
+tensor-core floor, and ``flash_dkv``'s the pair K9 + K8's under ``"pair"``)
+and ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
 directory without the package beside it, the script exits nonzero.
 """
 
@@ -443,7 +443,7 @@ def main() -> int:
     from theia_tpu_torch.train.optim import constant_with_warmup, make_optimizer, scaled_lr
     from theia_tpu_torch.train.state import TrainState
     from theia_tpu_torch.train.step import make_eval_step, make_train_step
-    from theia_tpu_torch.tools.timing import cuda_ms, interleaved_ms, ptxas_usage, sdpa_backward
+    from theia_tpu_torch.tools.timing import cuda_ms, interleaved_ms, ptxas_usage, sdpa_backward, sdpa_forward
 
     # phase 1: the card
     card = subprocess.run(
@@ -477,11 +477,12 @@ def main() -> int:
         print(f"  K2 {k2} (T = 197): ptxas {usage.get(k2)}; {k2_blocks} resident blocks per SM "
               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block)")
         check(k2 in usage and k2_blocks > 0, f"K2's ptxas line or occupancy query is missing ({k2_blocks})")
-    # K9 and K8 float32 (3xTF32) at the main path's head dim
-    for dkv, kernel in enumerate((f"flash_dq_f32<{HEAD_DIM}>", f"flash_dkv_f32<{HEAD_DIM}>")):
+    # K7, K9 and K8 float32 (3xTF32) at the main path's head dim
+    for number, kernel in ((7, f"flash_fwd_f32<{HEAD_DIM}>"), (9, f"flash_dq_f32<{HEAD_DIM}>"),
+                           (8, f"flash_dkv_f32<{HEAD_DIM}>")):
         threads = ctypes.c_int(0)
-        blocks = build.load().theia_flash_bwd_f32_blocks_per_sm(HEAD_DIM, dkv, ctypes.byref(threads))
-        print(f"  {('K9', 'K8')[dkv]} {kernel}: ptxas {usage.get(kernel)}; {blocks} resident blocks per SM "
+        blocks = build.load().theia_flash_f32_blocks_per_sm(HEAD_DIM, number, ctypes.byref(threads))
+        print(f"  K{number} {kernel}: ptxas {usage.get(kernel)}; {blocks} resident blocks per SM "
               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block)")
         check(kernel in usage and blocks > 0, f"{kernel}'s ptxas line or occupancy query is missing ({blocks})")
 
@@ -919,18 +920,27 @@ def main() -> int:
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         return t, bound, by
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     # the float32 records of the kernels whose float32 runs on the tensor
-    # cores (K2 at [16, 197], K9 and K8 at [16, 785])
+    # cores (K2 at [16, 197], K7, K9 and K8 at [16, 785])
     f32_records = {}
+
+    def tf32_row(key: str, label: str, res, tc_flops: float, shape: str, err=None) -> None:
+        """Print a float32 kernel's time against both bounds, the FMA peak's
+        and the 3xTF32 tensor-core floor (three tf32 products for each
+        float32 one); with ``err``, keep its float32 record."""
+        (tm, bound, by), tc_bound = res, 3 * tc_flops / TF32_FLOPS * 1e3
+        print(f"    {label} float32 {shape}: kernel / bound {tm['kernel'] / bound:.2f}x ({by}, FMA peak); "
+              f"kernel / 3xTF32 tensor-core floor ({tc_bound * 1e3:.1f} us) {tm['kernel'] / tc_bound:.2f}x")
+        if err is not None:
+            f32_records[key] = {"ms": tm["kernel"], "plain_ms": tm["plain"], "library_ms": tm.get("library"),
+                                "max_abs_err": err, "bound_ms": bound, "bound_by": by, "tf32x3_bound_ms": tc_bound}
 
     for dtype in (torch.float32, bf16):
         q, k, v = packed_qkv(64, 197, dtype, gen)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         n = q.numel()
         res = kernel_row("K1 mha_fwd", {
             "plain": lambda: attention.mha_fwd_plain(q, k, v), "kernel": lambda: attention.mha_fwd(q, k, v),
-            "library": lambda: sdpa(qt, kt, vt)}, 4 * n * q.element_size(), 4 * 64 * 12 * 197 ** 2 * 64,
+            "library": sdpa_forward(q, k, v)}, 4 * n * q.element_size(), 4 * 64 * 12 * 197 ** 2 * 64,
             dtype, "[64,197,12,64]")
         if dtype == bf16:
             record["mha_fwd"] = res
@@ -946,15 +956,8 @@ def main() -> int:
         if dtype == bf16:
             record["mha_bwd"] = res
         else:
-            # float32 K2 runs its products as 3xTF32 on the tensor cores: its
-            # time against that floor too, beside the FMA bound
-            (t, bound, by), tc_bound = res, 3 * flops / TF32_FLOPS * 1e3
-            f32_records["mha_bwd"] = {
-                "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
-                "max_abs_err": kernel_errors[("mha_bwd", dtype, TRAIN_BATCH, 197)], "bound_ms": bound,
-                "bound_by": by, "tf32x3_bound_ms": tc_bound}
-            print(f"    K2 float32: kernel / bound {t['kernel'] / bound:.2f}x ({by}, FMA peak); kernel / 3xTF32 "
-                  f"tensor-core floor ({tc_bound * 1e3:.1f} us) {t['kernel'] / tc_bound:.2f}x")
+            tf32_row("mha_bwd", "K2", res, flops, f"[{TRAIN_BATCH},197,12,64]",
+                     kernel_errors[("mha_bwd", dtype, TRAIN_BATCH, 197)])
     # K7 at serving's [64, 197] and 448² images' [16, 785]; K9 and K8 at
     # training's [16, 197] and [16, 785], each against its plain part, and
     # the pair against the plain backward and SDPA's backward
@@ -962,14 +965,18 @@ def main() -> int:
     for dtype in (torch.float32, bf16):
         for b, t in ((64, 197), (BIG_BATCH, BIG_T)):
             q, k, v = packed_qkv(b, t, dtype, gen)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             n, bh = q.numel(), b * HEADS
+            flops = 4 * bh * t * t * HEAD_DIM
             res = kernel_row("K7 flash_fwd", {
                 "plain": lambda: attention.flash_fwd_plain(q, k, v), "kernel": lambda: attention.flash_fwd(q, k, v),
-                "library": lambda: sdpa(qt, kt, vt)}, 4 * n * q.element_size() + bh * t * 4,
-                4 * bh * t * t * HEAD_DIM, dtype, f"[{b},{t},12,64]")
+                "library": sdpa_forward(q, k, v)}, 4 * n * q.element_size() + bh * t * 4, flops, dtype,
+                f"[{b},{t},12,64]")
             if dtype == bf16 and t == BIG_T:
                 record["flash_fwd"] = res
+            elif dtype == torch.float32:
+                # float32 K7 runs its products as 3xTF32 on the tensor cores
+                tf32_row("flash_fwd", "K7", res, flops, f"[{b},{t},12,64]",
+                         kernel_errors[("flash_fwd", dtype, b, t)] if t == BIG_T else None)
         for t in (197, BIG_T):
             q, k, v = packed_qkv(TRAIN_BATCH, t, dtype, gen)
             do = torch.randn(TRAIN_BATCH, t, HEADS, HEAD_DIM, device="cuda", generator=gen).to(dtype)
@@ -992,19 +999,13 @@ def main() -> int:
             if dtype == bf16 and t == BIG_T:
                 record["flash_dq"], record["flash_dkv"] = r9, r8
             elif dtype == torch.float32:
-                # float32 K9 and K8 run their products as 3xTF32 on the
-                # tensor cores: their times against that floor too
-                for key, label, (tm, bound, by), products in (("flash_dq", "K9", r9, 6), ("flash_dkv", "K8", r8, 8),
-                                                              ("pair", "K9 + K8", rp, 14)):
-                    tc_bound = 3 * products * bh * t * t * HEAD_DIM / TF32_FLOPS * 1e3
-                    print(f"    {label} float32 {shape}: kernel / bound {tm['kernel'] / bound:.2f}x ({by}, FMA peak); "
-                          f"kernel / 3xTF32 tensor-core floor ({tc_bound * 1e3:.1f} us) {tm['kernel'] / tc_bound:.2f}x")
-                    if t == BIG_T:
-                        f32_records[key] = {
-                            "ms": tm["kernel"], "plain_ms": tm["plain"], "library_ms": tm.get("library"),
-                            "bound_ms": bound, "bound_by": by, "tf32x3_bound_ms": tc_bound}
-    for key in ("flash_dq", "flash_dkv"):
-        f32_records[key]["max_abs_err"] = kernel_errors[(key, torch.float32, BIG_BATCH, BIG_T)]
+                # float32 K9 and K8 run their products as 3xTF32 on the tensor cores
+                errs = {key: kernel_errors[(key, dtype, BIG_BATCH, BIG_T)] for key in ("flash_dq", "flash_dkv")}
+                errs["pair"] = max(errs.values())
+                for key, label, res, products in (("flash_dq", "K9", r9, 6), ("flash_dkv", "K8", r8, 8),
+                                                  ("pair", "K9 + K8", rp, 14)):
+                    flops = products * bh * t * t * HEAD_DIM
+                    tf32_row(key, label, res, flops, shape, errs[key] if t == BIG_T else None)
     f32_records["flash_dkv"]["pair"] = f32_records.pop("pair")
     for dtype, s in [(bf16, 16), (bf16, 31), (bf16, 64), (torch.float32, 64)]:
         x, g, w, mean, r = ln_inputs(TRAIN_BATCH, 768, s, dtype, gen)

@@ -1,7 +1,8 @@
 """The port's flash attention against the JAX package: the plain versions of
 K7 (forward), K9 (dQ) and K8 (dK, dV) against the TPU flash attention
 library that ``theia_tpu.ops.attention._flash_attention`` calls, run on the
-CPU in interpret mode, forward and ``jax.vjp``; against ``_einsum_attention``
+CPU in interpret mode, forward (O, and lse from the library's saved row
+statistics) and ``jax.vjp``; against ``_einsum_attention``
 at T = 785, where the reference's flash path refuses its block sizes; the
 autograd function (gradcheck in float64); the dispatch, the wrappers'
 checks, and (on a card) the CUDA kernels against the plain versions.
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as flash_library
 
 from theia_tpu.ops import attention as jattn
 from theia_tpu_torch.ops import attention as tattn
@@ -92,6 +94,39 @@ def test_plain_backward_matches_the_tpu_flash_kernels_across_head_dims(t, hd):
     grads = tattn.flash_bwd_plain(tq, tk, tv, o, lse, tdo)
     for i, w in enumerate(want_grads):
         _close(grads[:, :, i], w, torch.float32, None)
+
+
+def _library_o_lse(q, k, v, monkeypatch):
+    """O of the reference's flash path in interpret mode, float32, and lse =
+    m + log(l) from the row statistics its library call keeps: the same call
+    with ``save_residuals``, which returns O beside l and m."""
+    saved = []
+
+    def with_residuals(q, k, v, ab=None, segment_ids=None, *, causal=False, sm_scale=1.0, block_sizes=None,
+                       debug=False):
+        o, l, m = flash_library._flash_attention(q, k, v, ab, segment_ids, True, causal, sm_scale, block_sizes, debug)
+        saved.append((l, m))
+        return o
+
+    monkeypatch.setattr(flash_library, "flash_attention", with_residuals)
+    b, t, h, _ = q.shape
+    with pltpu.force_tpu_interpret_mode():
+        o = jattn._flash_attention(*map(jnp.asarray, (q, k, v)), jnp.float32)
+    ((l, m),) = saved
+    return np.asarray(o), np.asarray((m + jnp.log(l))[:, :, :t]).reshape(b * h, t)
+
+
+@pytest.mark.parametrize("hd", (32, 128))
+@pytest.mark.parametrize("t", (15, 16, 63, 64))
+def test_plain_forward_matches_the_tpu_flash_kernel_at_the_tile_edges(t, hd, monkeypatch):
+    """The float32 flash forward's plain version (O and lse) against the
+    reference's flash path in interpret mode at the edges of float32 K7's
+    16-row groups and 64-key tiles, beside and at its widest head dim."""
+    q, k, v = _arrays((1, t, H, hd), 3, seed=t * 1000 + hd + 7)
+    want_o, want_lse = _library_o_lse(q, k, v, monkeypatch)
+    o, lse = tattn.flash_fwd_plain(*map(torch.from_numpy, (q, k, v)))
+    _close(o, want_o, torch.float32, None)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-5, rtol=0)
 
 
 def test_plain_matches_einsum_where_the_reference_flash_path_refuses():
@@ -264,6 +299,28 @@ def test_cuda_pallas_past_max_t_runs_the_flash_kernels(cuda):
     torch.cuda.synchronize()
     after = _counts()
     assert [after[n] - before[n] for n in COUNTERS] == [0, 0, 1, 1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", (1, 15, 16, 17, 63, 64, 65, 130, 197, 257, 785))
+@pytest.mark.parametrize("hd", (16, 32, 48, 64, 80, 96, 112, 128))
+def test_cuda_float32_forward_kernel_matches_plain(cuda, hd, t):
+    """Float32 K7 (3xTF32) against its plain version at every head dim and
+    at the edges of its 16-row groups, 8-key tiles and 64-key tiles, on
+    views of a packed projection; one launch a call."""
+    gen = torch.Generator().manual_seed(hd * 1000 + t + 1)
+    qkv = torch.randn(2, t, 3 * 2 * hd, generator=gen).to(cuda)
+    q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+    before = _counts()
+    o, lse = tattn.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert {n: after[n] - before[n] for n in COUNTERS} == {
+        "MHA_FWD_LAUNCHES": 0, "MHA_BWD_LAUNCHES": 0, "FLASH_FWD_LAUNCHES": 1, "FLASH_DKV_LAUNCHES": 0,
+        "FLASH_DQ_LAUNCHES": 0}
+    want_o, want_lse = tattn.flash_fwd_plain(q, k, v)
+    torch.testing.assert_close(o, want_o, atol=2e-5, rtol=0)
+    assert _rel_l2(lse.cpu(), want_lse.cpu()) <= 1e-5
 
 
 @pytest.mark.gpu

@@ -45,33 +45,35 @@
 //   S^T = K Q^T and dP^T = V dO^T, whose accumulators are the A operands of
 //   dV = P^T dO and dK = dS^T Q, as K2's column pass does.
 //
-// float32 forward, CUDA cores (flash_fwd_f32): the products run as FMAs, as
-//   in K1: 16 warps of 4 rows a block, lane j owning keys j and j + 32 of a
-//   tile, then dims j, j + 32, ... of the output. Tiles are staged once per
-//   step (no double buffer).
-//
-// float32 backward, tensor cores as 3xTF32 (flash_dq_f32, flash_dkv_f32): no
-//   tensor-core instruction multiplies in full float32, so each product is
-//   three tf32 mma.sync m16n8k8 over operands split into big and small
-//   halves (mma_tf32.cuh), ~2^-21 relative, as in K2's float32 passes. At
-//   [16, 785, 12, 64] the pair does 106 GFLOP: 1.58 ms at the CUDA cores'
-//   67 TFLOP/s, 0.64 ms as three tf32 products at the tensor cores' 495.
-//   A block owns 64 rows (queries in dQ, keys in dK/dV) and streams the
-//   other side in double-buffered cp.async tiles of 64, rows past T
-//   zero-filled and masked by bounds. Each 16-row group is two warps that
-//   take alternate 8-column tiles of a streamed tile and add their partial
-//   sums once, at the end, in part order. The block's own rows (Q and dO; K
+// float32, tensor cores as 3xTF32 (flash_fwd_f32, flash_dq_f32,
+//   flash_dkv_f32): no tensor-core instruction multiplies in full float32,
+//   so each product is three tf32 mma.sync m16n8k8 over operands split into
+//   big and small halves (mma_tf32.cuh), ~2^-21 relative, as in K2's float32
+//   passes. At [16, 785, 12, 64] the forward does 30 GFLOP and the backward
+//   pair 106: 0.45 and 1.58 ms at the CUDA cores' 67 TFLOP/s, 0.18 and 0.64
+//   ms as three tf32 products at the tensor cores' 495. A block owns 64 rows
+//   (queries in the forward and dQ, keys in dK/dV) and streams the other
+//   side in double-buffered cp.async tiles of 64, rows past T zero-filled
+//   and masked by bounds. Each 16-row group is two warps that take
+//   alternate 8-column tiles of a streamed tile and add their partial sums
+//   once, at the end, in part order. The block's own rows (Q; Q and dO; K
 //   and V) are staged once in shared memory and each k-step's A fragment is
-//   read there, so a thread holds only its accumulators and its S and dP
-//   tiles. dQ: S = Q K^T, dP = dO V^T, then dS, still in the accumulators,
-//   is the A operand of dQ += dS K with K read down columns (c_as_a,
-//   b_cols), so dS never leaves registers. dK, dV: S^T = K Q^T and dP^T =
-//   V dO^T issue their correction terms transposed, so S and dP add the dQ
-//   pass's terms in its order and, with the scale multiply pinned and the
-//   exact expf, P and dS are the numbers the dQ pass forms; P^T and dS^T
-//   are the A operands of dV += P^T dO and dK += dS^T Q. The two choices
-//   of the block's shape are -D switches (THEIA_FLASH_F32_SPLIT,
-//   THEIA_FLASH_F32_HELD_A), timed in PERF.md.
+//   read there, so a thread holds only its accumulators and its S (and dP)
+//   tiles. Forward: S = Q K^T, then the online softmax on the accumulators,
+//   each warp keeping the running max, sum and O over its own keys; P,
+//   still in the accumulators, is the A operand of O += P V with V read
+//   down columns (c_as_a, b_cols), so P never leaves registers; at the end
+//   the two warps of a group meet once, each part's sum and O rescaled by
+//   exp(m_part - m) to the group's max m. dQ: S = Q K^T, dP = dO V^T, then
+//   dS, in the accumulators, is the A operand of dQ += dS K in the same
+//   way. dK, dV: S^T = K Q^T and dP^T = V dO^T issue their correction terms
+//   transposed, so S and dP add the dQ pass's terms in its order and, with
+//   the scale multiply pinned and the exact expf, P and dS are the numbers
+//   the dQ pass forms (the forward forms S in the dQ pass's order); P^T and
+//   dS^T are the A operands of dV += P^T dO and dK += dS^T Q. The choices of
+//   the block's shape are -D switches (THEIA_FLASH_F32_SPLIT,
+//   THEIA_FLASH_F32_HELD_A, THEIA_FLASH_FWD_F32_SHARED_MAX), timed in
+//   PERF.md.
 //
 // No atomics: each pass owns one reduction direction, so the results are
 // deterministic. wgmma, TMA and warp specialisation are later work.
@@ -111,18 +113,6 @@ struct Layout {
     return static_cast<int64_t>(slab / heads) * s.b + static_cast<int64_t>(slab % heads) * hd;
   }
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // Sum over the 4 lanes of a fragment row group (lanes 4g .. 4g + 3).
 __device__ __forceinline__ float quad_sum(float v) {
@@ -483,198 +473,37 @@ __global__ void __launch_bounds__(kTcThreads)
 }
 
 // ---------------------------------------------------------------------------
-// float32 forward: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;                    // rows a warp
-constexpr int kPerLane = kTile / 32;        // keys of a tile a lane owns
-constexpr int kDimsPerLane = kMaxHd / 32;   // output dims a lane owns
-static_assert(kWarps * kRows == kTile, "a block owns one tile of rows");
-
-__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-
-// acc + a . b over four elements, in element order.
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  acc = fmaf(a.w, b.w, acc);
-  return acc;
-}
-
-// Rows [r, r + kTile) of a slab (row i at src + i * stride) into shared rows
-// of pitch hd + 4; rows from T on become zeros.
-__device__ __forceinline__ void stage_tile(float* dst, const float* src, int64_t stride, int r, int t, int hd) {
-  const int quads = hd / 4;
-  for (int i = threadIdx.x; i < kTile * quads; i += kThreads) {
-    const int rr = i / quads;
-    const int c = (i - rr * quads) * 4;
-    *reinterpret_cast<float4*>(dst + rr * (hd + 4) + c) =
-        r + rr < t ? load4(src + (r + rr) * stride + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// kRows rows (r0 ..) of a slab into a warp's [kRows][hd] buffer; rows from T on are zeros.
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t stride, int r0, int t, int hd) {
-  const int lane = threadIdx.x & 31;
-  for (int idx = lane; idx < kRows * hd; idx += 32) {
-    const int rr = idx / hd;
-    const int d = idx - rr * hd;
-    dst[idx] = r0 + rr < t ? src[(r0 + rr) * stride + d] : 0.f;
-  }
-}
-
-// Shared memory of the float32 forward: `tiles` staged [kTile][hd + 4]
-// tiles, `stats` floats, and per warp `row_bufs` [kRows][hd] buffers and
-// `key_bufs` [kRows][kTile] buffers.
-size_t smem_bytes_f32(int hd, int tiles, int stats, int row_bufs, int key_bufs) {
-  return (static_cast<size_t>(tiles) * kTile * (hd + 4) + stats +
-          static_cast<size_t>(kWarps) * kRows * (row_bufs * hd + key_bufs * kTile)) *
-         sizeof(float);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                  float* __restrict__ o, float* __restrict__ lse, Layout lay, int q_tiles, float scale) {
-  constexpr int R = kRows;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int t = lay.t;
-  const int hd = lay.hd;
-  const int pitch = hd + 4;
-  float* ks = reinterpret_cast<float*>(smem);  // [kTile][pitch]
-  float* vs = ks + kTile * pitch;              // [kTile][pitch]
-  float* qbuf = vs + kTile * pitch;            // [kWarps][R][hd]
-  float* pbuf = qbuf + kWarps * R * hd;        // [kWarps][R][kTile]
-  const int slab = blockIdx.x / q_tiles;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = (blockIdx.x - slab * q_tiles) * kTile + warp * R;
-  const int64_t ts = lay.qkv.t;
-  const int64_t in_off = lay.head(lay.qkv, slab);
-  float* qw = qbuf + warp * R * hd;
-  float* pw = pbuf + warp * R * kTile;
-  load_rows(qw, q + in_off, ts, r0, t, hd);
-
-  float m[R], l[R], acc[R][kDimsPerLane];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] = 0.f;
-  }
-  for (int key0 = 0; key0 < t; key0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile(ks, k + in_off, ts, key0, t, hd);
-    stage_tile(vs, v + in_off, ts, key0, t, hd);
-    __syncthreads();
-    if (r0 >= t) continue;
-    // S = Q K^T for R rows at once; lane owns keys lane + 32 i of the tile
-    float s[R][kPerLane];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) s[r][i] = 0.f;
-    for (int d = 0; d < hd; d += 4) {
-      float4 qv[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) qv[r] = load4(qw + r * hd + d);  // broadcast
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const float4 kv = load4(ks + (lane + 32 * i) * pitch + d);
-#pragma unroll
-        for (int r = 0; r < R; ++r) s[r][i] = dot4(qv[r], kv, s[r][i]);
-      }
-    }
-    // the online softmax; P into the warp's buffer
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        s[r][i] = key0 + lane + 32 * i < t ? s[r][i] * scale : -INFINITY;
-        mx = fmaxf(mx, s[r][i]);
-      }
-      const float mn = fmaxf(m[r], warp_max(mx));  // finite: the tile holds a key < T
-      const float al = expf(m[r] - mn);
-      m[r] = mn;
-      l[r] *= al;
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] *= al;
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const float p = expf(s[r][i] - mn);
-        l[r] += p;
-        pw[r * kTile + lane + 32 * i] = p;
-      }
-    }
-    __syncwarp();
-    // O += P V: lane owns dims lane + 32 i, for R rows at once
-    for (int j = 0; j < kTile; j += 4) {
-      float4 p[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) p[r] = load4(pw + r * kTile + j);  // broadcast
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = vs + (j + jj) * pitch;
-#pragma unroll
-        for (int i = 0; i < kDimsPerLane; ++i) {
-          const int d = lane + 32 * i;
-          if (d < hd) {
-            const float vv = vrow[d];
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const float pj = jj == 0 ? p[r].x : jj == 1 ? p[r].y : jj == 2 ? p[r].z : p[r].w;
-              acc[r][i] = fmaf(pj, vv, acc[r][i]);
-            }
-          }
-        }
-      }
-    }
-    __syncwarp();  // P is read before the next tile overwrites it
-  }
-  if (r0 >= t) return;
-  float* oh = o + lay.head(lay.out, slab);
-  float* ls = lse + static_cast<int64_t>(slab) * t;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = r0 + r;
-    const float lr = warp_sum(l[r]);
-    if (row < t) {
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) oh[row * lay.out.t + d] = acc[r][i] / lr;
-      }
-      if (lane == 0) ls[row] = m[r] + logf(lr);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32 backward: 3xTF32 on the tensor cores
+// float32: 3xTF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
 // The block shape may be set with -D to time the alternatives
-// (tools/time_mha_bwd.py --kernel flash --ablations); the defaults are the
-// fastest measured.
+// (tools/time_mha_bwd.py --kernel flash_fwd|flash_bwd --ablations); the
+// defaults are the fastest measured.
 //   THEIA_FLASH_F32_SPLIT: warps that share a 16-row group, each taking
 //     every SPLIT-th 8-column tile of a streamed tile (1 or 2); their
 //     partial sums meet once, at the end, in part order.
 //   THEIA_FLASH_F32_HELD_A: 1 holds the A operand of the block's own rows
-//     (Q, dO in dQ; K, V in dK/dV) in registers as float32, 0 stages those
-//     rows once in shared memory and reads each k-step's fragment there.
+//     (Q in K7; Q, dO in dQ; K, V in dK/dV) in registers as float32, 0
+//     stages those rows once in shared memory and reads each k-step's
+//     fragment there.
+//   THEIA_FLASH_FWD_F32_SHARED_MAX: in K7 with SPLIT 2, 1 has the two warps
+//     of a row group exchange each tile's row maxima through shared memory
+//     behind a named barrier of the pair, so that both rescale by one
+//     running max; 0 lets each keep its own max, sum and O over its keys,
+//     and the two meet once, at the end.
 #ifndef THEIA_FLASH_F32_SPLIT
 #define THEIA_FLASH_F32_SPLIT 2
 #endif
 #ifndef THEIA_FLASH_F32_HELD_A
 #define THEIA_FLASH_F32_HELD_A 0
 #endif
+#ifndef THEIA_FLASH_FWD_F32_SHARED_MAX
+#define THEIA_FLASH_FWD_F32_SHARED_MAX 0
+#endif
 
 constexpr int kF32Split = THEIA_FLASH_F32_SPLIT;
 constexpr bool kF32HeldA = THEIA_FLASH_F32_HELD_A != 0;
+constexpr bool kFwdSharedMax = THEIA_FLASH_FWD_F32_SHARED_MAX != 0 && kF32Split == 2;
 constexpr int kF32Threads = 32 * (kTile / 16) * kF32Split;
 constexpr int kF32Cols = kTile / 8 / kF32Split;  // 8-column tiles of a streamed tile a warp takes
 static_assert(kF32Split == 1 || kF32Split == 2, "a part's partial sums are parked in the staging buffers");
@@ -692,6 +521,15 @@ __host__ __device__ constexpr int f32_min_blocks() {
 template <int HD>
 size_t smem_bytes_bwd_f32(bool dkv) {
   return ((kF32HeldA ? 4 : 6) * static_cast<size_t>(kTile) * (HD + 4) + (dkv ? 4 * kTile : 0)) * sizeof(float);
+}
+
+// K7's: K and V double-buffered, the block's Q rows (unless held in
+// registers), and with kFwdSharedMax the row groups' tile maxima,
+// [groups][2][16].
+template <int HD>
+size_t smem_bytes_fwd_f32() {
+  return ((kF32HeldA ? 4 : 5) * static_cast<size_t>(kTile) * (HD + 4) + (kFwdSharedMax ? 2 * kTile : 0)) *
+         sizeof(float);
 }
 
 // The A operand of a warp's 16 rows, held in registers as float32 (RowsA,
@@ -821,6 +659,207 @@ __device__ __forceinline__ void unpark(const float* red, float (&acc)[HD / 8][4]
   for (int m = 0; m < HD / 8; ++m) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[m][e] += red[(m * 4 + e) * 32 + lane];
+  }
+}
+
+// A warp's work on one streamed key tile of K7 (`rows` keys below T): S =
+// Q K^T * scale on its 8-key tiles, keys past T masked by bounds (a
+// zero-filled key gives S = 0, not -inf); the online softmax of rows g and
+// g + 8 over them: the running maxima m (the same in a row's 4 lanes), this
+// lane's sums l and O rescaled by exp(m_old - m) when m grows; then O += P V
+// with each P tile, still in the accumulators, as the A operand of its 8
+// keys and V read down columns (c_as_a, b_cols). With kFwdSharedMax the
+// pair's tile maxima meet in xch (the group's [2][16]) behind named barrier
+// `bar`.
+template <bool kPartial, int HD>
+__device__ __forceinline__ void fwd_tile(float (&acc)[HD / 8][4], float (&m)[2], float (&l)[2], const OwnA<HD>& qa,
+                                         const float* kt, const float* vt, int part, int rows, float scale,
+                                         float* xch, int bar) {
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  // element e of tile i is row g + 8 (e >> 1), key 8n + 2tq + (e & 1)
+  float sc[kF32Cols][4];
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < HD / 8; ++s) {
+    float a[4];
+    uint32_t a_big[4], a_small[4], b_big[2], b_small[2];
+    qa.frag(s, a);
+    split_tf32(a, a_big, a_small);
+#pragma unroll
+    for (int i = 0; i < kF32Cols; ++i) {
+      if (live_cols<kPartial>(i, part, rows)) {
+        b_rows<HD + 4>(kt, 8 * (kF32Split * i + part), 8 * s, b_big, b_small);
+        mma_3xtf32(sc[i], a_big, a_small, b_big, b_small);
+      }
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+    const int key0 = 8 * (kF32Split * i + part) + 2 * tq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // the scale multiply pinned, as K9 and K8 form S * scale
+      sc[i][e] = !kPartial || key0 + (e & 1) < rows ? __fmul_rn(sc[i][e], scale) : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[i][e]);
+    }
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  if constexpr (kFwdSharedMax) {
+    const int g = lane >> 2;
+    if (tq == 0) {
+      xch[part * 16 + g] = mx[0];
+      xch[part * 16 + g + 8] = mx[1];
+    }
+    asm volatile("bar.sync %0, 64;\n" ::"r"(bar) : "memory");
+    mx[0] = fmaxf(mx[0], xch[(part ^ 1) * 16 + g]);
+    mx[1] = fmaxf(mx[1], xch[(part ^ 1) * 16 + g + 8]);
+  }
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], mx[r]);
+    // A warp none of whose keys so far is below T (the second of a pair at
+    // T <= 8) keeps m = -inf; exp's argument is taken against 0 there, so
+    // that its P and correction are 0, not exp(-inf + inf) = NaN.
+    base[r] = mn == -INFINITY ? 0.f : mn;
+    const float al = expf(m[r] - base[r]);
+    m[r] = mn;
+    l[r] *= al;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      acc[n][2 * r] *= al;
+      acc[n][2 * r + 1] *= al;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[i][e] = expf(sc[i][e] - base[e >> 1]);  // masked keys: 0
+      l[e >> 1] += sc[i][e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+    if (live_cols<kPartial>(i, part, rows)) mma_cols_f32<HD>(acc, sc[i], vt, kF32Split * i + part);
+  }
+}
+
+// K7, the float32 forward. A block owns 64 query rows, staged once in
+// shared memory (unless held); each row group (16 rows) is kF32Split warps.
+// Over the key tiles (K and V double-buffered with cp.async): fwd_tile on
+// the warp's 8-key tiles. At the end the two warps of a row group meet
+// once, in part order: m = max(m0, m1), and each part's l and O rescaled by
+// exp(mi - m) and added (with kFwdSharedMax, m0 = m1 and the factors are
+// 1); then O / l and lse = m + log(l) for the rows below T.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, f32_min_blocks<HD>())
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                  float* __restrict__ o, float* __restrict__ lse, Layout lay, int q_tiles, float scale) {
+  constexpr int kPitch = HD + 4;
+  constexpr int kBuf = kTile * kPitch;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);  // [2][kTile][kPitch]
+  float* vs = ks + 2 * kBuf;                   // [2][kTile][kPitch]
+  float* own = vs + 2 * kBuf;                  // [kTile][kPitch]: the block's Q rows, unless held
+  const int t = lay.t;
+  const int slab = blockIdx.x / q_tiles;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int group = warp / kF32Split;
+  const int part = warp - group * kF32Split;
+  const int b0 = (blockIdx.x - slab * q_tiles) * kTile;
+  const int r0 = b0 + group * 16;
+  const int64_t ts = lay.qkv.t;
+  const int64_t in_off = lay.head(lay.qkv, slab);
+  const float* qh = q + in_off;
+  const float* kh = k + in_off;
+  const float* vh = v + in_off;
+  float* xch = own + (kF32HeldA ? 0 : kBuf) + group * 32;  // the group's tile maxima (kFwdSharedMax)
+  const int k_tiles = (t + kTile - 1) / kTile;
+
+  if constexpr (!kF32HeldA) stage_rows_f32<HD>(own, qh + b0 * ts, ts, t - b0, kTile);
+  stage_rows_f32<HD>(ks, kh, ts, t, kTile);
+  stage_rows_f32<HD>(vs, vh, ts, t, kTile);
+  OwnA<HD> qa;
+  own_a<HD>(qa, qh, ts, r0, t, own, b0);
+
+  float m[2] = {-INFINITY, -INFINITY};  // running maxima of rows g and g + 8 over this warp's keys
+  float l[2] = {0.f, 0.f};              // running sums over this lane's keys
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int j = 0; j < k_tiles; ++j) {
+    const int cur = j & 1;
+    if (j + 1 < k_tiles) {
+      const int r = (j + 1) * kTile;
+      stage_rows_f32<HD>(ks + (cur ^ 1) * kBuf, kh + r * ts, ts, t - r, kTile);
+      stage_rows_f32<HD>(vs + (cur ^ 1) * kBuf, vh + r * ts, ts, t - r, kTile);
+      cp_async_wait<2>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and the block's Q rows) are in shared memory
+    if (r0 < t) {
+      const int rows = t - j * kTile;  // keys of the tile below T
+      if (rows >= kTile) {
+        fwd_tile<false, HD>(acc, m, l, qa, ks + cur * kBuf, vs + cur * kBuf, part, rows, scale, xch, 1 + group);
+      } else {
+        fwd_tile<true, HD>(acc, m, l, qa, ks + cur * kBuf, vs + cur * kBuf, part, rows, scale, xch, 1 + group);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer cur before it is staged again
+  }
+  if constexpr (kF32Split > 1) {
+    float* red = reinterpret_cast<float*>(smem) + group * (16 * HD + 128);  // the staging is free now
+    float* stat = red + 16 * HD;                                            // [m_a, m_b, l_a, l_b][32]
+    if (part == 1) {
+      park<HD>(red, acc);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        stat[r * 32 + lane] = m[r];
+        stat[(2 + r) * 32 + lane] = l[r];
+      }
+    }
+    __syncthreads();
+    if (part == 1 || r0 >= t) return;
+    float f0[2], f1[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = stat[r * 32 + lane];
+      const float mn = fmaxf(m[r], m1);  // finite: part 0 holds key 0
+      f0[r] = expf(m[r] - mn);
+      f1[r] = expf(m1 - mn);
+      l[r] = l[r] * f0[r] + stat[(2 + r) * 32 + lane] * f1[r];
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = acc[n][e] * f0[e >> 1] + red[(n * 4 + e) * 32 + lane] * f1[e >> 1];
+    }
+  }
+  if (r0 >= t) return;
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] /= l[e >> 1];
+  }
+  store_rows_f32<HD>(o + lay.head(lay.out, slab), lay.out.t, r0, t, acc);
+  if ((lane & 3) == 0) {
+    float* ls = lse + static_cast<int64_t>(slab) * t;
+    const int row_a = r0 + (lane >> 2);
+    if (row_a < t) ls[row_a] = m[0] + logf(l[0]);
+    if (row_a + 8 < t) ls[row_a + 8] = m[1] + logf(l[1]);
   }
 }
 
@@ -1146,6 +1185,14 @@ int dkv_bf16(const void* q, const void* k, const void* v, const void* dout, cons
 }
 
 template <int HD>
+int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, int blocks, int tiles, const Layout& lay,
+            float scale, cudaStream_t s) {
+  return launch(flash_fwd_f32<HD>, blocks, kF32Threads, smem_bytes_fwd_f32<HD>(), s, static_cast<const float*>(q),
+                static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(o), lse, lay, tiles,
+                scale);
+}
+
+template <int HD>
 int dq_f32(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse, float* di,
            void* dq, int blocks, int tiles, const Layout& lay, float scale, cudaStream_t s) {
   return launch(flash_dq_f32<HD>, blocks, kF32Threads, smem_bytes_bwd_f32<HD>(false), s,
@@ -1163,19 +1210,25 @@ int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const
                 tiles, scale);
 }
 
-// Resident blocks per SM of flash_dkv_f32<HD> (dkv) or flash_dq_f32<HD>
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a negative cudaError_t if
-// the query failed.
-template <int HD>
-int bwd_f32_blocks_per_sm(int dkv) {
-  const size_t smem = smem_bytes_bwd_f32<HD>(dkv != 0);
-  cudaError_t err = dkv ? allow_smem(flash_dkv_f32<HD>, smem) : allow_smem(flash_dq_f32<HD>, smem);
+// Resident blocks per SM of `kernel` launched with kF32Threads threads and
+// `smem` bytes (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a negative
+// cudaError_t if the query failed.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, size_t smem) {
+  cudaError_t err = allow_smem(kernel, smem);
   int blocks = 0;
-  if (err == cudaSuccess) {
-    err = dkv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_dkv_f32<HD>, kF32Threads, smem)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_dq_f32<HD>, kF32Threads, smem);
-  }
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kF32Threads, smem);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// The same for float32 K7, K9 or K8 (kernel = 7, 9 or 8) at head dim HD.
+template <int HD>
+int f32_blocks_per_sm(int kernel) {
+  switch (kernel) {
+    case 7: return blocks_per_sm(flash_fwd_f32<HD>, smem_bytes_fwd_f32<HD>());
+    case 9: return blocks_per_sm(flash_dq_f32<HD>, smem_bytes_bwd_f32<HD>(false));
+    default: return blocks_per_sm(flash_dkv_f32<HD>, smem_bytes_bwd_f32<HD>(true));
+  }
 }
 
 // Calls fn<HD>(args...) for the runtime head dim (a multiple of 16 up to 128).
@@ -1212,9 +1265,7 @@ int theia_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
   const int blocks = batch * heads * tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch(flash_fwd_f32, blocks, kThreads, smem_bytes_f32(hd, 2, 0, 1, 1), s, static_cast<const float*>(q),
-                  static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(o), lse, lay,
-                  tiles, scale);
+    THEIA_FLASH_BY_HD(fwd_f32, hd, q, k, v, o, lse, blocks, tiles, lay, scale, s)
   }
   THEIA_FLASH_BY_HD(fwd_bf16, hd, q, k, v, o, lse, blocks, tiles, lay, scale, s)
 }
@@ -1261,13 +1312,15 @@ int theia_flash_dkv(const void* q, const void* k, const void* v, const void* dou
   THEIA_FLASH_BY_HD(dkv_bf16, hd, q, k, v, dout, lse, di, dk, dv, blocks, tiles, lay, scale, s)
 }
 
-// Resident blocks per SM of the float32 K9 (dkv = 0) or K8 (dkv = 1) at head
-// dim hd, with the threads of one of their blocks in *threads; a negative
-// cudaError_t if the query failed.
-int theia_flash_bwd_f32_blocks_per_sm(int hd, int dkv, int* threads) {
-  if (hd < 16 || hd > kMaxHd || hd % 16 != 0) return -static_cast<int>(cudaErrorInvalidValue);
+// Resident blocks per SM of the float32 K7, K9 or K8 (kernel = 7, 9 or 8)
+// at head dim hd, with the threads of one of their blocks in *threads; a
+// negative cudaError_t if the query failed.
+int theia_flash_f32_blocks_per_sm(int hd, int kernel, int* threads) {
+  if (hd < 16 || hd > kMaxHd || hd % 16 != 0 || kernel < 7 || kernel > 9) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
   *threads = kF32Threads;
-  THEIA_FLASH_BY_HD(bwd_f32_blocks_per_sm, hd, dkv)
+  THEIA_FLASH_BY_HD(f32_blocks_per_sm, hd, kernel)
 }
 
 }  // extern "C"

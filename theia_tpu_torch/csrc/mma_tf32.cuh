@@ -1,8 +1,8 @@
 // float32 products on the tensor cores as 3xTF32, for the float32 attention
-// backward kernels (mha_bwd.cu, flash_attn.cu): mma.sync m16n8k8 with tf32
-// operands and float32 accumulation, the split of a float32 operand into two
-// tf32 halves, and the cp.async staging, A-fragment loads, products and
-// stores over float32 rows staged with pitch HD + 4.
+// kernels (K2 in mha_bwd.cu; K7, K9 and K8 in flash_attn.cu): mma.sync
+// m16n8k8 with tf32 operands and float32 accumulation, the split of a
+// float32 operand into two tf32 halves, and the cp.async staging, A-fragment
+// loads, products and stores over float32 rows staged with pitch HD + 4.
 //
 // What it computes. A float32 x splits into big = tf32(x), rounded to
 // nearest with ties away from zero (tf32_rna), and small = x - big, which is

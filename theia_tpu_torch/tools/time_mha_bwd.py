@@ -1,8 +1,9 @@
-"""Time a float32 attention backward on one GPU against its plain version,
-SDPA's backward and other builds of its source: K2 (``csrc/mha_bwd.cu``) or
-the flash pair K9 + K8 (``csrc/flash_attn.cu``).
+"""Time a float32 attention kernel on one GPU against its plain version,
+SDPA and other builds of its source: the backward K2 (``csrc/mha_bwd.cu``),
+the flash forward K7 or the flash backward pair K9 + K8
+(``csrc/flash_attn.cu``).
 
-    python -m theia_tpu_torch.tools.time_mha_bwd [--kernel mha_bwd|flash_bwd] [--parent DIR] [--ablations]
+    python -m theia_tpu_torch.tools.time_mha_bwd [--kernel mha_bwd|flash_fwd|flash_bwd] [--parent DIR] [--ablations]
 
 Builds the kernels (``kernels/build.py``) and prints ptxas's registers and
 spills of the kernel's float32 passes at hd = 64 and their resident blocks
@@ -10,12 +11,13 @@ per SM. ``--parent DIR`` also builds the same source of an unpacked earlier
 tree in DIR; ``--ablations`` builds the source once for each entry of the
 kernel's ``ablations``, each undoing one choice of the kernel through the
 ``-D`` settings its source reads. The extra libraries build in parallel.
-Every build is held to the plain version (max abs error within 2e-5) at
-the check shapes, then all are timed at the timing shapes as views of a
-packed projection, with SDPA's memory-efficient backward and the plain
-version, in the order a, b, ..., b, a (device time, the stream held while
-the host enqueues), twice after a round that warms the card. Exits nonzero
-without a card or on a disagreement.
+Every build is held to the plain version (max abs error within 2e-5, on
+each output: K7's O and lse) at the check shapes, then all are timed at the
+timing shapes as views of a packed projection, with SDPA (its
+memory-efficient forward or backward) and the plain version, in the order
+a, b, ..., b, a (device time, the stream held while the host enqueues),
+twice after a round that warms the card. Exits nonzero without a card or on
+a disagreement.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from theia_tpu_torch.kernels import build
 from theia_tpu_torch.ops import attention
-from theia_tpu_torch.tools.timing import interleaved_ms, ptxas_usage, sdpa_backward
+from theia_tpu_torch.tools.timing import interleaved_ms, ptxas_usage, sdpa_backward, sdpa_forward
 
 F32_ATOL = 2e-5
 H, HD = 12, 64
@@ -45,14 +47,16 @@ PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 class Target:
     source: str  # under theia_tpu_torch/csrc
     passes: tuple[str, ...]  # ptxas names of its float32 kernels (the parent's where they differ)
+    numbers: tuple[int, ...]  # the K numbers of its float32 flash kernels, for their occupancy query
     ablations: dict[str, tuple[str, ...]]  # name -> the -D settings it builds with
     checks: tuple[tuple[int, int, int], ...]  # (B, T, hd) held to the plain version, H = 2 where B = 2
     timed: tuple[tuple[int, int], ...]  # (B, T) timed at [B, T, 12, 64]
     signatures: dict[str, list]  # C function -> argtypes
-    launcher: Callable  # lib -> fn(*inputs) -> [B, T, 3, H, hd]
+    launcher: Callable  # lib -> fn(*inputs) -> what main returns
     main: Callable  # the port's wrapper: fn(*inputs)
     plain: Callable
     inputs: Callable  # (q, k, v, do) -> the arguments of the three above
+    library: Callable  # (q, k, v, do) -> one PyTorch call for the same function, of no arguments
 
 
 def _strides(*xs):
@@ -80,6 +84,20 @@ def mha_launcher(lib: ctypes.CDLL):
     return run
 
 
+def flash_fwd_launcher(lib: ctypes.CDLL):
+    """K7 through another build of the library (no checks): O and lse."""
+    def run(q, k, v):
+        b, t, h, hd = q.shape
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+        err = lib.theia_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, t, hd,
+                                  *_strides(q, o), 0, 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed ({err})")
+        return o, lse
+    return run
+
+
 def flash_launcher(lib: ctypes.CDLL):
     """K9 then K8 through another build of the library (no checks)."""
     def run(q, k, v, o, lse, do):
@@ -103,6 +121,7 @@ TARGETS = {
     "mha_bwd": Target(
         source="mha_bwd.cu",
         passes=(f"mha_bwd_rows_f32<{HD}>", f"mha_bwd_cols_f32<{HD}>"),
+        numbers=(),
         ablations={
             "rows_split1_warps4": ("THEIA_K2_ROW_SPLIT=1", "THEIA_K2_ROW_WARPS=4"),
             "rows_split2_warps8": ("THEIA_K2_ROW_SPLIT=2", "THEIA_K2_ROW_WARPS=8"),
@@ -116,10 +135,32 @@ TARGETS = {
         main=attention.mha_bwd,
         plain=attention.mha_bwd_plain,
         inputs=lambda q, k, v, do: (q, k, v, do),
+        library=sdpa_backward,
+    ),
+    "flash_fwd": Target(
+        source="flash_attn.cu",
+        passes=(f"flash_fwd_f32<{HD}>", "flash_fwd_f32"),
+        numbers=(7,),
+        ablations={
+            "split1": ("THEIA_FLASH_F32_SPLIT=1",),
+            "shared_max": ("THEIA_FLASH_FWD_F32_SHARED_MAX=1",),
+            "held_a": ("THEIA_FLASH_F32_HELD_A=1",),
+            "cvt_rna": ("THEIA_TF32_CVT_RNA",),
+        },
+        checks=((64, 197, HD), (16, 785, HD),
+                *((2, t, hd) for hd in (16, 64, 80, 128) for t in (1, 15, 16, 17, 63, 64, 65, 130, 197))),
+        timed=((64, 197), (16, 785)),
+        signatures={"theia_flash_fwd": [PTR] * 5 + [I32] * 4 + [I64] * 4 + [I32, ctypes.c_float, PTR]},
+        launcher=flash_fwd_launcher,
+        main=attention.flash_fwd,
+        plain=attention.flash_fwd_plain,
+        inputs=lambda q, k, v, do: (q, k, v),
+        library=lambda q, k, v, do: sdpa_forward(q, k, v),
     ),
     "flash_bwd": Target(
         source="flash_attn.cu",
         passes=(f"flash_dq_f32<{HD}>", f"flash_dkv_f32<{HD}>", "flash_dq_f32", "flash_dkv_f32"),
+        numbers=(9, 8),
         ablations={
             "split1": ("THEIA_FLASH_F32_SPLIT=1",),
             "held_a": ("THEIA_FLASH_F32_HELD_A=1",),
@@ -135,6 +176,7 @@ TARGETS = {
         main=attention.flash_bwd,
         plain=attention.flash_bwd_plain,
         inputs=lambda q, k, v, do: (q, k, v, *attention.flash_fwd(q, k, v), do),  # K7's O and lse
+        library=sdpa_backward,
     ),
 }
 
@@ -178,9 +220,15 @@ def print_occupancy(kernel: str, lib: ctypes.CDLL) -> None:
             blocks = lib.theia_mha_bwd_f32_blocks_per_sm(t, HD, cols, ctypes.byref(threads))
             print(f"  kernel: {name} at T = {t}: {blocks} resident blocks per SM of {threads.value} threads")
     else:
-        for dkv, name in enumerate(TARGETS[kernel].passes[:2]):
-            blocks = lib.theia_flash_bwd_f32_blocks_per_sm(HD, dkv, ctypes.byref(threads))
+        for number, name in zip(TARGETS[kernel].numbers, TARGETS[kernel].passes):
+            blocks = lib.theia_flash_f32_blocks_per_sm(HD, number, ctypes.byref(threads))
             print(f"  kernel: {name}: {blocks} resident blocks per SM of {threads.value} threads")
+
+
+def max_abs_error(got, want) -> float:
+    """The largest abs error over an output, or over each of a tuple of them (O and lse)."""
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    return max(float((g - w).abs().max()) for g, w in pairs)
 
 
 def packed(b: int, t: int, h: int, hd: int, gen: torch.Generator) -> tuple[torch.Tensor, ...]:
@@ -192,7 +240,7 @@ def packed(b: int, t: int, h: int, hd: int, gen: torch.Generator) -> tuple[torch
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernel", choices=sorted(TARGETS), default="mha_bwd",
-                        help="K2 (mha_bwd) or the flash pair K9 + K8 (flash_bwd)")
+                        help="K2 (mha_bwd), the flash forward K7 (flash_fwd) or the flash pair K9 + K8 (flash_bwd)")
     parser.add_argument("--parent", type=Path, help="an unpacked earlier tree whose source of the kernel to time too")
     parser.add_argument("--ablations", action="store_true", help="also time the builds of the kernel's ablations")
     args = parser.parse_args()
@@ -221,7 +269,7 @@ def main() -> int:
             q, k, v, do = packed(b, t, H if b > 2 else 2, hd, gen)
             inputs = target.inputs(q, k, v, do)
             want = target.plain(*inputs)
-            errs = {name: float((fn(*inputs) - want).abs().max()) for name, fn in fns.items()}
+            errs = {name: max_abs_error(fn(*inputs), want) for name, fn in fns.items()}
             worst = {name: max(worst[name], e) for name, e in errs.items()}
             if hd == HD and b > 2 or not all(e <= F32_ATOL for e in errs.values()):
                 print(f"  [{b},{t},{q.shape[2]},{hd}] max abs error against the plain version: "
@@ -237,7 +285,7 @@ def main() -> int:
             inputs = target.inputs(q, k, v, do)
             timed = {name: (lambda fn=fn: fn(*inputs)) for name, fn in fns.items()}
             timed["plain"] = lambda: target.plain(*inputs)
-            timed["sdpa"] = sdpa_backward(q, k, v, do)
+            timed["sdpa"] = target.library(q, k, v, do)
             for rep in range(3):  # the first round warms the card and is not printed
                 ms = interleaved_ms(timed)
                 if rep:

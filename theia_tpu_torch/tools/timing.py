@@ -1,4 +1,4 @@
-"""Device timing, ptxas's report and the library attention backward, shared
+"""Device timing, ptxas's report and the library attention calls, shared
 by ``chip_smoke.py`` and the timing tools. Needs a CUDA device to time."""
 
 from __future__ import annotations
@@ -75,6 +75,14 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
         elif "Used" in line and "registers" in line:
             out.append((name, f"{line.split('Used', 1)[1].strip()}; {spills}"))
     return out
+
+
+def sdpa_forward(q, k, v):
+    """One PyTorch call for attention over [B, T, H, hd], as a function of no
+    arguments: SDPA on the heads-first views (its flash kernel in bf16, its
+    memory-efficient one in float32)."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
 
 
 def sdpa_backward(q, k, v, do):
