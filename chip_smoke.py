@@ -8,12 +8,13 @@ failure (the script then exits nonzero and prints no result):
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes),
    ptxas's registers and spills, and the resident blocks per SM of K1 bf16,
-   of K2 float32's two passes and of float32 K7, K9 and K8;
+   of K2's two passes in bf16 and float32 and of float32 K7, K9 and K8;
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
    64] as views of a packed QKV projection and over a sweep of head dim x
    T (K1: T at the edges of its 64-key chunks; K2: of its 8-key tiles and
-   16-row warps), K7 (flash forward), K9 (flash
+   16-row warps), both in bf16 also with scores x 40 (probabilities below
+   2^-90, which take the IEEE division), K7 (flash forward), K9 (flash
    dQ) and K8 (flash dK, dV) at [B, 197|204, 12, 64] and [16, 785, 12, 64]
    as such views and over a sweep of head dim x T (float32 K9/K8 also at
    the edges of their 16-row groups and 64-row tiles), K3 and K4
@@ -278,6 +279,20 @@ def compare_kernels(attention, ln_pallas) -> dict:
           f"(< {KERNEL_BF16_REL_L2})")
     check(worst[torch.float32] <= KERNEL_F32_ATOL and worst[torch.bfloat16] < KERNEL_BF16_REL_L2,
           "K2 disagrees with its plain version in the shape sweep")
+    # the same for K2 bf16, whose two passes take the IEEE division where a p
+    # falls below 2^-90 (csrc/mha_bwd.cu, div_rn)
+    wide = 0.0
+    for hd in (64, 128):
+        for t in (197, 256):
+            qkv = torch.randn(2, t, 3 * 2 * hd, device="cuda", generator=gen)
+            qkv[..., : 2 * hd] *= 40
+            q, k, v = (y.view(2, t, 2, hd) for y in qkv.to(torch.bfloat16).split(2 * hd, dim=-1))
+            do = torch.randn(2, t, 2, hd, device="cuda", generator=gen).to(torch.bfloat16)
+            wide = max(wide, rel_l2(attention.mha_bwd(q, k, v, do).float(),
+                                    attention.mha_bwd_plain(q, k, v, do).float()))
+    print(f"  K2 mha_bwd bf16 [2, 197|256, 2, 64|128], scores x 40 (p below 2^-90): worst rel_l2 {wide:.3e} "
+          f"(< {KERNEL_BF16_REL_L2})")
+    check(wide < KERNEL_BF16_REL_L2, "K2 disagrees with its plain version where probabilities vanish")
     cases = [(torch.bfloat16, s) for s in (16, 31, 64)] + [(torch.float32, 64)]
     for dtype, s in cases:
         dn = str(dtype).split(".")[-1]
@@ -443,7 +458,8 @@ def main() -> int:
     from theia_tpu_torch.train.optim import constant_with_warmup, make_optimizer, scaled_lr
     from theia_tpu_torch.train.state import TrainState
     from theia_tpu_torch.train.step import make_eval_step, make_train_step
-    from theia_tpu_torch.tools.timing import cuda_ms, interleaved_ms, ptxas_usage, sdpa_backward, sdpa_forward
+    from theia_tpu_torch.tools.timing import (cuda_ms, interleaved_ms, ptxas_usage, sdpa_backward, sdpa_forward,
+                                              wgmma_serialized)
 
     # phase 1: the card
     card = subprocess.run(
@@ -464,19 +480,27 @@ def main() -> int:
     for name, line in usage:
         print(f"  ptxas: {name}: {line}")
     usage = dict(usage)
+    for name, reason in wgmma_serialized(lib_path.with_suffix(".log").read_text()):
+        print(f"  ptxas serialized the wgmma of {name} ({reason})")
     # K1 bf16 at the main path's T = 197: two chunks of 64 keys a warpgroup
     k1 = f"mha_fwd_bf16<{HEAD_DIM},2>"
     k1_blocks = build.load().theia_mha_fwd_bf16_blocks_per_sm(197, HEAD_DIM)
     print(f"  K1 {k1} (T = 197): ptxas {usage.get(k1)}; {k1_blocks} resident blocks per SM "
           "(cudaOccupancyMaxActiveBlocksPerMultiprocessor, 256 threads a block)")
     check(k1 in usage and k1_blocks > 0, f"K1's ptxas line or occupancy query is missing ({k1_blocks})")
-    # K2 float32 (3xTF32) at the main path's head dim and T = 197: its two passes
-    for cols, k2 in enumerate((f"mha_bwd_rows_f32<{HEAD_DIM}>", f"mha_bwd_cols_f32<{HEAD_DIM}>")):
-        threads = ctypes.c_int(0)
-        k2_blocks = build.load().theia_mha_bwd_f32_blocks_per_sm(197, HEAD_DIM, cols, ctypes.byref(threads))
-        print(f"  K2 {k2} (T = 197): ptxas {usage.get(k2)}; {k2_blocks} resident blocks per SM "
-              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block)")
-        check(k2 in usage and k2_blocks > 0, f"K2's ptxas line or occupancy query is missing ({k2_blocks})")
+    # K2 at the main path's head dim and T = 197, its two passes: bf16 (wgmma;
+    # the row pass holds 2 chunks of 64 keys a warpgroup there) and float32
+    # (3xTF32)
+    k2_passes = {"bf16": (f"mha_bwd_rows_bf16<{HEAD_DIM},2>", f"mha_bwd_cols_bf16<{HEAD_DIM}>"),
+                 "f32": (f"mha_bwd_rows_f32<{HEAD_DIM}>", f"mha_bwd_cols_f32<{HEAD_DIM}>")}
+    for dn, names in k2_passes.items():
+        query = getattr(build.load(), f"theia_mha_bwd_{dn}_blocks_per_sm")
+        for cols, k2 in enumerate(names):
+            threads = ctypes.c_int(0)
+            k2_blocks = query(197, HEAD_DIM, cols, ctypes.byref(threads))
+            print(f"  K2 {k2} (T = 197): ptxas {usage.get(k2)}; {k2_blocks} resident blocks per SM "
+                  f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block)")
+            check(k2 in usage and k2_blocks > 0, f"K2's ptxas line or occupancy query is missing ({k2_blocks})")
     # K7, K9 and K8 float32 (3xTF32) at the main path's head dim
     for number, kernel in ((7, f"flash_fwd_f32<{HEAD_DIM}>"), (9, f"flash_dq_f32<{HEAD_DIM}>"),
                            (8, f"flash_dkv_f32<{HEAD_DIM}>")):
@@ -955,6 +979,7 @@ def main() -> int:
             7 * n * q.element_size(), flops, dtype, f"[{TRAIN_BATCH},197,12,64]")
         if dtype == bf16:
             record["mha_bwd"] = res
+            print(f"    K2 bf16 [{TRAIN_BATCH},197,12,64]: kernel / bound {res[0]['kernel'] / res[1]:.2f}x ({res[2]})")
         else:
             tf32_row("mha_bwd", "K2", res, flops, f"[{TRAIN_BATCH},197,12,64]",
                      kernel_errors[("mha_bwd", dtype, TRAIN_BATCH, 197)])

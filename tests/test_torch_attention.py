@@ -44,6 +44,12 @@ F32_MAX_T = {80: 228, 96: 196, 112: 172, 128: 152}
 # head dims 16, 64 (the main path's), 80 and 128 (float32: the column pass
 # in two sweeps)
 BWD_EDGE_TOKENS = (1, 15, 16, 17, 64, 65, 256)
+# the bf16 backward's wgmma tiles: 64 query rows a row-pass block and 64-key
+# chunks (one short of a tile, two whole ones, one past, and the last block
+# of 1 live row), and 32-query steps of the column pass (193 = 6 steps and
+# one query); head dims 32 (a part-empty swizzle atom) and 128 (two)
+BWD_BF16_TILE_TOKENS = (63, 128, 129, 193)
+BWD_BF16_TILE_HEAD_DIMS = (32, 128)
 # the card's sweep of the backward, and the largest T whose float32 passes
 # fit a block's 227 KB (csrc/mha_bwd.cu smem_bytes_f32)
 BWD_SWEEP_TOKENS = (1, 8, 15, 16, 17, 63, 64, 65, 130, 197, 255, 256)
@@ -265,6 +271,23 @@ def test_bwd_plain_matches_pallas_kernel_at_tile_edges(t, hd, dtype):
                 assert _rel_l2(g, w) < 1e-2, (i, _rel_l2(g, w))
 
 
+@pytest.mark.parametrize("hd", BWD_BF16_TILE_HEAD_DIMS)
+@pytest.mark.parametrize("t", BWD_BF16_TILE_TOKENS)
+def test_bwd_plain_matches_pallas_kernel_bf16_at_wgmma_tile_edges(t, hd):
+    """The bf16 reference of the backward kernel (``mha_bwd`` on CPU
+    tensors) against the TPU kernel body in interpret mode, at the shapes
+    where the bf16 kernel's 64-row and 64-key wgmma tiles and its 32-query
+    steps end."""
+    q, k, v = _qkv(t, b=1, h=2, hd=hd, seed=16)
+    do = np.random.default_rng(17).standard_normal(q.shape, dtype=np.float32)
+    want = _pallas_bwd_interpret(*(jnp.asarray(_pack(x), jnp.bfloat16) for x in (q, k, v, do)))
+    got = tattn.mha_bwd(*(_bf16(x) for x in (q, k, v, do)))
+    assert got.dtype == torch.bfloat16
+    for i, w in enumerate(want):
+        g, w = got[:, :, i].float().numpy(), _unpack(np.asarray(w, np.float32), b=1)
+        assert _rel_l2(g, w) < 1e-2, (i, _rel_l2(g, w))
+
+
 def test_autograd_function_gradcheck_f64():
     b, t, h, hd = 2, 5, 2, 16
     qkv = torch.randn(b, t, 3 * h * hd, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
@@ -405,3 +428,39 @@ def test_cuda_bwd_kernel_f32_matches_plain_over_the_sweep(cuda, hd):
         torch.cuda.synchronize()
         assert tattn.MHA_BWD_LAUNCHES == before + 1
         torch.testing.assert_close(got, tattn.mha_bwd_plain(q, k, v, do), atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", range(16, 129, 16))
+def test_cuda_bwd_kernel_bf16_matches_plain_over_the_sweep(cuda, hd):
+    """K2 bf16 (wgmma) against its plain version at every head dim and every
+    T of the sweep, on views of a packed projection: relative L2 below 1e-2
+    (P and dS round to bf16 before their products; a rounding may land
+    either side), one launch a call."""
+    gen = torch.Generator().manual_seed(200 + hd)
+    for t in BWD_SWEEP_TOKENS:
+        qkv = torch.randn(2, t, 3 * 2 * hd, generator=gen).to(cuda, torch.bfloat16)
+        q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+        do = torch.randn(2, t, 2, hd, generator=gen).to(cuda, torch.bfloat16)
+        before = tattn.MHA_BWD_LAUNCHES
+        got = tattn.mha_bwd(q, k, v, do)
+        torch.cuda.synchronize()
+        assert tattn.MHA_BWD_LAUNCHES == before + 1
+        want = tattn.mha_bwd_plain(q, k, v, do)
+        assert _rel_l2(got.float().cpu().numpy(), want.float().cpu().numpy()) < 1e-2, (t, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", (64, 128))
+@pytest.mark.parametrize("t", (197, 256))
+def test_cuda_bwd_kernel_bf16_with_vanishing_probabilities(cuda, t, hd):
+    """Scores spread over hundreds, so that some p = exp(S - max) fall below
+    2^-90 and both bf16 passes take the IEEE division for them."""
+    gen = torch.Generator().manual_seed(300 + t + hd)
+    qkv = torch.randn(2, t, 3 * 2 * hd, generator=gen)
+    qkv[..., : 2 * hd] *= 40
+    q, k, v = (y.view(2, t, 2, hd) for y in qkv.to(cuda, torch.bfloat16).split(2 * hd, dim=-1))
+    do = torch.randn(2, t, 2, hd, generator=gen).to(cuda, torch.bfloat16)
+    got = tattn.mha_bwd(q, k, v, do)
+    want = tattn.mha_bwd_plain(q, k, v, do)
+    assert _rel_l2(got.float().cpu().numpy(), want.float().cpu().numpy()) < 1e-2

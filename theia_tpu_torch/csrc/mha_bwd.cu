@@ -32,17 +32,39 @@
 //   column pass: recomputes P and dS for its keys from those statistics,
 //     and writes dK and dV.
 //
-// bf16, tensor cores (mha_bwd_rows_bf16, mha_bwd_cols_bf16): mma.sync
-//   m16n8k16 with K1's building blocks (mma_bf16.cuh). Row pass: a warp
-//   owns 16 query rows and keeps their S in registers (as mha_fwd_bf16);
-//   dP = dO V^T is formed twice per 8-key tile, once for the row sum and
-//   once for dS, whose bf16 tiles are the A operand of dQ = dS K (K's B
-//   fragments from a transposing ldmatrix). Column pass: a warp owns 16
-//   keys and streams over 16-query steps: S^T = K Q^T and dP^T = V dO^T put
-//   P^T and dS^T in the accumulator layout that is the A operand of
-//   dV = P^T dO and dK = dS^T Q, so nothing is transposed through shared
-//   memory and no row reduction is needed. Q, dO (or K, V) are staged with
-//   cp.async in rows padded by 16 bytes.
+// bf16, wgmma (mha_bwd_rows_bf16<HD, NC>, mha_bwd_cols_bf16<HD>): both
+//   passes issue Hopper's warpgroup products over operands staged once a
+//   block by cp.async in wgmma's 128-byte swizzle (wgmma_bf16.cuh), with the
+//   numerics above: S rounded by __fmul_rn, the exact expf, P = p / l the
+//   IEEE quotient from one reciprocal a row (div_rn.cuh), sums in float32.
+//   Row pass: a block owns 64 query rows of a slab and kRowWgs warpgroups,
+//   each with NC chunks of 64 keys. S = Q K^T and dP = dO V^T are m64n64k16
+//   products with both operands in shared memory, the first chunk's dP in
+//   flight during the softmax; the row max, sum and rowsum(dP * P) meet
+//   between the warpgroups through shared memory, in part order. dP is
+//   formed once a chunk: the last chunk's stays in registers for dS, an
+//   earlier one is parked in shared memory (Q's area, free once S has
+//   retired). dS, rounded to bf16 in the accumulator layout, is the register
+//   A of dQ = dS K (K the MN-major B, the transpose bit); the warpgroups'
+//   partial dQ meet in part order through the staging area. Column pass: a
+//   warpgroup owns 64 keys, kColWgs of them a block, sharing Q and dO (each
+//   the K-major B of one product and the MN-major B of another) and the
+//   rows' max, sum, 1 / sum and row sum; it steps over kColN queries at a
+//   time: S^T = K Q^T and dP^T = V dO^T (K and V the A in shared memory),
+//   then P^T and dS^T in the accumulator layout, rounded to bf16, are the
+//   register A of dV += P^T dO and dK += dS^T Q. 7 products in all, the
+//   least the math needs; no atomics.
+//   What bounds it on the H100, at [16*12, 197, 64]: neither the bytes nor
+//   the tensor cores (~10.5 GFLOP of products padded to 64-row tiles, 11
+//   us at the dense peak), but each
+//   block's staging (every row block stages its slab's K and V, every column
+//   block its Q and dO: ~95 MB through L2 in all) and the softmax's
+//   elementwise work (an expf through the special-function unit and ~25
+//   other instructions a score, on 256 x 256 padded scores a slab for 197 x
+//   197 real ones) at 16 resident warps a SM. Two blocks of 256 threads a
+//   SM in both passes let one block's staging overlap the other's
+//   arithmetic, so 2 warpgroups a row block beat 4 (one block of 512
+//   threads a SM, whose staging nothing hides; PERF.md, section 6).
 //
 // float32, tensor cores as 3xTF32 (mha_bwd_rows_f32, mha_bwd_cols_f32):
 //   no tensor-core instruction multiplies in full float32, so each product
@@ -93,13 +115,15 @@
 
 #include <type_traits>
 
-#include "mma_bf16.cuh"
+#include "div_rn.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 constexpr int kMaxT = 256;
 constexpr int kMaxHd = 128;
+constexpr int kMaxKeyTiles = kMaxT / 8;
 
 struct Strides {
   int64_t b;
@@ -122,141 +146,355 @@ struct Layout {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kTcWarps = 4;
-constexpr int kTcRows = 16 * kTcWarps;  // rows (keys) a block
-constexpr int kMaxKeyTiles = kMaxT / 8;
+// The passes' block shapes may be set with -D (THEIA_K2_BF16_ROW_SPLIT,
+// THEIA_K2_BF16_COL_N, THEIA_K2_BF16_COL_WG) to time the alternatives
+// (tools/time_mha_bwd.py --dtype bfloat16 --ablations); the defaults are the
+// fastest measured.
+#ifndef THEIA_K2_BF16_ROW_SPLIT
+#define THEIA_K2_BF16_ROW_SPLIT 2
+#endif
+#ifndef THEIA_K2_BF16_COL_N
+#define THEIA_K2_BF16_COL_N 32
+#endif
+#ifndef THEIA_K2_BF16_COL_WG
+#define THEIA_K2_BF16_COL_WG 2
+#endif
 
-// Shared memory: two staged [round16(T)][HD + 8] bf16 tensors, and in the
-// column pass the row statistics [3][round16(T)].
-size_t smem_bytes_bf16(int t, int hd, bool cols) {
-  const size_t t16 = round16(t);
-  return 2 * t16 * (hd + 8) * sizeof(__nv_bfloat16) + (cols ? 3 * t16 * sizeof(float) : 0);
+constexpr int kWgThreads = 128;                   // one warpgroup
+constexpr int kTile = 64;                         // rows of a wgmma tile: a row-pass block's queries, a chunk of keys
+constexpr int kRowWgs = THEIA_K2_BF16_ROW_SPLIT;  // warpgroups a row-pass block, each with 1/kRowWgs of the keys
+constexpr int kRowMaxChunks = kMaxT / (kRowWgs * kTile);  // 64-key chunks a warpgroup holds at T = 256
+constexpr int kColN = THEIA_K2_BF16_COL_N;        // queries a step of the column pass
+constexpr int kColWgs = THEIA_K2_BF16_COL_WG;     // warpgroups a column-pass block, 64 keys each
+constexpr int kPartPitch = 8;                     // floats of padding a row of a partial dQ in shared memory
+static_assert(kRowWgs == 2 || kRowWgs == 4, "the row pass splits the keys over 2 or 4 warpgroups");
+static_assert(kColN == 32 || kColN == 64, "the column pass steps over 32 or 64 queries");
+static_assert(kColWgs == 1 || kColWgs == 2, "a column-pass block has 1 or 2 warpgroups");
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Row pass shared memory: dO (64 rows), K and V (kRowWgs * nc chunks of 64
+// keys each, zeros past T) and Q (64 rows), each in round64(hd) / 64
+// swizzle atoms of 128-byte rows. Once S has retired, the dP of chunks 0 ..
+// nc - 2 (32 floats a thread and chunk) is parked from Q's area on; once
+// every product has retired, the partial dQ of every warpgroup,
+// [kRowWgs][64][hd + kPartPitch] floats, takes the area from its start.
+// Then the warpgroups' row max, sum and row sum [3][kRowWgs][64], and 1 KB
+// to align the base to the swizzle's period.
+__host__ __device__ constexpr int rows_staging_bytes(int hd, int nc) {
+  const int staged = round64(hd) / 64 * (2 * kTile + 2 * kRowWgs * nc * kTile) * 128;
+  const int parked = staged - round64(hd) / 64 * kTile * 128 + (nc - 1) * kRowWgs * kWgThreads * 32 * 4;
+  const int partial = kRowWgs * kTile * (hd + kPartPitch) * 4;
+  const int used = staged > parked ? staged : parked;
+  return used > partial ? used : partial;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kTcWarps * 32)
+size_t smem_bytes_rows_bf16(int hd, int nc) {
+  return 1024 + rows_staging_bytes(hd, nc) + 3 * kRowWgs * kTile * sizeof(float);
+}
+
+// Column pass shared memory: K and V (kColWgs * 64 keys each), then Q and
+// dO (T rounded up to kColN queries each, zeros past T), in swizzle atoms;
+// then each query's max, sum, 1 / sum and row sum as a float4.
+size_t smem_bytes_cols_bf16(int t, int hd) {
+  const size_t tn = round_up(t, kColN);
+  return 1024 + static_cast<size_t>(round64(hd) / 64) * (2 * kColWgs * kTile + 2 * tn) * 128 + tn * sizeof(float4);
+}
+
+// d (64 x 2F, float32) = A B^T over HD: A the 64 rows at shared address a
+// and B the 2F rows at b, both K-major in swizzle atoms a_atom and b_atom
+// bytes apart; issued, not waited for.
+template <int HD, int F>
+__device__ __forceinline__ void wgmma_abt(float (&d)[F], uint32_t a, uint32_t a_atom, uint32_t b, uint32_t b_atom) {
+#pragma unroll
+  for (int s = 0; s < HD / 16; ++s) {
+    const uint32_t col = (s % 4) * 32;
+    wgmma_ss<0>(d, desc_sw128(a + (s / 4) * a_atom + col, 16, 1024), desc_sw128(b + (s / 4) * b_atom + col, 16, 1024),
+                s > 0);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(x[i]);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fence_operand(x[i][e]);
+}
+
+// A p that div_rn does not cover (div_rn.cuh); p = 0 divides exactly.
+__device__ __forceinline__ bool below_div_rn(float p) { return p > 0.f && p < kDivRnMin; }
+
+// a = op(a, the other lanes' a) over the 4 lanes of a fragment row group; b the same.
+template <typename Op>
+__device__ __forceinline__ void quad_reduce(float& a, float& b, Op op) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    a = op(a, __shfl_xor_sync(0xffffffffu, a, off));
+    b = op(b, __shfl_xor_sync(0xffffffffu, b, off));
+  }
+}
+
+// The row pass's warpgroups combine their values a, b of rows rw and rw + 8
+// through red[kRowWgs][64], in part order, so that all of them end with the
+// same numbers.
+template <typename Op>
+__device__ __forceinline__ void meet_parts(float* red, int wg, int rw, float& a, float& b, Op op) {
+  if ((threadIdx.x & 3) == 0) {
+    red[wg * kTile + rw] = a;
+    red[wg * kTile + rw + 8] = b;
+  }
+  __syncthreads();
+  a = red[rw];
+  b = red[rw + 8];
+#pragma unroll
+  for (int p = 1; p < kRowWgs; ++p) {
+    a = op(a, red[p * kTile + rw]);
+    b = op(b, red[p * kTile + rw + 8]);
+  }
+}
+
+// Row pass: a block owns 64 query rows of one slab and kRowWgs warpgroups,
+// warpgroup w holding keys w * NC * 64 .. (w + 1) * NC * 64 - 1. Every loop
+// that issues a wgmma has a bound known to the compiler and no branch
+// around a product depends on the warp: a wgmma under a branch ptxas cannot
+// prove uniform is serialized (ptxas C7520). Keys past T are masked to
+// -inf, rows past T are computed on zeros and never stored.
+template <int HD, int NC>
+__global__ void __launch_bounds__(kRowWgs * kWgThreads, 4 / kRowWgs)
     mha_bwd_rows_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                       __nv_bfloat16* __restrict__ dq, float* __restrict__ stats, Layout lay, int row_blocks,
                       float scale) {
-  constexpr int kPitch = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kThreads = kRowWgs * kWgThreads;
+  constexpr int kKeys = kRowWgs * NC * kTile;   // keys staged
+  constexpr uint32_t kRowAtom = kTile * 128;    // bytes of a swizzle atom of Q or dO
+  constexpr uint32_t kKeyAtom = kKeys * 128;    // of K or V
+  constexpr int kAtoms = round64(HD) / 64;
+  constexpr int kKeySteps = NC * kTile / 16;    // k16 steps of dQ = dS K a warpgroup
+  constexpr int kPitch = HD + kPartPitch;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* os = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = os + kAtoms * kRowAtom;
+  unsigned char* vs = ks + kAtoms * kKeyAtom;
+  unsigned char* qs = vs + kAtoms * kKeyAtom;
+  float4* parked = reinterpret_cast<float4*>(qs);  // [NC - 1][8][kThreads], once S has retired
+  float* part = reinterpret_cast<float*>(os);  // [kRowWgs][64][kPitch], once every product has retired
+  float* red = reinterpret_cast<float*>(os + rows_staging_bytes(HD, NC));  // [3][kRowWgs][64]
   const int t = lay.t;
-  const int t16 = round16(t);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [t16][kPitch]
-  __nv_bfloat16* vs = ks + t16 * kPitch;                       // [t16][kPitch]
 
-  const int slab = blockIdx.x / row_blocks;  // head-major: a slab's blocks share its K, V in L2
+  const int slab = blockIdx.x / row_blocks;  // head-major: a slab's row blocks share its K and V in L2
+  const int row0 = (blockIdx.x - slab * row_blocks) * kTile;
   const int64_t in_off = lay.head(lay.qkv, slab);
-  stage_rows<HD>(ks, k + in_off, lay.qkv.t, t, t16);
-  stage_rows<HD>(vs, v + in_off, lay.qkv.t, t, t16);
+  const int64_t ts = lay.qkv.t;
+  const __nv_bfloat16* doh = dout + lay.head(lay.dout, slab) + row0 * lay.dout.t;
+  stage_sw128<HD, kThreads>(qs, q + in_off + row0 * ts, ts, t - row0, kTile);  // copy groups 1, 2: Q, K
+  stage_sw128<HD, kThreads>(ks, k + in_off, ts, t, kKeys);
+  stage_sw128<HD, kThreads>(os, doh, lay.dout.t, t - row0, kTile);  // 3, 4: dO, V, in flight during S
+  stage_sw128<HD, kThreads>(vs, v + in_off, ts, t, kKeys);
+  cp_async_wait<2>();
+  fence_proxy_async();
+  __syncthreads();  // Q and K are in shared memory
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int r0 = (blockIdx.x - slab * row_blocks) * kTcRows + warp * 16;
-  uint32_t qa[HD / 16][4], oa[HD / 16][4];
-  load_a<HD>(qa, q + in_off, lay.qkv.t, r0, t);
-  load_a<HD>(oa, dout + lay.head(lay.dout, slab), lay.dout.t, r0, t);
-  cp_async_wait<0>();
-  __syncthreads();  // K and V are in shared memory
-  if (r0 >= t) return;
-
-  // S = Q K^T: tile n holds keys 8n .. 8n+7; element e of a tile is row
-  // (e < 2 ? a : b), key 8n + 2*tq + (e & 1). Then P in place, float32.
-  const int key_tiles = t16 / 8;
-  float sc[kMaxKeyTiles][4];
+  // S = Q K^T over this warpgroup's keys: sc[c][4i + e] is row (e < 2 ?
+  // rw : rw + 8), key key0 + 64c + 8i + 2tq + (e & 1).
+  const int wg = threadIdx.x / kWgThreads;
+  const int key0 = wg * NC * kTile;
+  const uint32_t qaddr = smem_addr(qs), oaddr = smem_addr(os);
+  const uint32_t kaddr = smem_addr(ks) + key0 * 128, vaddr = smem_addr(vs) + key0 * 128;
+  float sc[NC][32];
+  wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < kMaxKeyTiles; ++n) {
-    sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-    if (n < key_tiles) mma_rows<HD>(sc[n], qa, ks, n);
-  }
+  for (int c = 0; c < NC; ++c) wgmma_abt<HD>(sc[c], qaddr, kRowAtom, kaddr + c * kTile * 128, kKeyAtom);
+  wgmma_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();  // dO and V are in shared memory
+  float dp[32];
+  wgmma_fence();
+  wgmma_abt<HD>(dp, oaddr, kRowAtom, vaddr, kKeyAtom);  // dP = dO V^T of chunk 0, during the softmax
+  wgmma_commit();
+  wgmma_wait<1>();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) fence_all(sc[c]);
+
+  // Softmax over each row in float32: a row's keys are spread over the 4
+  // lanes of its group in each warpgroup, so max and sum finish with two
+  // xor-shuffles and one exchange between the warpgroups.
+  const int tq = threadIdx.x & 3;
+  const int rw = ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);  // row - row0
+  const auto fmax2 = [](float x, float y) { return fmaxf(x, y); };
+  const auto sum2 = [](float x, float y) { return x + y; };
   float m_a = -INFINITY, m_b = -INFINITY;
 #pragma unroll
-  for (int n = 0; n < kMaxKeyTiles; ++n) {
-    if (n < key_tiles) {
+  for (int c = 0; c < NC; ++c) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n * 8 + 2 * tq + (e & 1);
-        sc[n][e] = key < t ? __fmul_rn(sc[n][e], scale) : -INFINITY;  // as the column pass rounds it
+    for (int e = 0; e < 32; ++e) {
+      const int key = key0 + c * kTile + 8 * (e >> 2) + 2 * tq + (e & 1);
+      sc[c][e] = key < t ? __fmul_rn(sc[c][e], scale) : -INFINITY;  // as the column pass rounds it
+      if (e & 2) {
+        m_b = fmaxf(m_b, sc[c][e]);
+      } else {
+        m_a = fmaxf(m_a, sc[c][e]);
       }
-      m_a = fmaxf(m_a, fmaxf(sc[n][0], sc[n][1]));
-      m_b = fmaxf(m_b, fmaxf(sc[n][2], sc[n][3]));
     }
   }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    m_a = fmaxf(m_a, __shfl_xor_sync(0xffffffffu, m_a, off));
-    m_b = fmaxf(m_b, __shfl_xor_sync(0xffffffffu, m_b, off));
-  }
+  quad_reduce(m_a, m_b, fmax2);
+  meet_parts(red, wg, rw, m_a, m_b, fmax2);
   float l_a = 0.f, l_b = 0.f;
+  bool tiny = false;
 #pragma unroll
-  for (int n = 0; n < kMaxKeyTiles; ++n) {
-    if (n < key_tiles) {
+  for (int c = 0; c < NC; ++c) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n * 8 + 2 * tq + (e & 1);
-        sc[n][e] = key < t ? expf(sc[n][e] - (e < 2 ? m_a : m_b)) : 0.f;
+    for (int e = 0; e < 32; ++e) {
+      sc[c][e] = expf(sc[c][e] - ((e & 2) ? m_b : m_a));  // 0 for a key past T (S = -inf)
+      tiny = tiny || below_div_rn(sc[c][e]);
+      if (e & 2) {
+        l_b += sc[c][e];
+      } else {
+        l_a += sc[c][e];
       }
-      l_a += sc[n][0] + sc[n][1];
-      l_b += sc[n][2] + sc[n][3];
     }
   }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-  }
+  quad_reduce(l_a, l_b, sum2);
+  meet_parts(red + kRowWgs * kTile, wg, rw, l_a, l_b, sum2);
 
-  // P, and rowsum(dP * P) with dP = dO V^T one 8-key tile at a time.
+  // P = p / l in float32, the IEEE quotient: div_rn from one reciprocal a
+  // row, or, where a p of the warp lies below its range, the IEEE division
+  // itself, in a loop over a local copy (one division in the code, nothing
+  // live across it) after which div_rn divides by 1.
+  float dl_a = l_a, dl_b = l_b, rl_a = 1.f / l_a, rl_b = 1.f / l_b;
+  if (__any_sync(0xffffffffu, tiny)) {
+    float p_local[NC * 32];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) p_local[c * 32 + e] = sc[c][e];
+#pragma unroll 1
+    for (int i = 0; i < NC * 32; ++i) p_local[i] = div_ieee(p_local[i], (i & 2) ? l_b : l_a);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[c][e] = p_local[c * 32 + e];
+    dl_a = dl_b = rl_a = rl_b = 1.f;
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[c][e] = (e & 2) ? div_rn(sc[c][e], dl_b, rl_b) : div_rn(sc[c][e], dl_a, rl_a);
+
+  // rowsum(dP * P), dP = dO V^T formed once a chunk: the last chunk's stays
+  // in registers for dS; where P and dP of every chunk would pass the
+  // registers (NC = 2), the earlier chunks' are parked in shared memory,
+  // each thread reading back only what it wrote (Q's area is free: every
+  // warpgroup's S retired before the max met).
   float rs_a = 0.f, rs_b = 0.f;
 #pragma unroll
-  for (int n = 0; n < kMaxKeyTiles; ++n) {
-    if (n < key_tiles) {
-      sc[n][0] /= l_a;
-      sc[n][1] /= l_a;
-      sc[n][2] /= l_b;
-      sc[n][3] /= l_b;
-      float dp[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_rows<HD>(dp, oa, vs, n);
-      rs_a += dp[0] * sc[n][0] + dp[1] * sc[n][1];
-      rs_b += dp[2] * sc[n][2] + dp[3] * sc[n][3];
+  for (int c = 0; c < NC; ++c) {
+    if (c > 0) {
+      wgmma_fence();
+      wgmma_abt<HD>(dp, oaddr, kRowAtom, vaddr + c * kTile * 128, kKeyAtom);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_all(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      if (e & 2) {
+        rs_b += dp[e] * sc[c][e];
+      } else {
+        rs_a += dp[e] * sc[c][e];
+      }
+    }
+    if (c < NC - 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        parked[(c * 8 + i) * kThreads + threadIdx.x] = make_float4(dp[4 * i], dp[4 * i + 1], dp[4 * i + 2], dp[4 * i + 3]);
+      }
     }
   }
+  quad_reduce(rs_a, rs_b, sum2);
+  meet_parts(red + 2 * kRowWgs * kTile, wg, rw, rs_a, rs_b, sum2);
+
+  // dS = P (dP - rowsum) scale, rounded to bf16 in the accumulator layout:
+  // the S tiles 2j and 2j + 1 (of 8 keys each) are the A fragment of k16
+  // step j of dQ = dS K.
+  uint32_t da[kKeySteps][4];
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    rs_a += __shfl_xor_sync(0xffffffffu, rs_a, off);
-    rs_b += __shfl_xor_sync(0xffffffffu, rs_b, off);
+  for (int c = 0; c < NC; ++c) {
+    float dpc[32];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 x = c < NC - 1 ? parked[(c * 8 + i) * kThreads + threadIdx.x]
+                                  : make_float4(dp[4 * i], dp[4 * i + 1], dp[4 * i + 2], dp[4 * i + 3]);
+      dpc[4 * i] = x.x;
+      dpc[4 * i + 1] = x.y;
+      dpc[4 * i + 2] = x.z;
+      dpc[4 * i + 3] = x.w;
+    }
+    const auto ds = [&](int e) { return sc[c][e] * (dpc[e] - ((e & 2) ? rs_b : rs_a)) * scale; };
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * c + jj, e = 8 * jj;
+      da[j][0] = pack_bf16(ds(e), ds(e + 1));
+      da[j][1] = pack_bf16(ds(e + 2), ds(e + 3));
+      da[j][2] = pack_bf16(ds(e + 4), ds(e + 5));
+      da[j][3] = pack_bf16(ds(e + 6), ds(e + 7));
+    }
   }
 
-  // dQ = bf(dS) K over 16-key steps; dP is formed again, tile by tile.
-  float acc[HD / 8][4];
+  // dQ = dS K over this warpgroup's keys: K is the MN-major B operand (keys
+  // down, dims across), one m64n(HD)k16 wgmma per 16 keys.
+  float acc[HD / 2];
+  wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int j = 0; j < kKeySteps; ++j) {
+    wgmma_rs<1>(acc, da[j], desc_sw128(kaddr + j * 16 * 128, kKeyAtom, 1024), j > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_all(acc);
+  fence_all(da);
+
+  // The warpgroups' partial dQ meet through shared memory, in part order.
+  __syncthreads();  // every product of the block has retired: the staging area is free
+  float* mine = part + wg * kTile * kPitch;
 #pragma unroll
-  for (int j = 0; j < kMaxKeyTiles / 2; ++j) {
-    if (2 * j < key_tiles) {
-      float ds[2][4];
+  for (int i = 0; i < HD / 8; ++i) {
+    const int d = i * 8 + 2 * tq;
+    *reinterpret_cast<float2*>(mine + rw * kPitch + d) = make_float2(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<float2*>(mine + (rw + 8) * kPitch + d) = make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  __syncthreads();
+  __nv_bfloat16* dqh = dq + lay.head(lay.grad, slab);
+  for (int i = threadIdx.x; i < kTile * HD / 4; i += kThreads) {
+    const int r = i / (HD / 4);
+    const int d = (i - r * (HD / 4)) * 4;
+    float4 s = *reinterpret_cast<const float4*>(part + r * kPitch + d);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float dp[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_rows<HD>(dp, oa, vs, 2 * j + h);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ds[h][e] = sc[2 * j + h][e] * (dp[e] - (e < 2 ? rs_a : rs_b)) * scale;
-      }
-      const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                              pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-      mma_cols<HD>(acc, da, ks, j);
+    for (int p = 1; p < kRowWgs; ++p) {
+      const float4 x = *reinterpret_cast<const float4*>(part + (p * kTile + r) * kPitch + d);
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    if (row0 + r < t) {
+      *reinterpret_cast<uint2*>(dqh + (row0 + r) * lay.grad.t + d) = make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
     }
   }
-  store_rows<HD>(dq + lay.head(lay.grad, slab), lay.grad.t, r0, t, acc);
-  if (tq == 0) {
+  if (wg == 0 && tq == 0) {
     float* st = stats + static_cast<int64_t>(slab) * 3 * t;
-    const int ra = r0 + g;
+    const int ra = row0 + rw;
     const int rb = ra + 8;
     if (ra < t) {
       st[ra] = m_a;
@@ -271,78 +509,160 @@ __global__ void __launch_bounds__(kTcWarps * 32)
   }
 }
 
+// Registers: at HD + kColN <= 96 (the dV, dK, S^T and dP^T accumulators
+// within 96 floats a thread) the column pass keeps 2 blocks of 256 threads
+// (4 of 128) a SM at 128 registers; above, ptxas may take up to 255.
 template <int HD>
-__global__ void __launch_bounds__(kTcWarps * 32)
+__host__ __device__ constexpr int col_min_blocks() {
+  return HD + kColN <= 96 ? 512 / (kColWgs * kWgThreads) : 1;
+}
+
+// Column pass: a warpgroup owns 64 keys, kColWgs of them a block, sharing
+// Q and dO (staged once, each the K-major B of one product and the
+// MN-major B of another) and the row statistics. Queries past T have max
+// +inf, so their p = exp(-inf) = 0; keys past T are computed on zeros and
+// never stored.
+template <int HD>
+__global__ void __launch_bounds__(kColWgs * kWgThreads, col_min_blocks<HD>())
     mha_bwd_cols_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                       const float* __restrict__ stats, Layout lay, int key_blocks, float scale) {
-  constexpr int kPitch = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kThreads = kColWgs * kWgThreads;
+  constexpr int kKeys = kColWgs * kTile;      // keys a block
+  constexpr uint32_t kKeyAtom = kKeys * 128;  // bytes of a swizzle atom of K or V
+  constexpr int kAtoms = round64(HD) / 64;
+  constexpr int N = kColN;
+  extern __shared__ unsigned char smem_raw[];
   const int t = lay.t;
-  const int t16 = round16(t);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [t16][kPitch]
-  __nv_bfloat16* os = qs + t16 * kPitch;                       // [t16][kPitch]
-  float* mst = reinterpret_cast<float*>(os + t16 * kPitch);   // [3][t16]: max, sum, row sum
+  const int tn = round_up(t, N);           // queries staged
+  const uint32_t q_atom = tn * 128;        // bytes of a swizzle atom of Q or dO
+  unsigned char* ks = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* vs = ks + kAtoms * kKeyAtom;
+  unsigned char* qs = vs + kAtoms * kKeyAtom;
+  unsigned char* os = qs + kAtoms * q_atom;
+  float4* qst = reinterpret_cast<float4*>(os + kAtoms * q_atom);  // [tn]: max, sum, 1 / sum, row sum
 
   const int slab = blockIdx.x / key_blocks;
+  const int k0 = (blockIdx.x - slab * key_blocks) * kKeys;
   const int64_t in_off = lay.head(lay.qkv, slab);
-  stage_rows<HD>(qs, q + in_off, lay.qkv.t, t, t16);
-  stage_rows<HD>(os, dout + lay.head(lay.dout, slab), lay.dout.t, t, t16);
+  const int64_t ts = lay.qkv.t;
+  stage_sw128<HD, kThreads>(ks, k + in_off + k0 * ts, ts, t - k0, kKeys);
+  stage_sw128<HD, kThreads>(vs, v + in_off + k0 * ts, ts, t - k0, kKeys);
+  stage_sw128<HD, kThreads>(qs, q + in_off, ts, t, tn);
+  stage_sw128<HD, kThreads>(os, dout + lay.head(lay.dout, slab), lay.dout.t, t, tn);
   const float* st = stats + static_cast<int64_t>(slab) * 3 * t;
-  for (int i = threadIdx.x; i < 3 * t16; i += blockDim.x) {
-    const int which = i / t16;
-    const int qi = i - which * t16;
-    mst[i] = qi < t ? st[which * t + qi] : (which == 1 ? 1.f : 0.f);
+  for (int i = threadIdx.x; i < tn; i += kThreads) {
+    qst[i] = i < t ? make_float4(st[i], st[t + i], 1.f / st[t + i], st[2 * t + i]) : make_float4(INFINITY, 1.f, 1.f, 0.f);
   }
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tq = lane & 3;
-  const int k0 = (blockIdx.x - slab * key_blocks) * kTcRows + warp * 16;
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-  load_a<HD>(ka, k + in_off, lay.qkv.t, k0, t);
-  load_a<HD>(va, v + in_off, lay.qkv.t, k0, t);
   cp_async_wait<0>();
-  __syncthreads();  // Q, dO and the statistics are in shared memory
-  if (k0 >= t) return;
+  fence_proxy_async();
+  __syncthreads();  // K, V, Q, dO and the statistics are in shared memory
 
-  // Over 16-query steps: tiles of S^T = K Q^T and dP^T = V dO^T (rows are
-  // this warp's keys, element e is query 8n + 2*tq + (e & 1)), then P^T and
-  // dS^T, rounded to bf16, as the A operands of dV = P^T dO, dK = dS^T Q.
-  float av[HD / 8][4], ak[HD / 8][4];
+  // Over steps of N queries: S^T = K Q^T and dP^T = V dO^T (element e of a
+  // thread is key row (e < 2 ? rw : rw + 8), query q0 + 8i + 2tq + (e & 1)
+  // for e in 4i .. 4i + 3), then P^T and dS^T in that layout, rounded to
+  // bf16, as the register A operands of dV += P^T dO and dK += dS^T Q.
+  const int wg = threadIdx.x / kWgThreads;
+  const uint32_t kaddr = smem_addr(ks) + wg * kTile * 128, vaddr = smem_addr(vs) + wg * kTile * 128;
+  const uint32_t qaddr = smem_addr(qs), oaddr = smem_addr(os);
+  const int tq = threadIdx.x & 3;
+  float dv_acc[HD / 2], dk_acc[HD / 2];  // set by the first step's products (scale_d 0)
+  uint32_t pa[N / 16][4], da[N / 16][4];
+  for (int q0 = 0; q0 < tn; q0 += N) {
+    float s[N / 2], dp[N / 2];
+    wgmma_fence();
+    wgmma_abt<HD>(s, kaddr, kKeyAtom, qaddr + q0 * 128, q_atom);
+    wgmma_commit();
+    wgmma_abt<HD>(dp, vaddr, kKeyAtom, oaddr + q0 * 128, q_atom);  // during P^T
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T, and the last step's dV and dK
+    fence_all(s);
+    fence_all(pa);
+    const auto query = [&](int e) { return q0 + 8 * (e >> 2) + 2 * tq + (e & 1); };
+
+    // P^T = p / l: the row pass's max and sum, the IEEE quotient (div_rn
+    // with the query's 1 / l, or the IEEE division where a p of the warp
+    // lies below div_rn's range)
+    bool tiny = false;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    av[n][0] = av[n][1] = av[n][2] = av[n][3] = 0.f;
-    ak[n][0] = ak[n][1] = ak[n][2] = ak[n][3] = 0.f;
-  }
-  for (int j = 0; j < t16 / 16; ++j) {
-    float p[2][4], ds[2][4];
+    for (int e = 0; e < N / 2; ++e) {
+      s[e] = expf(__fmul_rn(s[e], scale) - qst[query(e)].x);  // as the row pass rounds it; 0 past T
+      tiny = tiny || below_div_rn(s[e]);
+    }
+    if (__any_sync(0xffffffffu, tiny)) {
+      float p_local[N / 2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = 2 * j + h;
-      float s4[4] = {0.f, 0.f, 0.f, 0.f};
-      float d4[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_rows<HD>(s4, ka, qs, n);
-      mma_rows<HD>(d4, va, os, n);
+      for (int e = 0; e < N / 2; ++e) p_local[e] = s[e];
+#pragma unroll 1
+      for (int e = 0; e < N / 2; ++e) p_local[e] = div_ieee(p_local[e], qst[query(e)].y);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = n * 8 + 2 * tq + (e & 1);
-        const float pv = qi < t ? expf(__fmul_rn(s4[e], scale) - mst[qi]) / mst[t16 + qi] : 0.f;
-        p[h][e] = pv;
-        ds[h][e] = pv * (d4[e] - mst[2 * t16 + qi]) * scale;
+      for (int e = 0; e < N / 2; ++e) s[e] = p_local[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) {
+        const float4 x = qst[query(e)];
+        s[e] = div_rn(s[e], x.y, x.z);
       }
     }
-    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                            pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-    const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                            pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-    mma_cols<HD>(av, pa, os, j);
-    mma_cols<HD>(ak, da, qs, j);
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      const int e = 8 * j;
+      pa[j][0] = pack_bf16(s[e], s[e + 1]);
+      pa[j][1] = pack_bf16(s[e + 2], s[e + 3]);
+      pa[j][2] = pack_bf16(s[e + 4], s[e + 5]);
+      pa[j][3] = pack_bf16(s[e + 6], s[e + 7]);
+    }
+
+    wgmma_wait<0>();  // dP^T
+    fence_all(dp);
+    fence_all(da);
+    const auto ds = [&](int e) { return s[e] * (dp[e] - qst[query(e)].w) * scale; };
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      const int e = 8 * j;
+      da[j][0] = pack_bf16(ds(e), ds(e + 1));
+      da[j][1] = pack_bf16(ds(e + 2), ds(e + 3));
+      da[j][2] = pack_bf16(ds(e + 4), ds(e + 5));
+      da[j][3] = pack_bf16(ds(e + 6), ds(e + 7));
+    }
+
+    // dV += P^T dO and dK += dS^T Q: dO and Q the MN-major B (queries
+    // down, dims across), one m64n(HD)k16 wgmma per 16 queries each
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      wgmma_rs<1>(dv_acc, pa[j], desc_sw128(oaddr + (q0 + 16 * j) * 128, q_atom, 1024), q0 > 0 || j > 0);
+    }
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      wgmma_rs<1>(dk_acc, da[j], desc_sw128(qaddr + (q0 + 16 * j) * 128, q_atom, 1024), q0 > 0 || j > 0);
+    }
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+  fence_all(dv_acc);
+  fence_all(dk_acc);
+  fence_all(pa);
+  fence_all(da);
+
+  const int rw = ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+  const int ra = k0 + wg * kTile + rw;
+  const int rb = ra + 8;
   const int64_t g_off = lay.head(lay.grad, slab);
-  store_rows<HD>(dk + g_off, lay.grad.t, k0, t, ak);
-  store_rows<HD>(dv + g_off, lay.grad.t, k0, t, av);
+  const int64_t gts = lay.grad.t;
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) {
+    const int d = i * 8 + 2 * tq;
+    if (ra < t) {
+      *reinterpret_cast<uint32_t*>(dk + g_off + ra * gts + d) = pack_bf16(dk_acc[4 * i], dk_acc[4 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + g_off + ra * gts + d) = pack_bf16(dv_acc[4 * i], dv_acc[4 * i + 1]);
+    }
+    if (rb < t) {
+      *reinterpret_cast<uint32_t*>(dk + g_off + rb * gts + d) = pack_bf16(dk_acc[4 * i + 2], dk_acc[4 * i + 3]);
+      *reinterpret_cast<uint32_t*>(dv + g_off + rb * gts + d) = pack_bf16(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -752,28 +1072,38 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, int NC>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk, void* dv,
                 float* stats, int slabs, const Layout& lay, float scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const int blocks = (lay.t + kTcRows - 1) / kTcRows;
+  const int row_blocks = (lay.t + kTile - 1) / kTile;
+  const int key_blocks = (lay.t + kColWgs * kTile - 1) / (kColWgs * kTile);
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const bf16* op = static_cast<const bf16*>(dout);
-  const size_t smem_r = smem_bytes_bf16(lay.t, HD, false);
-  cudaError_t err = allow_smem(mha_bwd_rows_bf16<HD>, smem_r);
+  const size_t smem_r = smem_bytes_rows_bf16(HD, NC);
+  const size_t smem_c = smem_bytes_cols_bf16(lay.t, HD);
+  cudaError_t err = allow_smem(mha_bwd_rows_bf16<HD, NC>, smem_r);
+  if (err == cudaSuccess) err = allow_smem(mha_bwd_cols_bf16<HD>, smem_c);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mha_bwd_rows_bf16<HD><<<slabs * blocks, kTcWarps * 32, smem_r, stream>>>(qp, kp, vp, op, static_cast<bf16*>(dq),
-                                                                             stats, lay, blocks, scale);
+  mha_bwd_rows_bf16<HD, NC><<<slabs * row_blocks, kRowWgs * kWgThreads, smem_r, stream>>>(
+      qp, kp, vp, op, static_cast<bf16*>(dq), stats, lay, row_blocks, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem_c = smem_bytes_bf16(lay.t, HD, true);
-  err = allow_smem(mha_bwd_cols_bf16<HD>, smem_c);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mha_bwd_cols_bf16<HD><<<slabs * blocks, kTcWarps * 32, smem_c, stream>>>(
-      qp, kp, vp, op, static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, lay, blocks, scale);
+  mha_bwd_cols_bf16<HD><<<slabs * key_blocks, kColWgs * kWgThreads, smem_c, stream>>>(
+      qp, kp, vp, op, static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, lay, key_blocks, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, nc>{}) for the bf16 row pass's 64-key
+// chunks a warpgroup at T = t.
+template <typename F>
+int with_row_chunks(int t, F&& f) {
+  if constexpr (kRowMaxChunks > 1) {
+    if (t > kRowWgs * kTile) return f(std::integral_constant<int, kRowMaxChunks>{});
+  }
+  return f(std::integral_constant<int, 1>{});
 }
 
 template <typename Kernel>
@@ -814,8 +1144,10 @@ int theia_mha_bwd(const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_hd(hd, [&](auto h) {
     constexpr int HD = decltype(h)::value;
-    return dtype == 0 ? launch_f32<HD>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s)
-                      : launch_bf16<HD>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
+    if (dtype == 0) return launch_f32<HD>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
+    return with_row_chunks(t, [&](auto nc) {
+      return launch_bf16<HD, decltype(nc)::value>(q, k, v, dout, dq, dk, dv, stats, slabs, lay, scale, s);
+    });
   });
 }
 
@@ -830,6 +1162,23 @@ int theia_mha_bwd_f32_blocks_per_sm(int t, int hd, int cols, int* threads) {
     *threads = cols ? kColWarps * 32 : row_warps<HD>() * 32;
     return cols ? blocks_per_sm(mha_bwd_cols_f32<HD>, *threads, smem_bytes_f32(t, HD, true))
                 : blocks_per_sm(mha_bwd_rows_f32<HD>, *threads, smem_bytes_f32(t, HD, false));
+  });
+}
+
+// The same for the bf16 passes.
+int theia_mha_bwd_bf16_blocks_per_sm(int t, int hd, int cols, int* threads) {
+  if (t < 1 || t > kMaxT || hd < 16 || hd > kMaxHd || hd % 16 != 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return with_hd(hd, [&](auto h) {
+    constexpr int HD = decltype(h)::value;
+    if (cols) {
+      *threads = kColWgs * kWgThreads;
+      return blocks_per_sm(mha_bwd_cols_bf16<HD>, *threads, smem_bytes_cols_bf16(t, HD));
+    }
+    *threads = kRowWgs * kWgThreads;
+    return with_row_chunks(t, [&](auto nc) {
+      constexpr int NC = decltype(nc)::value;
+      return blocks_per_sm(mha_bwd_rows_bf16<HD, NC>, *threads, smem_bytes_rows_bf16(HD, NC));
+    });
   });
 }
 

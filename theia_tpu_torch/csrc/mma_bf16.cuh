@@ -1,7 +1,8 @@
-// bf16 tensor-core building blocks shared by the attention kernels
-// (mha_fwd.cu, mha_bwd.cu, flash_attn.cu): mma.sync m16n8k16 with float32
-// accumulation, transposing ldmatrix, cp.async staging, bf16 packing, and
-// the A-fragment loads, products and stores over rows staged with pitch HD + 8.
+// bf16 building blocks of the attention kernels: cp.async and bf16 packing
+// for all of them (mha_fwd.cu and mha_bwd.cu through wgmma_bf16.cuh,
+// flash_attn.cu), and for the bf16 flash kernels (flash_attn.cu) mma.sync
+// m16n8k16 with float32 accumulation, transposing ldmatrix, and the
+// A-fragment loads, products and stores over rows staged with pitch HD + 8.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 * g + tq): A holds rows g
 // and g + 8, columns 2tq, 2tq + 1 (and + 8); B holds columns g, rows 2tq,
@@ -55,8 +56,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
-
-__host__ __device__ constexpr int round16(int t) { return (t + 15) & ~15; }
 
 // Copy `rows` token rows of a slab (row r at src + r * stride) into shared
 // rows of pitch HD + 8 with cp.async, as one commit group; rows from T up

@@ -1,7 +1,8 @@
 // Hopper warpgroup matrix multiply (wgmma) building blocks for the bf16
-// attention forward (mha_fwd.cu): wgmma.mma_async with float32 accumulation,
-// m64n64k16 with A in shared memory and m64nNk16 with A in registers for
-// N = 16..128 step 16, its fence / commit / wait,
+// attention forward (mha_fwd.cu) and backward (mha_bwd.cu): wgmma.mma_async
+// with float32 accumulation, m64n32k16 and m64n64k16 with A in shared
+// memory and m64nNk16 with A in registers for N = 16..128 step 16, its
+// fence / commit / wait,
 // shared-memory matrix descriptors for the 128-byte swizzle, and cp.async
 // staging of token rows into that layout.
 //
@@ -123,6 +124,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
+// The same, m64n32k16: d is 64 x 32.
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
 }
 

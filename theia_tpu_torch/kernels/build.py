@@ -99,6 +99,8 @@ def load() -> ctypes.CDLL:
             lib.theia_mha_bwd.restype = i32
             lib.theia_mha_bwd_f32_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
             lib.theia_mha_bwd_f32_blocks_per_sm.restype = i32
+            lib.theia_mha_bwd_bf16_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+            lib.theia_mha_bwd_bf16_blocks_per_sm.restype = i32
             lib.theia_flash_fwd.argtypes = [ptr] * 5 + [i32] * 4 + [i64] * 4 + [i32, ctypes.c_float, ptr]
             lib.theia_flash_fwd.restype = i32
             lib.theia_flash_dq.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 8 + [i32, ctypes.c_float, ptr]

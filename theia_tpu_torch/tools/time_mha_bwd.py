@@ -1,23 +1,26 @@
-"""Time a float32 attention kernel on one GPU against its plain version,
-SDPA and other builds of its source: the backward K2 (``csrc/mha_bwd.cu``),
-the flash forward K7 or the flash backward pair K9 + K8
-(``csrc/flash_attn.cu``).
+"""Time an attention kernel on one GPU against its plain version, SDPA and
+other builds of its source: the backward K2 (``csrc/mha_bwd.cu``, float32
+or bf16), the flash forward K7 or the flash backward pair K9 + K8
+(``csrc/flash_attn.cu``, float32).
 
-    python -m theia_tpu_torch.tools.time_mha_bwd [--kernel mha_bwd|flash_fwd|flash_bwd] [--parent DIR] [--ablations]
+    python -m theia_tpu_torch.tools.time_mha_bwd [--kernel mha_bwd|flash_fwd|flash_bwd] [--dtype float32|bfloat16]
+        [--parent DIR] [--ablations]
 
 Builds the kernels (``kernels/build.py``) and prints ptxas's registers and
-spills of the kernel's float32 passes at hd = 64 and their resident blocks
-per SM. ``--parent DIR`` also builds the same source of an unpacked earlier
-tree in DIR; ``--ablations`` builds the source once for each entry of the
-kernel's ``ablations``, each undoing one choice of the kernel through the
-``-D`` settings its source reads. The extra libraries build in parallel.
-Every build is held to the plain version (max abs error within 2e-5, on
-each output: K7's O and lse) at the check shapes, then all are timed at the
-timing shapes as views of a packed projection, with SDPA (its
-memory-efficient forward or backward) and the plain version, in the order
-a, b, ..., b, a (device time, the stream held while the host enqueues),
-twice after a round that warms the card. Exits nonzero without a card or on
-a disagreement.
+spills of the kernel's passes in that dtype at hd = 64 and their resident
+blocks per SM. ``--parent DIR`` also builds the same source of an unpacked
+earlier tree in DIR; ``--ablations`` builds the source once for each entry
+of the kernel's ``ablations``, each undoing one choice of the kernel
+through the ``-D`` settings its source reads. The extra libraries build in
+parallel. Every build is held to the plain version at the check shapes
+(float32: max abs error within 2e-5, on each output: K7's O and lse; bf16:
+relative L2 below 1e-2), then all are timed at the timing shapes as views
+of a packed projection, with SDPA (float32: its memory-efficient forward or
+backward; bf16: its flash backward) and the plain version, in the order a,
+b, ..., b, a (device time, the stream held while the host enqueues), twice
+after a round that warms the card; then each build's device time by kernel
+(its passes; torch.profiler). Exits nonzero without a card or on a
+disagreement.
 """
 
 from __future__ import annotations
@@ -36,9 +39,10 @@ import torch
 
 from theia_tpu_torch.kernels import build
 from theia_tpu_torch.ops import attention
-from theia_tpu_torch.tools.timing import interleaved_ms, ptxas_usage, sdpa_backward, sdpa_forward
+from theia_tpu_torch.tools.timing import interleaved_ms, kernel_ms, ptxas_usage, sdpa_backward, sdpa_forward
 
 F32_ATOL = 2e-5
+BF16_REL_L2 = 1e-2  # P and dS round to bf16 before their products; a rounding may land either side
 H, HD = 12, 64
 PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -46,7 +50,7 @@ PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 @dataclasses.dataclass(frozen=True)
 class Target:
     source: str  # under theia_tpu_torch/csrc
-    passes: tuple[str, ...]  # ptxas names of its float32 kernels (the parent's where they differ)
+    passes: tuple[str, ...]  # ptxas names of its kernels in its dtype (the parent's where they differ)
     numbers: tuple[int, ...]  # the K numbers of its float32 flash kernels, for their occupancy query
     ablations: dict[str, tuple[str, ...]]  # name -> the -D settings it builds with
     checks: tuple[tuple[int, int, int], ...]  # (B, T, hd) held to the plain version, H = 2 where B = 2
@@ -57,6 +61,7 @@ class Target:
     plain: Callable
     inputs: Callable  # (q, k, v, do) -> the arguments of the three above
     library: Callable  # (q, k, v, do) -> one PyTorch call for the same function, of no arguments
+    dtype: torch.dtype = torch.float32
 
 
 def _strides(*xs):
@@ -70,14 +75,15 @@ def _grads(q):
 
 
 def mha_launcher(lib: ctypes.CDLL):
-    """mha_bwd through another build of the library (no checks)."""
+    """mha_bwd through another build of the library (no checks), in q's dtype."""
     def run(q, k, v, do):
         b, t, h, hd = q.shape
         grads, (dq, dk, dv) = _grads(q)
         stats = torch.empty((b * h, 3, t), dtype=torch.float32, device=q.device)
         err = lib.theia_mha_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, t, hd, *_strides(q, do, dq), 0,
-                                1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+                                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, t, hd, *_strides(q, do, dq),
+                                attention._DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+                                torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed ({err})")
         return grads
@@ -181,6 +187,26 @@ TARGETS = {
 }
 
 
+# bf16 K2 (the two wgmma passes); its row pass is <hd, chunks of 64 keys a
+# warpgroup>: 2 at T = 197 with 2 warpgroups a block, 1 with 4 (the
+# row_split4 ablation); the parent's passes are <hd> alone
+BF16_TARGETS = {
+    "mha_bwd": dataclasses.replace(
+        TARGETS["mha_bwd"],
+        passes=(f"mha_bwd_rows_bf16<{HD},2>", f"mha_bwd_rows_bf16<{HD},1>", f"mha_bwd_cols_bf16<{HD}>",
+                f"mha_bwd_rows_bf16<{HD}>"),
+        ablations={
+            "row_split4": ("THEIA_K2_BF16_ROW_SPLIT=4",),
+            "col_n64": ("THEIA_K2_BF16_COL_N=64",),
+            "col_wg1": ("THEIA_K2_BF16_COL_WG=1",),
+        },
+        checks=((16, 197, HD), (16, 204, HD), (1, 197, HD),
+                *((2, t, hd) for hd in (16, 32, 64, 80, 128) for t in (1, 17, 63, 64, 65, 128, 129, 193, 256))),
+        dtype=torch.bfloat16,
+    ),
+}
+
+
 def print_ptxas(target: Target, name: str, log: str) -> None:
     usage = dict(ptxas_usage(log))
     for kernel in target.passes:
@@ -211,13 +237,14 @@ def build_libraries(target: Target, sources: dict[str, tuple[Path, tuple[str, ..
     return libs
 
 
-def print_occupancy(kernel: str, lib: ctypes.CDLL) -> None:
-    """Resident blocks per SM of the port's float32 passes at hd = 64."""
+def print_occupancy(kernel: str, dtype: torch.dtype, lib: ctypes.CDLL) -> None:
+    """Resident blocks per SM of the port's passes at hd = 64 in ``dtype``."""
     threads = ctypes.c_int(0)
     if kernel == "mha_bwd":
         t = 197
-        for cols, name in enumerate(TARGETS[kernel].passes):
-            blocks = lib.theia_mha_bwd_f32_blocks_per_sm(t, HD, cols, ctypes.byref(threads))
+        query = lib.theia_mha_bwd_bf16_blocks_per_sm if dtype == torch.bfloat16 else lib.theia_mha_bwd_f32_blocks_per_sm
+        for cols, name in enumerate(("row pass", "column pass")):
+            blocks = query(t, HD, cols, ctypes.byref(threads))
             print(f"  kernel: {name} at T = {t}: {blocks} resident blocks per SM of {threads.value} threads")
     else:
         for number, name in zip(TARGETS[kernel].numbers, TARGETS[kernel].passes):
@@ -225,36 +252,50 @@ def print_occupancy(kernel: str, lib: ctypes.CDLL) -> None:
             print(f"  kernel: {name}: {blocks} resident blocks per SM of {threads.value} threads")
 
 
-def max_abs_error(got, want) -> float:
-    """The largest abs error over an output, or over each of a tuple of them (O and lse)."""
+def error(got, want, dtype: torch.dtype) -> float:
+    """float32: the largest abs error over an output, or over each of a tuple
+    of them (O and lse); bf16: the relative L2 error, or the largest abs
+    error where the plain result is 0."""
+    if dtype == torch.bfloat16:
+        got, want = got.double(), want.double()
+        norm = float(want.norm())
+        return float((got - want).norm()) / norm if norm else float((got - want).abs().max())
     pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
     return max(float((g - w).abs().max()) for g, w in pairs)
 
 
-def packed(b: int, t: int, h: int, hd: int, gen: torch.Generator) -> tuple[torch.Tensor, ...]:
-    qkv = torch.randn(b, t, 3 * h * hd, device="cuda", generator=gen)
+def packed(b: int, t: int, h: int, hd: int, gen: torch.Generator, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
+    qkv = torch.randn(b, t, 3 * h * hd, device="cuda", generator=gen).to(dtype)
     q, k, v = (y.view(b, t, h, hd) for y in qkv.split(h * hd, dim=-1))
-    return q, k, v, torch.randn(b, t, h, hd, device="cuda", generator=gen)
+    return q, k, v, torch.randn(b, t, h, hd, device="cuda", generator=gen).to(dtype)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernel", choices=sorted(TARGETS), default="mha_bwd",
                         help="K2 (mha_bwd), the flash forward K7 (flash_fwd) or the flash pair K9 + K8 (flash_bwd)")
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                        help="the kernel's inputs; bfloat16 for --kernel mha_bwd only")
     parser.add_argument("--parent", type=Path, help="an unpacked earlier tree whose source of the kernel to time too")
     parser.add_argument("--ablations", action="store_true", help="also time the builds of the kernel's ablations")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_mha_bwd: no CUDA device", file=sys.stderr)
         return 1
-    target = TARGETS[args.kernel]
+    targets = BF16_TARGETS if args.dtype == "bfloat16" else TARGETS
+    if args.kernel not in targets:
+        parser.error(f"--kernel {args.kernel} times float32 only")
+    target = targets[args.kernel]
+    dtype = target.dtype
+    limit = BF16_REL_L2 if dtype == torch.bfloat16 else F32_ATOL
+    within = (lambda e: e < limit) if dtype == torch.bfloat16 else (lambda e: e <= limit)
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
     lib_path = build.build()
     print_ptxas(target, "kernel", lib_path.with_suffix(".log").read_text())
-    print_occupancy(args.kernel, build.load())
+    print_occupancy(args.kernel, dtype, build.load())
     sources = {}
     if args.parent:
         sources["parent"] = (args.parent / "theia_tpu_torch" / "csrc" / target.source, ())
@@ -265,23 +306,24 @@ def main() -> int:
         fns.update({name: target.launcher(lib) for name, lib in build_libraries(target, sources, Path(work)).items()})
         gen = torch.Generator(device="cuda").manual_seed(0)
         worst = dict.fromkeys(fns, 0.0)
+        metric = "relative L2 error" if dtype == torch.bfloat16 else "max abs error"
         for b, t, hd in target.checks:
-            q, k, v, do = packed(b, t, H if b > 2 else 2, hd, gen)
+            q, k, v, do = packed(b, t, H if b > 2 else 2, hd, gen, dtype)
             inputs = target.inputs(q, k, v, do)
             want = target.plain(*inputs)
-            errs = {name: max_abs_error(fn(*inputs), want) for name, fn in fns.items()}
+            errs = {name: error(fn(*inputs), want, dtype) for name, fn in fns.items()}
             worst = {name: max(worst[name], e) for name, e in errs.items()}
-            if hd == HD and b > 2 or not all(e <= F32_ATOL for e in errs.values()):
-                print(f"  [{b},{t},{q.shape[2]},{hd}] max abs error against the plain version: "
+            if hd == HD and b > 2 or not all(within(e) for e in errs.values()):
+                print(f"  [{b},{t},{q.shape[2]},{hd}] {metric} against the plain version: "
                       + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
-            bad = [n for n, e in errs.items() if not e <= F32_ATOL]
+            bad = [n for n, e in errs.items() if not within(e)]
             if bad:
-                print(f"time_mha_bwd: {bad} disagree with the plain version (atol {F32_ATOL})", file=sys.stderr)
+                print(f"time_mha_bwd: {bad} disagree with the plain version (limit {limit})", file=sys.stderr)
                 return 1
-        print(f"  worst max abs error over the {len(target.checks)} check shapes: "
+        print(f"  worst {metric} over the {len(target.checks)} check shapes: "
               + ", ".join(f"{n} {e:.2e}" for n, e in worst.items()))
         for b, t in target.timed:
-            q, k, v, do = packed(b, t, H, HD, gen)
+            q, k, v, do = packed(b, t, H, HD, gen, dtype)
             inputs = target.inputs(q, k, v, do)
             timed = {name: (lambda fn=fn: fn(*inputs)) for name, fn in fns.items()}
             timed["plain"] = lambda: target.plain(*inputs)
@@ -289,8 +331,12 @@ def main() -> int:
             for rep in range(3):  # the first round warms the card and is not printed
                 ms = interleaved_ms(timed)
                 if rep:
-                    print(f"  [{b},{t},{H},{HD}] float32, device ms (order a..b..a, {card}): "
+                    print(f"  [{b},{t},{H},{HD}] {args.dtype}, device ms (order a..b..a, {card}): "
                           + ", ".join(f"{n} {v:.4f}" for n, v in ms.items()))
+            for name in fns:
+                split = kernel_ms(timed[name])
+                print(f"  [{b},{t},{H},{HD}] {name}, device ms a call by kernel (torch.profiler, 50 calls): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     return 0
 
 

@@ -49,31 +49,72 @@ def interleaved_ms(fns: dict, iters: int = 20, hold: bool = True) -> dict:
     return {k: sum(v) / len(v) for k, v in times.items()}
 
 
+def kernel_ms(fn, iters: int = 50) -> dict[str, float]:
+    """Device milliseconds per call of each CUDA kernel ``fn`` launches, by
+    the kernel's name without its arguments (torch.profiler over ``iters``
+    calls after one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            name = profiled_kernel_name(ev.key)
+            out[name] = out.get(name, 0.0) + ev.device_time_total / iters / 1e3
+    return out
+
+
+def profiled_kernel_name(key: str) -> str:
+    """A kernel's name without return type, namespace or arguments, from
+    the profiler's ``void (anonymous namespace)::k<64, 2>(float*, ...)``."""
+    return key.removeprefix("void ").removeprefix("(anonymous namespace)::").split("(")[0].strip()
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name as the tools print it (``mha_bwd_rows_bf16<64,2>``) from its mangled one."""
+    m = re.search(r"\d(mha_\w+?|flash_\w+?|ln_bwd_\w+?)(?:ILi(\d+)E(?:Li(\d+)E)?|If?E|I13__nv_bfloat16E|E)",
+                  mangled)
+    loss = re.search(r"\d(loss_sums_[a-z]+)(?:I(\w+?)Lb([01])E)?", mangled)
+    name = m.group(1) if m else mangled
+    if loss:
+        name = loss.group(1)
+        if loss.group(2):
+            # float is "f"; bf16 is "13__nv_bfloat16", or "S<n>_" where it repeats
+            types = ",".join("f32" if x == "f" else "bf16"
+                             for x in re.findall(r"f|13__nv_bfloat16|S\d*_", loss.group(2)))
+            name += f"<{types},{'vec8' if loss.group(3) == '1' else 'scalar'}>"
+    elif m and m.group(2):
+        name += f"<{m.group(2)}{f',{m.group(3)}' if m.group(3) else ''}>"
+    elif m and "ln_bwd" in name and "finish" not in name:
+        name += "<bf16>" if "bfloat16" in mangled else "<f32>"
+    return name
+
+
 def ptxas_usage(log: str) -> list[tuple[str, str]]:
     """(kernel, "N registers, spills ...") for each kernel in nvcc's -Xptxas=-v output."""
     out, name, spills = [], "?", ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            mangled = line.split("'")[1]
-            m = re.search(r"\d(mha_\w+?|flash_\w+?|ln_bwd_\w+?)(?:ILi(\d+)E(?:Li(\d+)E)?|If?E|I13__nv_bfloat16E|E)",
-                          mangled)
-            loss = re.search(r"\d(loss_sums_[a-z]+)(?:I(\w+?)Lb([01])E)?", mangled)
-            name = m.group(1) if m else mangled
-            if loss:
-                name = loss.group(1)
-                if loss.group(2):
-                    # float is "f"; bf16 is "13__nv_bfloat16", or "S<n>_" where it repeats
-                    types = ",".join("f32" if x == "f" else "bf16"
-                                     for x in re.findall(r"f|13__nv_bfloat16|S\d*_", loss.group(2)))
-                    name += f"<{types},{'vec8' if loss.group(3) == '1' else 'scalar'}>"
-            elif m and m.group(2):
-                name += f"<{m.group(2)}{f',{m.group(3)}' if m.group(3) else ''}>"
-            elif m and "ln_bwd" in name and "finish" not in name:
-                name += "<bf16>" if "bfloat16" in mangled else "<f32>"
+            name = kernel_name(line.split("'")[1])
         elif "spill stores" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
             out.append((name, f"{line.split('Used', 1)[1].strip()}; {spills}"))
+    return out
+
+
+def wgmma_serialized(log: str) -> list[tuple[str, str]]:
+    """(kernel, ptxas's code and reason) for each kernel whose wgmma ptxas
+    serialized (a performance loss ptxas reports as info, C75xx)."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"\((C75\d\d)\) Potential Performance Loss: wgmma\.mma_async instructions are serialized "
+                      r"due to (.*?) (?:in|for) the function '(\w+)'", line)
+        if m:
+            out.append((kernel_name(m.group(3)), f"{m.group(1)}, {m.group(2)}"))
     return out
 
 
