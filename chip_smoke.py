@@ -8,7 +8,8 @@ failure (the script then exits nonzero and prints no result):
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes),
    ptxas's registers and spills, and the resident blocks per SM of K1 bf16,
-   of K2's two passes in bf16 and float32 and of float32 K7, K9 and K8;
+   of K2's two passes in bf16 and float32, of float32 K7, K9 and K8 and of
+   bf16 K7;
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
    64] as views of a packed QKV projection and over a sweep of head dim x
@@ -17,7 +18,9 @@ failure (the script then exits nonzero and prints no result):
    2^-90, which take the IEEE division), K7 (flash forward), K9 (flash
    dQ) and K8 (flash dK, dV) at [B, 197|204, 12, 64] and [16, 785, 12, 64]
    as such views and over a sweep of head dim x T (float32 K9/K8 also at
-   the edges of their 16-row groups and 64-row tiles), K3 and K4
+   the edges of their 16-row groups and 64-row tiles, bf16 K7 at the edges
+   of its 128-row blocks), bf16 K7 also where every key tile raises the
+   row max and where most probabilities underflow, K3 and K4
    (LayerNormSpatial backward) at every ladder LayerNorm of the Theia-Base
    cddsv heads, K5 and K6 (the fused loss's sums and d pred) at the five
    cddsv teachers' [16, D] and over a sweep of B and D;
@@ -100,6 +103,8 @@ FLASH_SWEEP_T = (1, 17, 130, 257, 785)
 # and float32 K9/K8 (3xTF32) also at the edges of their 16-row groups and
 # 64-row tiles
 FLASH_F32_EDGE_T = (15, 16, 63, 64, 65)
+# and bf16 K7 (wgmma) at the edges of its 128-row blocks
+FLASH_BF16_EDGE_T = (127, 128, 129, 255, 256)
 # 448² uint8 images without resize: 28² patches and the CLS token
 BIG_IMAGE, BIG_T = 448, 1 + (448 // 16) ** 2
 BIG_BATCH, BIG_TRAIN_BATCH = 16, 4
@@ -348,8 +353,9 @@ def compare_flash_kernels(attention) -> dict:
     """Phase 3, K7, K9 and K8 against their plain versions: at the serving and
     training shapes [1|64, 197|204, 12, 64] and [1|16, 197|204, 12, 64], at
     448² images' [16, 785, 12, 64], and over head dims 16..128 x
-    FLASH_SWEEP_T (float32 also FLASH_F32_EDGE_T); float32 and bf16. The max
-    abs errors."""
+    FLASH_SWEEP_T (float32 also FLASH_F32_EDGE_T, bf16 FLASH_BF16_EDGE_T);
+    float32 and bf16; then bf16 K7's hard cases (``k7_bf16_hard_cases``).
+    The max abs errors."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     errors = {}
     shapes = [(1, 197), (64, 197), (1, 204), (64, 204), (16, 197), (16, 204), (BIG_BATCH, BIG_T)]
@@ -368,7 +374,7 @@ def compare_flash_kernels(attention) -> dict:
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for hd in range(16, 129, 16):
-            for t in FLASH_SWEEP_T + (FLASH_F32_EDGE_T if dtype == torch.float32 else ()):
+            for t in FLASH_SWEEP_T + (FLASH_F32_EDGE_T if dtype == torch.float32 else FLASH_BF16_EDGE_T):
                 for name, (got, want) in flash_case(attention, 2, t, 2, hd, dtype, gen).items():
                     err, rel, ok = flash_error(got, want, dtype, name in ("lse", "di"))
                     check(ok, f"{name} {dtype} [2,{t},2,{hd}] disagrees with its plain version: max abs {err:.3e}, "
@@ -377,13 +383,42 @@ def compare_flash_kernels(attention) -> dict:
                     # bf16: a case within the absolute floor (exact result 0) counts as 0
                     bad = err if dtype == torch.float32 else (rel if err > KERNEL_F32_ATOL else 0.0)
                     worst[key] = max(worst.get(key, 0.0), bad)
-    print(f"  K7/K9/K8 flash [2, T, 2, hd], hd 16..128 x T in {FLASH_SWEEP_T} (float32 also {FLASH_F32_EDGE_T}): "
+    print(f"  K7/K9/K8 flash [2, T, 2, hd], hd 16..128 x T in {FLASH_SWEEP_T} (float32 also {FLASH_F32_EDGE_T}, "
+          f"bf16 {FLASH_BF16_EDGE_T}): "
           "float32 worst max_abs_err " +
           ", ".join(f"{n} {worst[(n, torch.float32)]:.3e}" for n in ("flash_fwd", "flash_dq", "flash_dkv")) +
           f" (atol {KERNEL_F32_ATOL}); bf16 worst rel_l2 " +
           ", ".join(f"{n} {worst[(n, torch.bfloat16)]:.3e}" for n in ("flash_fwd", "flash_dq", "flash_dkv")) +
           f" (< {KERNEL_BF16_REL_L2}); lse, di within rel_l2 {KERNEL_F32_REL_L2}")
+    k7_bf16_hard_cases(attention, gen)
     return errors
+
+
+def k7_bf16_hard_cases(attention, gen: torch.Generator) -> None:
+    """bf16 K7 at [2, 785, 2, 64|128] where its online softmax works hardest,
+    held to its plain version (O rel_l2 < KERNEL_BF16_REL_L2, lse within
+    KERNEL_F32_REL_L2): "rising max", K scaled up along the keys (1x to
+    ~12x), so that each 64-key tile raises the row maxima and rescales O and
+    l; "scores x 40", Q scaled by 40, so that most p underflow to 0."""
+    worst = {}
+    for hd in (64, 128):
+        for case in ("rising max", "scores x 40"):
+            qkv = torch.randn(2, BIG_T, 3 * 2 * hd, device="cuda", generator=gen)
+            if case == "rising max":
+                qkv[..., 2 * hd: 4 * hd] *= torch.linspace(1, BIG_T / 64, BIG_T, device="cuda")[None, :, None]
+            else:
+                qkv[..., : 2 * hd] *= 40
+            q, k, v = (y.view(2, BIG_T, 2, hd) for y in qkv.to(torch.bfloat16).split(2 * hd, dim=-1))
+            o, lse = attention.flash_fwd(q, k, v)
+            want_o, want_lse = attention.flash_fwd_plain(q, k, v)
+            errs = (rel_l2(o.float(), want_o.float()), rel_l2(lse, want_lse))
+            check(errs[0] < KERNEL_BF16_REL_L2 and errs[1] <= KERNEL_F32_REL_L2,
+                  f"K7 bf16 [2,{BIG_T},2,{hd}] {case} disagrees with its plain version: O rel_l2 {errs[0]:.3e}, "
+                  f"lse rel_l2 {errs[1]:.3e}")
+            worst[case] = tuple(map(max, zip(worst.get(case, errs), errs)))
+    print(f"  K7 flash_fwd bf16 [2, {BIG_T}, 2, 64|128]: " +
+          "; ".join(f"{case} worst rel_l2 O {o:.3e}, lse {l:.3e}" for case, (o, l) in worst.items()) +
+          f" (O < {KERNEL_BF16_REL_L2}, lse <= {KERNEL_F32_REL_L2})")
 
 
 def compare_loss_kernels(fused_loss, teacher_dims: list[int]) -> dict:
@@ -509,6 +544,15 @@ def main() -> int:
         print(f"  K{number} {kernel}: ptxas {usage.get(kernel)}; {blocks} resident blocks per SM "
               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block)")
         check(kernel in usage and blocks > 0, f"{kernel}'s ptxas line or occupancy query is missing ({blocks})")
+    # K7 bf16 (wgmma) at the main path's head dim
+    k7 = f"flash_fwd_bf16<{HEAD_DIM}>"
+    threads = ctypes.c_int(0)
+    blocks = build.load().theia_flash_fwd_bf16_blocks_per_sm(HEAD_DIM, ctypes.byref(threads))
+    notes = [reason for name, reason in wgmma_serialized(lib_path.with_suffix(".log").read_text()) if name == k7]
+    print(f"  K7 {k7}: ptxas {usage.get(k7)}; {blocks} resident blocks per SM "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block); wgmma serialized: "
+          f"{'; '.join(notes) or 'no'}")
+    check(k7 in usage and blocks > 0, f"{k7}'s ptxas line or occupancy query is missing ({blocks})")
 
     # phase 3: kernel vs plain; float32 phases run with TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -996,9 +1040,11 @@ def main() -> int:
                 "plain": lambda: attention.flash_fwd_plain(q, k, v), "kernel": lambda: attention.flash_fwd(q, k, v),
                 "library": sdpa_forward(q, k, v)}, 4 * n * q.element_size() + bh * t * 4, flops, dtype,
                 f"[{b},{t},12,64]")
-            if dtype == bf16 and t == BIG_T:
-                record["flash_fwd"] = res
-            elif dtype == torch.float32:
+            if dtype == bf16:
+                print(f"    K7 bf16 [{b},{t},12,64]: kernel / bound {res[0]['kernel'] / res[1]:.2f}x ({res[2]})")
+                if t == BIG_T:
+                    record["flash_fwd"] = res
+            else:
                 # float32 K7 runs its products as 3xTF32 on the tensor cores
                 tf32_row("flash_fwd", "K7", res, flops, f"[{b},{t},12,64]",
                          kernel_errors[("flash_fwd", dtype, b, t)] if t == BIG_T else None)

@@ -96,10 +96,11 @@ def test_plain_backward_matches_the_tpu_flash_kernels_across_head_dims(t, hd):
         _close(grads[:, :, i], w, torch.float32, None)
 
 
-def _library_o_lse(q, k, v, monkeypatch):
-    """O of the reference's flash path in interpret mode, float32, and lse =
-    m + log(l) from the row statistics its library call keeps: the same call
-    with ``save_residuals``, which returns O beside l and m."""
+def _library_o_lse(q, k, v, monkeypatch, dtype=jnp.float32):
+    """O of the reference's flash path in interpret mode on inputs of
+    ``dtype``, and lse = m + log(l) (float32) from the row statistics its
+    library call keeps: the same call with ``save_residuals``, which returns
+    O beside l and m."""
     saved = []
 
     def with_residuals(q, k, v, ab=None, segment_ids=None, *, causal=False, sm_scale=1.0, block_sizes=None,
@@ -111,9 +112,9 @@ def _library_o_lse(q, k, v, monkeypatch):
     monkeypatch.setattr(flash_library, "flash_attention", with_residuals)
     b, t, h, _ = q.shape
     with pltpu.force_tpu_interpret_mode():
-        o = jattn._flash_attention(*map(jnp.asarray, (q, k, v)), jnp.float32)
+        o = jattn._flash_attention(*(jnp.asarray(x, dtype) for x in (q, k, v)), dtype)
     ((l, m),) = saved
-    return np.asarray(o), np.asarray((m + jnp.log(l))[:, :, :t]).reshape(b * h, t)
+    return np.asarray(o.astype(jnp.float32)), np.asarray((m + jnp.log(l))[:, :, :t]).reshape(b * h, t)
 
 
 @pytest.mark.parametrize("hd", (32, 128))
@@ -127,6 +128,20 @@ def test_plain_forward_matches_the_tpu_flash_kernel_at_the_tile_edges(t, hd, mon
     o, lse = tattn.flash_fwd_plain(*map(torch.from_numpy, (q, k, v)))
     _close(o, want_o, torch.float32, None)
     np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t, hd", [(127, 64), (129, 128), (255, 128), (257, 64)])
+def test_plain_bf16_forward_matches_the_tpu_flash_kernel_at_the_block_edges(t, hd, monkeypatch):
+    """The bf16 flash forward's plain version (O and lse) against the
+    reference's flash path in interpret mode, on bf16 inputs, at the edges
+    of bf16 K7's 128-row blocks (one row short of and past one and two of
+    them), at its main path's and widest head dims."""
+    q, k, v = _arrays((1, t, H, hd), 3, seed=t * 1000 + hd + 11)
+    want_o, want_lse = _library_o_lse(q, k, v, monkeypatch, jnp.bfloat16)
+    o, lse = tattn.flash_fwd_plain(*(_torch(x, torch.bfloat16) for x in (q, k, v)))
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _close(o, want_o, torch.bfloat16, 1e-2)
+    assert _rel_l2(lse.numpy(), want_lse) <= 1e-5
 
 
 def test_plain_matches_einsum_where_the_reference_flash_path_refuses():
@@ -320,6 +335,50 @@ def test_cuda_float32_forward_kernel_matches_plain(cuda, hd, t):
         "FLASH_DQ_LAUNCHES": 0}
     want_o, want_lse = tattn.flash_fwd_plain(q, k, v)
     torch.testing.assert_close(o, want_o, atol=2e-5, rtol=0)
+    assert _rel_l2(lse.cpu(), want_lse.cpu()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 130, 197, 255, 256, 257, 785))
+@pytest.mark.parametrize("hd", (16, 32, 48, 64, 80, 96, 112, 128))
+def test_cuda_bf16_forward_kernel_matches_plain(cuda, hd, t):
+    """bf16 K7 (wgmma) against its plain version at every head dim and at
+    the edges of its 16-row warps, 64-row warpgroups, 64-key tiles and
+    128-row blocks, on views of a packed projection: O within relative L2
+    1e-2, lse within 1e-5; one launch a call."""
+    gen = torch.Generator().manual_seed(hd * 1000 + t + 2)
+    qkv = torch.randn(2, t, 3 * 2 * hd, generator=gen).to(cuda, torch.bfloat16)
+    q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+    before = _counts()
+    o, lse = tattn.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert {n: after[n] - before[n] for n in COUNTERS} == {
+        "MHA_FWD_LAUNCHES": 0, "MHA_BWD_LAUNCHES": 0, "FLASH_FWD_LAUNCHES": 1, "FLASH_DKV_LAUNCHES": 0,
+        "FLASH_DQ_LAUNCHES": 0}
+    want_o, want_lse = tattn.flash_fwd_plain(q, k, v)
+    assert _rel_l2(o.float().cpu(), want_o.float().cpu()) < 1e-2
+    assert _rel_l2(lse.cpu(), want_lse.cpu()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("rising max", "scores x 40"))
+@pytest.mark.parametrize("hd", (64, 128))
+def test_cuda_bf16_forward_kernel_where_the_online_softmax_works_hardest(cuda, hd, case):
+    """bf16 K7 at [2, 785, 2, hd] against its plain version: K scaled up
+    along the keys (1x to ~12x), so that each 64-key tile raises the row
+    maxima and rescales O and l; or Q scaled by 40, so that most p
+    underflow to 0. O within relative L2 1e-2, lse within 1e-5."""
+    t = 785
+    qkv = torch.randn(2, t, 3 * 2 * hd, generator=torch.Generator().manual_seed(hd + len(case)))
+    if case == "rising max":
+        qkv[..., 2 * hd: 4 * hd] *= torch.linspace(1, t / 64, t)[None, :, None]
+    else:
+        qkv[..., : 2 * hd] *= 40
+    q, k, v = (y.view(2, t, 2, hd) for y in qkv.to(cuda, torch.bfloat16).split(2 * hd, dim=-1))
+    o, lse = tattn.flash_fwd(q, k, v)
+    want_o, want_lse = tattn.flash_fwd_plain(q, k, v)
+    assert _rel_l2(o.float().cpu(), want_o.float().cpu()) < 1e-2
     assert _rel_l2(lse.cpu(), want_lse.cpu()) <= 1e-5
 
 

@@ -32,18 +32,45 @@
 // tensor cores are the limit (31 us at 989 TFLOP/s); the backward passes
 // likewise (45 and 61 GFLOP). At T = 197 all three are bound by their
 // bytes, a few microseconds. Nothing of size T x T leaves the SM: a block
-// owns 64 rows (queries, or keys in the dK/dV pass) and streams the other
-// side through shared memory in tiles of 64.
+// owns 64 rows (queries, or keys in the dK/dV pass; 128 queries in the bf16
+// forward) and streams the other side through shared memory in tiles of 64.
 //
-// bf16, tensor cores (flash_*_bf16): four warps, each owning 16 rows, run
-//   mma.sync m16n8k16 with the building blocks of K1 and K2 (mma_bf16.cuh).
-//   The streamed tiles are double-buffered with cp.async: tile j + 1 is in
-//   flight while tile j is used. Forward and dQ hold their rows' Q (and dO)
-//   as A fragments; the S accumulators of two 8-key tiles are the A fragment
-//   of bf(P) (or bf(dS)) for the next 16-key step, and V's (K's) B fragments
-//   come from a transposing ldmatrix, as in K1. The dK/dV pass computes
-//   S^T = K Q^T and dP^T = V dO^T, whose accumulators are the A operands of
-//   dV = P^T dO and dK = dS^T Q, as K2's column pass does.
+// bf16 forward, wgmma (flash_fwd_bf16): two warpgroups (256 threads) own
+//   128 query rows of a slab, 64 each, and share the block's Q, staged once,
+//   and a ring of THEIA_K7_BF16_STAGES K and V tiles of 64 keys, all staged
+//   by cp.async in wgmma's 128-byte swizzle (wgmma_bf16.cuh). One barrier a
+//   tile publishes its slots and frees those whose products have retired in
+//   both warpgroups; the copies of the tiles ahead fill them. S = Q K^T is
+//   m64n64k16 with Q and K both K-major in shared memory (Q held in
+//   registers, 16 to 32 more a thread, was no faster); its accumulators
+//   are mma.sync's C layout per warp, so the online softmax is the quad
+//   shuffles of the mma.sync kernels; bf(P), packed from them, is the
+//   register A of O += P V, m64n(hd)k16 with V the MN-major B (the
+//   transpose bit), as in K1. With
+//   THEIA_K7_BF16_PIPE, tile j + 1's S and softmax run while the tensor
+//   cores work on tile j's P V (two sets of P fragments, one of S).
+//   What bounds it: at [16, 785] neither the tensor cores (36.6 GFLOP
+//   padded to 128-row blocks, 37 us) nor the K and V staging, which 128-row
+//   blocks halve against 64-row ones (~286 MB through L2; waiting for every
+//   copy at every tile costs nothing), but the softmax's instructions: an
+//   exact expf is 8 of the ~14 a score, 645 a tile a thread with the
+//   loop's own, which the schedulers issue at under 60% of their rate
+//   between the tile's barrier and its products' waits (PERF.md, section
+//   6). So rows past T
+//   are computed on zero-filled Q, but a warp wholly past T skips its
+//   softmax, and the last tile's 8-key groups wholly past T skip their
+//   exp; keys past T are zero-filled and masked to -inf.
+//
+// bf16 dQ and dK/dV, tensor cores (flash_dq_bf16, flash_dkv_bf16): four
+//   warps, each owning 16 rows, run mma.sync m16n8k16 with the building
+//   blocks of K1 and K2 (mma_bf16.cuh). The streamed tiles are
+//   double-buffered with cp.async: tile j + 1 is in flight while tile j is
+//   used. dQ holds its rows' Q and dO as A fragments; the S accumulators of
+//   two 8-key tiles are the A fragment of bf(dS) for the next 16-key step,
+//   and K's B fragments come from a transposing ldmatrix, as in K1. The
+//   dK/dV pass computes S^T = K Q^T and dP^T = V dO^T, whose accumulators
+//   are the A operands of dV = P^T dO and dK = dS^T Q, as K2's column pass
+//   does.
 //
 // float32, tensor cores as 3xTF32 (flash_fwd_f32, flash_dq_f32,
 //   flash_dkv_f32): no tensor-core instruction multiplies in full float32,
@@ -76,7 +103,8 @@
 //   PERF.md.
 //
 // No atomics: each pass owns one reduction direction, so the results are
-// deterministic. wgmma, TMA and warp specialisation are later work.
+// deterministic. TMA, clusters, a producer warp and persistent blocks are
+// later work, as is wgmma for the bf16 backward and the float32 kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +115,7 @@
 
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -125,11 +154,371 @@ __device__ __forceinline__ float quad_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
+using bf16 = __nv_bfloat16;
+
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16 K7: wgmma
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
+// The forward's block shape may be set with -D to time the alternatives
+// (tools/time_mha_bwd.py --kernel flash_fwd --dtype bfloat16 --ablations);
+// the defaults are the fastest measured.
+//   THEIA_K7_BF16_WG: warpgroups a block, each owning 64 query rows (2 or 1).
+//   THEIA_K7_BF16_STAGES: slots of the K and V ring (2 to 4).
+//   THEIA_K7_BF16_PIPE: 1 runs tile j + 1's S = Q K^T and softmax (into a
+//     second set of P fragments) while tile j's P V is in flight; 0 runs
+//     each tile's S, softmax and P V in turn.
+#ifndef THEIA_K7_BF16_WG
+#define THEIA_K7_BF16_WG 2
+#endif
+#ifndef THEIA_K7_BF16_STAGES
+#define THEIA_K7_BF16_STAGES 3
+#endif
+#ifndef THEIA_K7_BF16_PIPE
+#define THEIA_K7_BF16_PIPE 1
+#endif
+
+constexpr int kWgThreads = 128;  // one warpgroup
+constexpr int kFwdWgs = THEIA_K7_BF16_WG;
+constexpr int kFwdThreads = kFwdWgs * kWgThreads;
+constexpr int kFwdRows = kFwdWgs * kTile;     // query rows a block
+constexpr int kStages = THEIA_K7_BF16_STAGES;
+constexpr int kAhead = THEIA_K7_BF16_PIPE;    // key tiles S = Q K^T runs ahead of P V
+static_assert(kFwdWgs == 1 || kFwdWgs == 2, "a block has 1 or 2 warpgroups");
+static_assert(kStages >= 2 && kStages <= 4, "the ring has 2 to 4 slots");
+static_assert(kAhead == 0 || kAhead == 1, "THEIA_K7_BF16_PIPE is 0 or 1");
+
+// Blocks a SM the launch bounds ask for: 512 threads (128 registers a
+// thread) where hd <= 64 leaves room for them in registers and shared
+// memory, else one block, which may take up to 255 registers.
+template <int HD>
+__host__ __device__ constexpr int fwd_bf16_min_blocks() {
+  return HD <= 64 ? 4 / kFwdWgs : 1;
+}
+
+// Shared memory: 1 KB to align the base to the swizzle's period, the
+// block's kFwdRows Q rows, then the ring's kStages K tiles and kStages V
+// tiles of 64 rows, each in round64(hd) / 64 swizzle atoms of 128-byte rows.
+size_t smem_bytes_fwd_bf16(int hd) {
+  return 1024 + static_cast<size_t>(round64(hd) / 64) * (kFwdRows + 2 * kStages * kTile) * 128;
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(x[i]);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fence_operand(x[i][e]);
+}
+
+// 16 bytes global -> shared, of which the first src_bytes (16, or 0) are
+// read and the rest zero-filled.
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
+}
+
+// Tile i of a slab's K or V (rows 64 i .., token stride ts) into ring slot
+// i % kStages, in the swizzled atom layout of stage_sw128, as one cp.async
+// commit group; rows from T on are zero-filled by the copy (src-size 0,
+// row 0's address); past the last tile an empty group, so that every thread
+// counts the same groups. Each thread copies the same chunks of every
+// tile, a fixed count.
+template <int HD>
+__device__ __forceinline__ void stage_ring(uint32_t ring, const bf16* x, int64_t ts, int i, int t) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks a row
+  constexpr int kAll = kTile * kChunks;
+  constexpr uint32_t kTileBytes = round64(HD) / 64 * kTile * 128;
+  if (i * kTile < t) {
+    const uint32_t slot = ring + static_cast<unsigned>(i) % kStages * kTileBytes;
+    const bf16* tile = x + static_cast<int64_t>(i) * kTile * ts;
+    const int rows = t - i * kTile;
+#pragma unroll
+    for (int i0 = 0; i0 < kAll; i0 += kFwdThreads) {
+      const unsigned e = i0 + threadIdx.x;
+      if (kAll % kFwdThreads == 0 || e < kAll) {
+        const int r = e / kChunks, c = e % kChunks;
+        const bool in = r < rows;
+        cp_async16_zfill(slot + (c >> 3) * kTile * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+                         tile + (in ? r : 0) * ts + c * 8, in ? 16 : 0);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// d (64 rows x 64 keys, float32) = Q K^T over HD: a warpgroup's Q rows at
+// shared address qa (swizzle atoms q_atom bytes apart) and a ring slot's K
+// tile at ka, both K-major, m64n64k16 with A in shared memory; issued and
+// committed, not waited for.
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&d)[32], uint32_t qa, uint32_t q_atom, uint32_t ka) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < HD / 16; ++s) {
+    const uint32_t col = (s % 4) * 32;
+    wgmma_ss<0>(d, desc_sw128(qa + (s / 4) * q_atom + col, 16, 1024),
+                desc_sw128(ka + (s / 4) * kTile * 128 + col, 16, 1024), s > 0);
+  }
+  wgmma_commit();
+}
+
+// A warp's online softmax over key tile key0 .. key0 + 63, on the retired
+// accumulators sc of S = Q K^T: element e is row (e & 2 ? b : a), key key0
+// + 8 (e >> 2) + 2 tq + (e & 1). S * scale; in the last tile (kMask) keys
+// from T masked to -inf, and the 8-key groups wholly past T skip their
+// exp (p = 0). The row maxima m raised to the tile's (the same in the 4
+// lanes of a row) and the correction al = exp(m_old - m) by which the sums
+// l (here) and O (rescale_o) are rescaled; p = exp(S - m), summed
+// unrounded into l; bf(p) packed into pa, the register A fragments of O +=
+// P V: the S tiles 2s and 2s + 1 (8 keys each) are k16 step s.
+template <bool kMask>
+__device__ __forceinline__ void softmax_p(float (&sc)[32], uint32_t (&pa)[kTile / 16][4], float& m_a, float& m_b,
+                                          float& l_a, float& l_b, float& al_a, float& al_b, int key0, int t,
+                                          float scale) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sc[e] = __fmul_rn(sc[e], scale);
+  if constexpr (kMask) {
+    // element e's key lies below T when 8 (e >> 2) + (e & 1) < keys
+    const int keys = t - key0 - 2 * static_cast<int>(threadIdx.x & 3);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      if (8 * (e >> 2) + (e & 1) >= keys) sc[e] = -INFINITY;
+    }
+  }
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mx_a = fmaxf(mx_a, fmaxf(sc[4 * i], sc[4 * i + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+  }
+  // Every tile holds a key < T, so the new maxima are finite; the first
+  // tile's correction exp(-inf) is 0.
+  const float mn_a = fmaxf(m_a, quad_max(mx_a));
+  const float mn_b = fmaxf(m_b, quad_max(mx_b));
+  al_a = expf(m_a - mn_a);
+  al_b = expf(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+  l_a *= al_a;
+  l_b *= al_b;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (kMask && 8 * i >= t - key0) {  // no key of the group is below T: a branch uniform over the block
+      sc[4 * i] = sc[4 * i + 1] = sc[4 * i + 2] = sc[4 * i + 3] = 0.f;
+      continue;
+    }
+    sc[4 * i] = expf(sc[4 * i] - m_a);  // masked keys: 0
+    sc[4 * i + 1] = expf(sc[4 * i + 1] - m_a);
+    sc[4 * i + 2] = expf(sc[4 * i + 2] - m_b);
+    sc[4 * i + 3] = expf(sc[4 * i + 3] - m_b);
+    l_a += sc[4 * i] + sc[4 * i + 1];
+    l_b += sc[4 * i + 2] + sc[4 * i + 3];
+  }
+#pragma unroll
+  for (int s = 0; s < kTile / 16; ++s) {
+    pa[s][0] = pack_bf16(sc[8 * s], sc[8 * s + 1]);
+    pa[s][1] = pack_bf16(sc[8 * s + 2], sc[8 * s + 3]);
+    pa[s][2] = pack_bf16(sc[8 * s + 4], sc[8 * s + 5]);
+    pa[s][3] = pack_bf16(sc[8 * s + 6], sc[8 * s + 7]);
+  }
+}
+
+// O of rows a and b scaled by their corrections al_a, al_b.
+template <int HD>
+__device__ __forceinline__ void rescale_o(float (&acc)[HD / 2], float al_a, float al_b) {
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) {
+    acc[4 * i] *= al_a;
+    acc[4 * i + 1] *= al_a;
+    acc[4 * i + 2] *= al_b;
+    acc[4 * i + 3] *= al_b;
+  }
+}
+
+// O += P V over a 64-key tile: pa the register A fragments, the ring slot's
+// V at vt the MN-major B (the transpose bit), m64n(HD)k16; `first` sets O
+// (scale_d 0). Issued and committed, not waited for.
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2], const uint32_t (&pa)[kTile / 16][4], uint32_t vt,
+                                         bool first) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < kTile / 16; ++s) {
+    wgmma_rs<1>(acc, pa[s], desc_sw128(vt + s * 16 * 128, kTile * 128, 1024), !first || s > 0);
+  }
+  wgmma_commit();
+}
+
+// K7, the bf16 forward. A block owns kFwdRows query rows of one slab: one
+// warpgroup each 64, sharing the block's Q (staged once) and a ring of
+// kStages K and V tiles of 64 keys, staged by cp.async in wgmma's 128-byte
+// swizzle. Each tile takes one barrier: it publishes the tile's slots and
+// frees those that every warpgroup's products have retired, which the
+// next tiles' copies then fill. With kAhead, K tile j + 1 lands with V
+// tile j, and tile j + 1's S = Q K^T and softmax run while the tensor
+// cores work on tile j's P V. Every loop and branch around a product is
+// uniform over the block: rows past T are computed on zero-filled Q (a
+// warpgroup wholly past T too) and only their stores are skipped; a warp
+// wholly past T also skips its softmax, which holds no product. Keys past
+// T are zero-filled and masked to -inf.
+template <int HD>
+__global__ void __launch_bounds__(kFwdThreads, fwd_bf16_min_blocks<HD>())
+    flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                   bf16* __restrict__ o, float* __restrict__ lse, Layout lay, int q_blocks, float scale) {
+  constexpr int kAtoms = round64(HD) / 64;
+  constexpr uint32_t kRowAtom = kFwdRows * 128;          // bytes of a swizzle atom of the block's Q
+  constexpr uint32_t kTileBytes = kAtoms * kTile * 128;  // of a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t kaddr = smem_addr(qs) + kAtoms * kRowAtom;  // [kStages] K tiles
+  const uint32_t vaddr = kaddr + kStages * kTileBytes;        // [kStages] V tiles
+  const int t = lay.t;
+  // head-major: the row blocks of a slab run together and share its K, V in L2
+  const int slab = blockIdx.x / q_blocks;
+  const int row0 = (blockIdx.x - slab * q_blocks) * kFwdRows;
+  const int64_t ts = lay.qkv.t;
+  const int64_t in_off = lay.head(lay.qkv, slab);
+  const bf16* kh = k + in_off;
+  const bf16* vh = v + in_off;
+  const int n = (t + kTile - 1) / kTile;  // key tiles
+
+  // cp.async groups, in order: Q (and K tile 0 with kAhead), then for each
+  // step i = 0, 1, ...: K tile i + kAhead and V tile i. Steps 0 ..
+  // kStages - 2 are staged here, step j + kStages - 1 by tile j, and step
+  // j has landed before tile j's barrier.
+  stage_sw128<HD, kFwdThreads>(qs, q + in_off + row0 * ts, ts, t - row0, kFwdRows);
+  if constexpr (kAhead) stage_ring<HD>(kaddr, kh, ts, 0, t);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    stage_ring<HD>(kaddr, kh, ts, i + kAhead, t);
+    stage_ring<HD>(vaddr, vh, ts, i, t);
+  }
+
+  const int wg = threadIdx.x / kWgThreads;
+  const uint32_t qaddr = smem_addr(qs) + wg * kTile * 128;  // this warpgroup's 64 rows
+  const int warp_row0 = row0 + wg * kTile + ((threadIdx.x >> 5) & 3) * 16;  // the warp's 16 rows
+  // A warp whose rows all lie past T skips its softmax and rescales (a
+  // branch uniform over the warp, around no product): its products run on
+  // P = 0, and their rows are never stored.
+  const bool warp_live = warp_row0 < t;
+  float sc[32];                               // S of a tile
+  uint32_t pa[kTile / 16][4] = {}, pb[kTile / 16][4] = {};  // bf(P) of two tiles with kAhead; pa alone without
+  float acc[HD / 2];  // O, mma.sync's C layout per warp; set by the first P V (scale_d 0)
+  float m_a = -INFINITY, m_b = -INFINITY;  // running row maxima of rows a = rw, b = rw + 8
+  float l_a = 0.f, l_b = 0.f;              // running sums over this lane's keys
+  float al_a, al_b;                        // the last softmax's corrections of O
+  const auto slot = [](int j) { return static_cast<unsigned>(j) % kStages * kTileBytes; };  // of tile j in the ring
+  const auto issue_s = [&](int j) { issue_qk<HD>(sc, qaddr, kRowAtom, kaddr + slot(j)); };
+  if constexpr (kAhead) {
+    cp_async_wait<2 * (kStages - 1)>();
+    fence_proxy_async();
+    __syncthreads();  // Q and K tile 0 are in shared memory
+    issue_s(0);
+    wgmma_wait<0>();  // before tile 0's barrier, after which K tile 0's slot is restaged
+    fence_all(sc);
+    if (warp_live) softmax_p<true>(sc, pa, m_a, m_b, l_a, l_b, al_a, al_b, 0, t, scale);  // tile 0 may be the last
+  }
+
+  // Key tile j: its barrier and the next step's copies; without kAhead, S
+  // = Q K^T of tile j and its softmax into p; O rescaled (past tile 0) and
+  // O += P V with p; with kAhead, p holds tile j's bf(P) already, tile j +
+  // 1's S and softmax (into p_next) run during the P V, and O is rescaled
+  // to tile j + 1's maxima once the P V has retired. Every product has
+  // retired at the end. `soft` says which softmax the call runs: of a
+  // full tile (kFull), of the last tile, masked (kMasked), or none (kNone:
+  // with kAhead, tile j is the last).
+  constexpr int kFull = 0, kMasked = 1, kNone = 2;
+  const auto tile = [&](int j, uint32_t(&p)[kTile / 16][4], uint32_t(&p_next)[kTile / 16][4], auto soft) {
+    constexpr int kSoft = decltype(soft)::value;
+    cp_async_wait<2 * (kStages - 2)>();
+    fence_proxy_async();
+    __syncthreads();  // step j is in shared memory; every product of tile j - 1 has retired
+    stage_ring<HD>(kaddr, kh, ts, j + kStages - 1 + kAhead, t);
+    stage_ring<HD>(vaddr, vh, ts, j + kStages - 1, t);
+    if constexpr (!kAhead) {
+      issue_s(j);
+      wgmma_wait<0>();
+      fence_all(sc);
+      if (warp_live) softmax_p<kSoft == kMasked>(sc, p, m_a, m_b, l_a, l_b, al_a, al_b, j * kTile, t, scale);
+    } else if constexpr (kSoft != kNone) {
+      issue_s(j + 1);
+    }
+    if (!kAhead && j > 0 && warp_live) rescale_o<HD>(acc, al_a, al_b);
+    issue_pv<HD>(acc, p, vaddr + slot(j), j == 0);
+    if constexpr (kAhead && kSoft != kNone) {
+      wgmma_wait<1>();  // tile j + 1's S; its P V still runs
+      fence_all(sc);
+      if (warp_live) {
+        softmax_p<kSoft == kMasked>(sc, p_next, m_a, m_b, l_a, l_b, al_a, al_b, (j + 1) * kTile, t, scale);
+      }
+    }
+    wgmma_wait<0>();
+    fence_all(acc);
+    fence_all(p);
+    if (kAhead && kSoft != kNone && warp_live) rescale_o<HD>(acc, al_a, al_b);  // to tile j + 1's maxima
+  };
+  using Full = std::integral_constant<int, kFull>;
+  using Masked = std::integral_constant<int, kMasked>;
+  using None = std::integral_constant<int, kNone>;
+  if constexpr (kAhead) {
+    // unrolled by two, so that the two P fragments swap roles by name; the
+    // last two tiles' calls run the masked softmax and none
+    const auto last_two = [&](int j, uint32_t(&p)[kTile / 16][4], uint32_t(&p_next)[kTile / 16][4]) {
+      tile(j, p, p_next, Masked{});
+      tile(j + 1, p_next, p, None{});
+    };
+    int j = 0;
+    for (; j + 3 < n; j += 2) {
+      tile(j, pa, pb, Full{});
+      tile(j + 1, pb, pa, Full{});
+    }
+    if (n - j == 3) {
+      tile(j, pa, pb, Full{});
+      last_two(j + 1, pb, pa);
+    } else if (n - j == 2) {
+      last_two(j, pa, pb);
+    } else {
+      tile(j, pa, pb, None{});
+    }
+  } else {
+    for (int j = 0; j + 1 < n; ++j) tile(j, pa, pb, Full{});
+    tile(n - 1, pa, pb, Masked{});
+  }
+
+  // O / l and lse = m + log(l) for the rows below T
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  const int tq = threadIdx.x & 3;
+  const int row_a = warp_row0 + ((threadIdx.x & 31) >> 2);
+  const int row_b = row_a + 8;
+  bf16* oh = o + lay.head(lay.out, slab);
+  const int64_t ots = lay.out.t;
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) {
+    const int d = i * 8 + 2 * tq;
+    if (row_a < t) {
+      *reinterpret_cast<uint32_t*>(oh + row_a * ots + d) = pack_bf16(acc[4 * i] / l_a, acc[4 * i + 1] / l_a);
+    }
+    if (row_b < t) {
+      *reinterpret_cast<uint32_t*>(oh + row_b * ots + d) = pack_bf16(acc[4 * i + 2] / l_b, acc[4 * i + 3] / l_b);
+    }
+  }
+  if (tq == 0) {
+    float* ls = lse + static_cast<int64_t>(slab) * t;
+    if (row_a < t) ls[row_a] = m_a + logf(l_a);
+    if (row_b < t) ls[row_b] = m_b + logf(l_b);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 K9 and K8: mma.sync
+// ---------------------------------------------------------------------------
 
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = kTcWarps * 32;
@@ -169,120 +558,6 @@ __device__ __forceinline__ void frag_dot(float& da, float& db, const uint32_t (&
         da += p;
       }
     }
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-    flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                   bf16* __restrict__ o, float* __restrict__ lse, Layout lay, int q_tiles, float scale) {
-  constexpr int kBuf = kTile * (HD + 8);
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][kTile][HD + 8]
-  bf16* vs = ks + 2 * kBuf;                  // [2][kTile][HD + 8]
-  const int t = lay.t;
-  // head-major: the query tiles of a slab run together and share its K, V in L2
-  const int slab = blockIdx.x / q_tiles;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tq = lane & 3;
-  const int r0 = (blockIdx.x - slab * q_tiles) * kTile + warp * 16;
-  const int row_a = r0 + (lane >> 2);
-  const int row_b = row_a + 8;
-  const int64_t ts = lay.qkv.t;
-  const int64_t in_off = lay.head(lay.qkv, slab);
-  const bf16* kh = k + in_off;
-  const bf16* vh = v + in_off;
-  const int k_tiles = (t + kTile - 1) / kTile;
-
-  stage_pair<HD>(ks, vs, kh, vh, ts, 0, t);
-  uint32_t qa[HD / 16][4];
-  load_a<HD>(qa, q + in_off, ts, r0, t);
-
-  float m_a = -INFINITY, m_b = -INFINITY;  // running row maxima (the same in the 4 lanes of a row)
-  float l_a = 0.f, l_b = 0.f;              // running sums over this lane's keys
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int j = 0; j < k_tiles; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < k_tiles) {
-      stage_pair<HD>(ks + (cur ^ 1) * kBuf, vs + (cur ^ 1) * kBuf, kh, vh, ts, (j + 1) * kTile, t);
-      cp_async_wait<2>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile j is in shared memory
-    const bf16* kt = ks + cur * kBuf;
-    const bf16* vt = vs + cur * kBuf;
-    if (r0 < t) {
-      // S = Q K^T * scale: tile n holds keys 8n .. 8n + 7 of the tile;
-      // element e is row (e < 2 ? a : b), key 8n + 2 tq + (e & 1).
-      const int key0 = j * kTile;
-      float sc[kTile / 8][4];
-      float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-        mma_rows<HD>(sc[n], qa, kt, n);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[n][e] = key0 + n * 8 + 2 * tq + (e & 1) < t ? sc[n][e] * scale : -INFINITY;
-        }
-        mx_a = fmaxf(mx_a, fmaxf(sc[n][0], sc[n][1]));
-        mx_b = fmaxf(mx_b, fmaxf(sc[n][2], sc[n][3]));
-      }
-      // Every tile holds a key < T, so the new maxima are finite; the first
-      // tile's correction exp(-inf) is 0.
-      const float mn_a = fmaxf(m_a, quad_max(mx_a));
-      const float mn_b = fmaxf(m_b, quad_max(mx_b));
-      const float al_a = expf(m_a - mn_a);
-      const float al_b = expf(m_b - mn_b);
-      m_a = mn_a;
-      m_b = mn_b;
-      l_a *= al_a;
-      l_b *= al_b;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        acc[n][0] *= al_a;
-        acc[n][1] *= al_a;
-        acc[n][2] *= al_b;
-        acc[n][3] *= al_b;
-      }
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[n][e] = expf(sc[n][e] - (e < 2 ? m_a : m_b));  // masked keys: 0
-        l_a += sc[n][0] + sc[n][1];
-        l_b += sc[n][2] + sc[n][3];
-      }
-      // O += bf(P) V over 16-key steps
-#pragma unroll
-      for (int s = 0; s < kSteps; ++s) {
-        const uint32_t pa[4] = {pack_bf16(sc[2 * s][0], sc[2 * s][1]), pack_bf16(sc[2 * s][2], sc[2 * s][3]),
-                                pack_bf16(sc[2 * s + 1][0], sc[2 * s + 1][1]),
-                                pack_bf16(sc[2 * s + 1][2], sc[2 * s + 1][3])};
-        mma_cols<HD>(acc, pa, vt, s);
-      }
-    }
-    __syncthreads();  // every warp is done with buffer cur before it is staged again
-  }
-  if (r0 >= t) return;
-  l_a = quad_sum(l_a);
-  l_b = quad_sum(l_b);
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    acc[n][0] /= l_a;
-    acc[n][1] /= l_a;
-    acc[n][2] /= l_b;
-    acc[n][3] /= l_b;
-  }
-  store_rows<HD>(o + lay.head(lay.out, slab), lay.out.t, r0, t, acc);
-  if (tq == 0) {
-    float* ls = lse + static_cast<int64_t>(slab) * t;
-    if (row_a < t) ls[row_a] = m_a + logf(l_a);
-    if (row_b < t) ls[row_b] = m_b + logf(l_b);
   }
 }
 
@@ -1159,12 +1434,14 @@ bool valid(int batch, int heads, int t, int hd, int dtype, const int64_t* stride
   return blocks <= 0x7fffffff;
 }
 
+// bf16 K7 over `slabs` slabs: blocks of kFwdRows query rows.
 template <int HD>
-int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int blocks, int tiles,
-             const Layout& lay, float scale, cudaStream_t s) {
-  return launch(flash_fwd_bf16<HD>, blocks, kTcThreads, smem_bytes_bf16(HD, 0), s, static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, lay, tiles,
-                scale);
+int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int slabs, const Layout& lay,
+             float scale, cudaStream_t s) {
+  const int q_blocks = (lay.t + kFwdRows - 1) / kFwdRows;
+  return launch(flash_fwd_bf16<HD>, slabs * q_blocks, kFwdThreads, smem_bytes_fwd_bf16(HD), s,
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                static_cast<bf16*>(o), lse, lay, q_blocks, scale);
 }
 
 template <int HD>
@@ -1210,14 +1487,14 @@ int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const
                 tiles, scale);
 }
 
-// Resident blocks per SM of `kernel` launched with kF32Threads threads and
+// Resident blocks per SM of `kernel` launched with `threads` threads and
 // `smem` bytes (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a negative
 // cudaError_t if the query failed.
 template <typename Kernel>
-int blocks_per_sm(Kernel kernel, size_t smem) {
+int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
   cudaError_t err = allow_smem(kernel, smem);
   int blocks = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kF32Threads, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -1225,10 +1502,17 @@ int blocks_per_sm(Kernel kernel, size_t smem) {
 template <int HD>
 int f32_blocks_per_sm(int kernel) {
   switch (kernel) {
-    case 7: return blocks_per_sm(flash_fwd_f32<HD>, smem_bytes_fwd_f32<HD>());
-    case 9: return blocks_per_sm(flash_dq_f32<HD>, smem_bytes_bwd_f32<HD>(false));
-    default: return blocks_per_sm(flash_dkv_f32<HD>, smem_bytes_bwd_f32<HD>(true));
+    case 7: return blocks_per_sm(flash_fwd_f32<HD>, kF32Threads, smem_bytes_fwd_f32<HD>());
+    case 9: return blocks_per_sm(flash_dq_f32<HD>, kF32Threads, smem_bytes_bwd_f32<HD>(false));
+    default: return blocks_per_sm(flash_dkv_f32<HD>, kF32Threads, smem_bytes_bwd_f32<HD>(true));
   }
+}
+
+// The same for bf16 K7 at head dim HD, with the threads of a block in *threads.
+template <int HD>
+int fwd_bf16_blocks_per_sm(int* threads) {
+  *threads = kFwdThreads;
+  return blocks_per_sm(flash_fwd_bf16<HD>, kFwdThreads, smem_bytes_fwd_bf16(HD));
 }
 
 // Calls fn<HD>(args...) for the runtime head dim (a multiple of 16 up to 128).
@@ -1261,13 +1545,12 @@ int theia_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
   const int64_t strides[4] = {in_bstride, in_tstride, out_bstride, out_tstride};
   if (!valid(batch, heads, t, hd, dtype, strides, 4)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay{t, heads, hd, {in_bstride, in_tstride}, {out_bstride, out_tstride}, {0, 0}, {0, 0}};
-  const int tiles = (t + kTile - 1) / kTile;
-  const int blocks = batch * heads * tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    THEIA_FLASH_BY_HD(fwd_f32, hd, q, k, v, o, lse, blocks, tiles, lay, scale, s)
+    const int tiles = (t + kTile - 1) / kTile;
+    THEIA_FLASH_BY_HD(fwd_f32, hd, q, k, v, o, lse, batch * heads * tiles, tiles, lay, scale, s)
   }
-  THEIA_FLASH_BY_HD(fwd_bf16, hd, q, k, v, o, lse, blocks, tiles, lay, scale, s)
+  THEIA_FLASH_BY_HD(fwd_bf16, hd, q, k, v, o, lse, batch * heads, lay, scale, s)
 }
 
 // K9. q, k, v as for K7; o: K7's output with strides (out_bstride,
@@ -1321,6 +1604,13 @@ int theia_flash_f32_blocks_per_sm(int hd, int kernel, int* threads) {
   }
   *threads = kF32Threads;
   THEIA_FLASH_BY_HD(f32_blocks_per_sm, hd, kernel)
+}
+
+// Resident blocks per SM of the bf16 K7 at head dim hd, with the threads of
+// one of its blocks in *threads; a negative cudaError_t if the query failed.
+int theia_flash_fwd_bf16_blocks_per_sm(int hd, int* threads) {
+  if (hd < 16 || hd > kMaxHd || hd % 16 != 0) return -static_cast<int>(cudaErrorInvalidValue);
+  THEIA_FLASH_BY_HD(fwd_bf16_blocks_per_sm, hd, threads)
 }
 
 }  // extern "C"

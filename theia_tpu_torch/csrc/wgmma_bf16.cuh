@@ -1,5 +1,6 @@
 // Hopper warpgroup matrix multiply (wgmma) building blocks for the bf16
-// attention forward (mha_fwd.cu) and backward (mha_bwd.cu): wgmma.mma_async
+// attention forward (mha_fwd.cu), backward (mha_bwd.cu) and flash forward
+// (flash_attn.cu): wgmma.mma_async
 // with float32 accumulation, m64n32k16 and m64n64k16 with A in shared
 // memory and m64nNk16 with A in registers for N = 16..128 step 16, its
 // fence / commit / wait,

@@ -1,26 +1,26 @@
 """Time an attention kernel on one GPU against its plain version, SDPA and
 other builds of its source: the backward K2 (``csrc/mha_bwd.cu``, float32
-or bf16), the flash forward K7 or the flash backward pair K9 + K8
-(``csrc/flash_attn.cu``, float32).
+or bf16), the flash forward K7 (``csrc/flash_attn.cu``, float32 or bf16) or
+the flash backward pair K9 + K8 (``csrc/flash_attn.cu``, float32).
 
     python -m theia_tpu_torch.tools.time_mha_bwd [--kernel mha_bwd|flash_fwd|flash_bwd] [--dtype float32|bfloat16]
         [--parent DIR] [--ablations]
 
 Builds the kernels (``kernels/build.py``) and prints ptxas's registers and
-spills of the kernel's passes in that dtype at hd = 64 and their resident
-blocks per SM. ``--parent DIR`` also builds the same source of an unpacked
-earlier tree in DIR; ``--ablations`` builds the source once for each entry
-of the kernel's ``ablations``, each undoing one choice of the kernel
-through the ``-D`` settings its source reads. The extra libraries build in
-parallel. Every build is held to the plain version at the check shapes
-(float32: max abs error within 2e-5, on each output: K7's O and lse; bf16:
-relative L2 below 1e-2), then all are timed at the timing shapes as views
-of a packed projection, with SDPA (float32: its memory-efficient forward or
-backward; bf16: its flash backward) and the plain version, in the order a,
-b, ..., b, a (device time, the stream held while the host enqueues), twice
-after a round that warms the card; then each build's device time by kernel
-(its passes; torch.profiler). Exits nonzero without a card or on a
-disagreement.
+spills of the kernel's passes in that dtype at hd = 64 (and any wgmma it
+serialized) and their resident blocks per SM. ``--parent DIR`` also builds
+the same source of an unpacked earlier tree in DIR; ``--ablations`` builds
+the source once for each entry of the kernel's ``ablations``, each undoing
+one choice of the kernel through the ``-D`` settings its source reads. The
+extra libraries build in parallel. Every build is held to the plain version
+at the check shapes (float32: max abs error within 2e-5, on each output:
+K7's O and lse; bf16: relative L2 below 1e-2, K7's lse within 1e-5), then
+all are timed at the timing shapes as views of a packed projection, with
+SDPA (float32: its memory-efficient forward or backward; bf16: its flash
+kernels) and the plain version, in the order a, b, ..., b, a (device time,
+the stream held while the host enqueues), twice after a round that warms the
+card; then each build's device time by kernel (its passes; torch.profiler).
+Exits nonzero without a card or on a disagreement.
 """
 
 from __future__ import annotations
@@ -39,10 +39,12 @@ import torch
 
 from theia_tpu_torch.kernels import build
 from theia_tpu_torch.ops import attention
-from theia_tpu_torch.tools.timing import interleaved_ms, kernel_ms, ptxas_usage, sdpa_backward, sdpa_forward
+from theia_tpu_torch.tools.timing import (interleaved_ms, kernel_ms, ptxas_usage, sdpa_backward, sdpa_forward,
+                                          wgmma_serialized)
 
 F32_ATOL = 2e-5
 BF16_REL_L2 = 1e-2  # P and dS round to bf16 before their products; a rounding may land either side
+LSE_REL_L2 = 1e-5  # K7's lse: float32 row statistics whatever the inputs' dtype
 H, HD = 12, 64
 PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -97,7 +99,8 @@ def flash_fwd_launcher(lib: ctypes.CDLL):
         o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
         err = lib.theia_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, t, hd,
-                                  *_strides(q, o), 0, 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+                                  *_strides(q, o), attention._DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+                                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed ({err})")
         return o, lse
@@ -204,14 +207,31 @@ BF16_TARGETS = {
                 *((2, t, hd) for hd in (16, 32, 64, 80, 128) for t in (1, 17, 63, 64, 65, 128, 129, 193, 256))),
         dtype=torch.bfloat16,
     ),
+    # bf16 K7 (wgmma); the parent's is the mma.sync kernel of the same name
+    "flash_fwd": dataclasses.replace(
+        TARGETS["flash_fwd"],
+        passes=(f"flash_fwd_bf16<{HD}>",),
+        numbers=(),
+        ablations={
+            "wg1": ("THEIA_K7_BF16_WG=1",),
+            "stages2": ("THEIA_K7_BF16_STAGES=2",),
+            "pipe0": ("THEIA_K7_BF16_PIPE=0",),
+        },
+        checks=((64, 197, HD), (16, 785, HD),
+                *((2, t, hd) for hd in (16, 64, 80, 128) for t in (1, 17, 64, 65, 127, 128, 129, 257))),
+        dtype=torch.bfloat16,
+    ),
 }
 
 
 def print_ptxas(target: Target, name: str, log: str) -> None:
+    """ptxas's registers and spills of the target's kernels in a build's log, and any wgmma it serialized."""
     usage = dict(ptxas_usage(log))
+    serialized = wgmma_serialized(log)
     for kernel in target.passes:
         if kernel in usage:
-            print(f"  {name}: ptxas {kernel}: {usage[kernel]}")
+            notes = "; ".join(reason for k, reason in serialized if k == kernel)
+            print(f"  {name}: ptxas {kernel}: {usage[kernel]}" + (f"; wgmma serialized ({notes})" if notes else ""))
 
 
 def build_libraries(target: Target, sources: dict[str, tuple[Path, tuple[str, ...]]],
@@ -246,22 +266,40 @@ def print_occupancy(kernel: str, dtype: torch.dtype, lib: ctypes.CDLL) -> None:
         for cols, name in enumerate(("row pass", "column pass")):
             blocks = query(t, HD, cols, ctypes.byref(threads))
             print(f"  kernel: {name} at T = {t}: {blocks} resident blocks per SM of {threads.value} threads")
+    elif dtype == torch.bfloat16:  # K7
+        blocks = lib.theia_flash_fwd_bf16_blocks_per_sm(HD, ctypes.byref(threads))
+        print(f"  kernel: flash_fwd_bf16<{HD}>: {blocks} resident blocks per SM of {threads.value} threads")
     else:
         for number, name in zip(TARGETS[kernel].numbers, TARGETS[kernel].passes):
             blocks = lib.theia_flash_f32_blocks_per_sm(HD, number, ctypes.byref(threads))
             print(f"  kernel: {name}: {blocks} resident blocks per SM of {threads.value} threads")
 
 
-def error(got, want, dtype: torch.dtype) -> float:
-    """float32: the largest abs error over an output, or over each of a tuple
-    of them (O and lse); bf16: the relative L2 error, or the largest abs
-    error where the plain result is 0."""
+def error(got, want, dtype: torch.dtype) -> tuple[float, ...]:
+    """float32: the largest abs error over an output, or over each of a
+    tuple of them (O and lse), as one number; bf16: each output's relative
+    L2 error (O, then lse), or its largest abs error where the plain result
+    is 0."""
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
     if dtype == torch.bfloat16:
-        got, want = got.double(), want.double()
-        norm = float(want.norm())
-        return float((got - want).norm()) / norm if norm else float((got - want).abs().max())
-    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-    return max(float((g - w).abs().max()) for g, w in pairs)
+        out = []
+        for g, w in pairs:
+            g, w = g.double(), w.double()
+            norm = float(w.norm())
+            out.append(float((g - w).norm()) / norm if norm else float((g - w).abs().max()))
+        return tuple(out)
+    return (max(float((g - w).abs().max()) for g, w in pairs),)
+
+
+def within(errs: tuple[float, ...], dtype: torch.dtype) -> bool:
+    """float32: within F32_ATOL; bf16: the first output within BF16_REL_L2, K7's lse within LSE_REL_L2."""
+    if dtype == torch.bfloat16:
+        return errs[0] < BF16_REL_L2 and all(e <= LSE_REL_L2 for e in errs[1:])
+    return errs[0] <= F32_ATOL
+
+
+def shown(errs: tuple[float, ...]) -> str:
+    return "/".join(f"{e:.2e}" for e in errs)
 
 
 def packed(b: int, t: int, h: int, hd: int, gen: torch.Generator, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
@@ -275,7 +313,7 @@ def main() -> int:
     parser.add_argument("--kernel", choices=sorted(TARGETS), default="mha_bwd",
                         help="K2 (mha_bwd), the flash forward K7 (flash_fwd) or the flash pair K9 + K8 (flash_bwd)")
     parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                        help="the kernel's inputs; bfloat16 for --kernel mha_bwd only")
+                        help="the kernel's inputs; bfloat16 for --kernel mha_bwd or flash_fwd")
     parser.add_argument("--parent", type=Path, help="an unpacked earlier tree whose source of the kernel to time too")
     parser.add_argument("--ablations", action="store_true", help="also time the builds of the kernel's ablations")
     args = parser.parse_args()
@@ -287,8 +325,7 @@ def main() -> int:
         parser.error(f"--kernel {args.kernel} times float32 only")
     target = targets[args.kernel]
     dtype = target.dtype
-    limit = BF16_REL_L2 if dtype == torch.bfloat16 else F32_ATOL
-    within = (lambda e: e < limit) if dtype == torch.bfloat16 else (lambda e: e <= limit)
+    limit = f"{BF16_REL_L2}, lse {LSE_REL_L2}" if dtype == torch.bfloat16 else F32_ATOL
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -305,23 +342,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
         fns.update({name: target.launcher(lib) for name, lib in build_libraries(target, sources, Path(work)).items()})
         gen = torch.Generator(device="cuda").manual_seed(0)
-        worst = dict.fromkeys(fns, 0.0)
-        metric = "relative L2 error" if dtype == torch.bfloat16 else "max abs error"
+        worst = {}
+        metric = "relative L2 error (O/lse for K7)" if dtype == torch.bfloat16 else "max abs error"
         for b, t, hd in target.checks:
             q, k, v, do = packed(b, t, H if b > 2 else 2, hd, gen, dtype)
             inputs = target.inputs(q, k, v, do)
             want = target.plain(*inputs)
             errs = {name: error(fn(*inputs), want, dtype) for name, fn in fns.items()}
-            worst = {name: max(worst[name], e) for name, e in errs.items()}
-            if hd == HD and b > 2 or not all(within(e) for e in errs.values()):
+            worst = {name: tuple(map(max, zip(worst.get(name, e), e))) for name, e in errs.items()}
+            if hd == HD and b > 2 or not all(within(e, dtype) for e in errs.values()):
                 print(f"  [{b},{t},{q.shape[2]},{hd}] {metric} against the plain version: "
-                      + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
-            bad = [n for n, e in errs.items() if not within(e)]
+                      + ", ".join(f"{n} {shown(e)}" for n, e in errs.items()))
+            bad = [n for n, e in errs.items() if not within(e, dtype)]
             if bad:
                 print(f"time_mha_bwd: {bad} disagree with the plain version (limit {limit})", file=sys.stderr)
                 return 1
         print(f"  worst {metric} over the {len(target.checks)} check shapes: "
-              + ", ".join(f"{n} {e:.2e}" for n, e in worst.items()))
+              + ", ".join(f"{n} {shown(e)}" for n, e in worst.items()))
         for b, t in target.timed:
             q, k, v, do = packed(b, t, H, HD, gen, dtype)
             inputs = target.inputs(q, k, v, do)
