@@ -7,14 +7,15 @@ failure (the script then exits nonzero and prints no result):
 
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes),
-   ptxas's registers and spills, and the resident blocks per SM of K1 bf16,
-   of K2's two passes in bf16 and float32, of float32 K7, K9 and K8 and of
-   bf16 K7;
+   ptxas's registers and spills, and the resident blocks per SM of K1 in
+   bf16 and float32, of K2's two passes in bf16 and float32, of float32 K7,
+   K9 and K8 and of bf16 K7;
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
    64] as views of a packed QKV projection and over a sweep of head dim x
-   T (K1: T at the edges of its 64-key chunks; K2: of its 8-key tiles and
-   16-row warps), both in bf16 also with scores x 40 (probabilities below
+   T (K1: T at the edges of its 64-key chunks, row blocks, 8-key tiles
+   and 16-row groups; K2: of its 8-key tiles and 16-row warps), both in
+   bf16 also with scores x 40 (probabilities below
    2^-90, which take the IEEE division), K7 (flash forward), K9 (flash
    dQ) and K8 (flash dK, dV) at [B, 197|204, 12, 64] and [16, 785, 12, 64]
    as such views and over a sweep of head dim x T (float32 K9/K8 also at
@@ -54,8 +55,8 @@ failure (the script then exits nonzero and prints no result):
    bound and library call.
 
 The last two lines of standard output are the kernels' JSON record (the
-bf16 figures; ``mha_bwd``, ``flash_fwd``, ``flash_dq`` and ``flash_dkv``
-also carry their float32 ones under ``"float32"``, with the 3xTF32
+bf16 figures; ``mha_fwd``, ``mha_bwd``, ``flash_fwd``, ``flash_dq`` and
+``flash_dkv`` also carry their float32 ones under ``"float32"``, with the 3xTF32
 tensor-core floor, and ``flash_dkv``'s the pair K9 + K8's under ``"pair"``)
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
 directory without the package beside it, the script exits nonzero.
@@ -93,11 +94,10 @@ K2_F32_MAX_T = {112: 240, 128: 216}
 # K2 over every head dim it takes and the edges of its 8-key (8-query) tiles,
 # its 16-row warps and its limit (256)
 K2_SWEEP_T = (1, 8, 15, 16, 17, 63, 64, 65, 130, 197, 255, 256)
-# the same for float32 K1 (csrc/mha_fwd.cu smem_bytes_f32 within 227 KB)
-K1_F32_MAX_T = {80: 228, 96: 196, 112: 172, 128: 152}
-# K1 over every head dim it takes and the edges of its key chunks (64) and
-# of its limit (256)
-K1_SWEEP_T = (1, 17, 63, 64, 65, 128, 197, 204, 255, 256)
+# K1 over every head dim it takes and the edges of its key chunks (64; bf16),
+# of its row blocks (64 rows; float32: 128 at hd <= 64, 64 above), of its
+# 8-key tiles and 16-row groups (float32) and of its limit (256)
+K1_SWEEP_T = (1, 15, 16, 17, 63, 64, 65, 128, 129, 197, 204, 255, 256)
 # K7-K9 take any T: the sweep's token counts span 1 to 13 tiles of 64
 FLASH_SWEEP_T = (1, 17, 130, 257, 785)
 # and float32 K9/K8 (3xTF32) also at the edges of their 16-row groups and
@@ -234,12 +234,6 @@ def compare_kernels(attention, ln_pallas) -> dict:
             for t in K1_SWEEP_T:
                 qkv = torch.randn(2, t, 3 * 2 * hd, device="cuda", generator=gen).to(dtype)
                 q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
-                if dtype == torch.float32 and t > K1_F32_MAX_T.get(hd, t):
-                    try:  # past the float32 kernel's shared memory: the wrapper must raise
-                        attention.mha_fwd(q, k, v)
-                    except RuntimeError:
-                        continue
-                    raise AssertionError(f"K1 float32 took [2,{t},2,{hd}], past its shared memory")
                 got = attention.mha_fwd(q, k, v).float()
                 want = attention.mha_fwd_plain(*(x.float() for x in (q, k, v)))
                 err = float((got - want).abs().max()) if dtype == torch.float32 else rel_l2(got, want)
@@ -262,6 +256,20 @@ def compare_kernels(attention, ln_pallas) -> dict:
     print(f"  K1 mha_fwd bf16 [2, 197|256, 2, 64|128], scores x 40 (p below 2^-90): worst rel_l2 {wide:.3e} "
           f"(< {KERNEL_BF16_REL_L2})")
     check(wide < KERNEL_BF16_REL_L2, "K1 disagrees with its plain version where probabilities vanish")
+    # float32: integer Q and K spread the scores over hundreds (p below 2^-90,
+    # where the kernel's rows take the IEEE division) and keep S exact in
+    # both versions (3xTF32 and the plain product; the scale 1/4 or 1/8 is a
+    # power of two), so that only the softmax's roundings differ
+    wide = 0.0
+    for hd in (16, 64):
+        for t in (197, 256):
+            qk = torch.randint(-8, 9, (2, t, 2 * 2 * hd), device="cuda", generator=gen).float()
+            qkv = torch.cat([qk, torch.randn(2, t, 2 * hd, device="cuda", generator=gen)], dim=-1)
+            q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+            wide = max(wide, float((attention.mha_fwd(q, k, v) - attention.mha_fwd_plain(q, k, v)).abs().max()))
+    print(f"  K1 mha_fwd float32 [2, 197|256, 2, 16|64], integer Q and K (p below 2^-90): worst max_abs_err "
+          f"{wide:.3e} (atol {KERNEL_F32_ATOL})")
+    check(wide <= KERNEL_F32_ATOL, "K1 float32 disagrees with its plain version where probabilities vanish")
     # K2 over every head dim it takes and the edges of T, heads as views of a packed projection
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype in worst:
@@ -523,6 +531,13 @@ def main() -> int:
     print(f"  K1 {k1} (T = 197): ptxas {usage.get(k1)}; {k1_blocks} resident blocks per SM "
           "(cudaOccupancyMaxActiveBlocksPerMultiprocessor, 256 threads a block)")
     check(k1 in usage and k1_blocks > 0, f"K1's ptxas line or occupancy query is missing ({k1_blocks})")
+    # K1 float32 (3xTF32) at the main path's head dim and T = 197
+    k1 = f"mha_fwd_f32<{HEAD_DIM}>"
+    threads = ctypes.c_int(0)
+    k1_blocks = build.load().theia_mha_fwd_f32_blocks_per_sm(197, HEAD_DIM, ctypes.byref(threads))
+    print(f"  K1 {k1} (T = 197): ptxas {usage.get(k1)}; {k1_blocks} resident blocks per SM "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block)")
+    check(k1 in usage and k1_blocks > 0, f"K1 float32's ptxas line or occupancy query is missing ({k1_blocks})")
     # K2 at the main path's head dim and T = 197, its two passes: bf16 (wgmma;
     # the row pass holds 2 chunks of 64 keys a warpgroup there) and float32
     # (3xTF32)
@@ -989,7 +1004,7 @@ def main() -> int:
         return t, bound, by
 
     # the float32 records of the kernels whose float32 runs on the tensor
-    # cores (K2 at [16, 197], K7, K9 and K8 at [16, 785])
+    # cores (K1 at [64, 197], K2 at [16, 197], K7, K9 and K8 at [16, 785])
     f32_records = {}
 
     def tf32_row(key: str, label: str, res, tc_flops: float, shape: str, err=None) -> None:
@@ -1006,12 +1021,15 @@ def main() -> int:
     for dtype in (torch.float32, bf16):
         q, k, v = packed_qkv(64, 197, dtype, gen)
         n = q.numel()
+        flops = 4 * 64 * 12 * 197 ** 2 * 64
         res = kernel_row("K1 mha_fwd", {
             "plain": lambda: attention.mha_fwd_plain(q, k, v), "kernel": lambda: attention.mha_fwd(q, k, v),
-            "library": sdpa_forward(q, k, v)}, 4 * n * q.element_size(), 4 * 64 * 12 * 197 ** 2 * 64,
-            dtype, "[64,197,12,64]")
+            "library": sdpa_forward(q, k, v)}, 4 * n * q.element_size(), flops, dtype, "[64,197,12,64]")
         if dtype == bf16:
             record["mha_fwd"] = res
+        else:
+            # float32 K1 runs its products as 3xTF32 on the tensor cores
+            tf32_row("mha_fwd", "K1", res, flops, "[64,197,12,64]", kernel_errors[("mha_fwd", dtype, 64, 197)])
     for dtype in (torch.float32, bf16):
         q, k, v = packed_qkv(TRAIN_BATCH, 197, dtype, gen)
         do = torch.randn(TRAIN_BATCH, 197, HEADS, HEAD_DIM, device="cuda", generator=gen).to(dtype)

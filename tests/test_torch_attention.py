@@ -33,12 +33,14 @@ TOKENS = (196, 197, 204)  # nocls, cls, reg (7 registers)
 # main path's), 80 (a partial 64-column atom) and 128
 EDGE_TOKENS = (1, 63, 64, 65, 256)
 EDGE_HEAD_DIMS = (16, 64, 80, 128)
+# the float32 kernel's tile edges: its 8-key tiles and 16-row groups (one
+# short of a group, a whole one, one past) and its row blocks (one past
+# 128); and its largest staging: Q, K and V whole at hd 96, T = 197 and hd
+# 128, T = 153, and V restaged into K's place at hd 128, T = 256 (past 184)
+F32_EDGE_CASES = ((15, 64), (16, 64), (17, 64), (15, 128), (129, 16), (153, 128), (256, 128), (197, 96))
 # the card's sweep: every head dim the kernel takes, T at those edges and at
 # the encoder's token counts
-SWEEP_TOKENS = (1, 17, 63, 64, 65, 128, 197, 204, 255, 256)
-# the largest T whose float32 staging fits a block's 227 KB, by head dim
-# (csrc/mha_fwd.cu smem_bytes_f32); other head dims take every T <= 256
-F32_MAX_T = {80: 228, 96: 196, 112: 172, 128: 152}
+SWEEP_TOKENS = (1, 15, 16, 17, 63, 64, 65, 128, 129, 197, 204, 255, 256)
 # the backward's tile edges: its 8-key (8-query) tiles and 16-row warps (one
 # token, one short of a tile, whole ones, one past) and its limit of 256;
 # head dims 16, 64 (the main path's), 80 and 128 (float32: the column pass
@@ -160,6 +162,17 @@ def test_plain_matches_pallas_kernel_at_tile_edges(t, hd, dtype):
         got = tattn.mha_fwd(*(_bf16(x) for x in (q, k, v)))
         assert got.dtype == torch.bfloat16
         assert _rel_l2(got.float().numpy(), _unpack(np.asarray(want, np.float32), b=1)) < 1e-2
+
+
+@pytest.mark.parametrize("t, hd", F32_EDGE_CASES)
+def test_plain_matches_pallas_kernel_f32_at_the_3xtf32_kernels_edges(t, hd):
+    """The float32 reference the card holds the kernel to, against the TPU
+    kernel body in interpret mode, at the float32 kernel's tile edges and at
+    the shapes where its staging changes or which it newly takes."""
+    q, k, v = _qkv(t, b=1, h=2, hd=hd, seed=17)
+    want = _pallas_kernel_interpret(*(jnp.asarray(_pack(x)) for x in (q, k, v)))
+    got = tattn.mha_fwd(*(torch.from_numpy(x) for x in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), _unpack(np.asarray(want), b=1), atol=1e-5, rtol=0)
 
 
 def test_dispatch_on_cpu_tensors():
@@ -347,16 +360,11 @@ def test_cuda_kernel_matches_plain(cuda, t, dtype):
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 def test_cuda_kernel_matches_plain_over_the_sweep(cuda, dtype, hd):
     """K1 against its plain version at every head dim and every T of the
-    sweep, on views of a packed projection; a float32 shape past the
-    kernel's shared memory raises."""
+    sweep, on views of a packed projection."""
     gen = torch.Generator().manual_seed(hd)
     for t in SWEEP_TOKENS:
         qkv = torch.randn(2, t, 3 * 2 * hd, generator=gen).to(cuda, dtype)
         q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
-        if dtype == torch.float32 and t > F32_MAX_T.get(hd, t):
-            with pytest.raises(RuntimeError, match="launch failed"):
-                tattn.mha_fwd(q, k, v)
-            continue
         before = tattn.MHA_FWD_LAUNCHES
         got = tattn.mha_fwd(q, k, v)
         torch.cuda.synchronize()
@@ -383,10 +391,28 @@ def test_cuda_kernel_bf16_with_vanishing_probabilities(cuda, t, hd):
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_raises_past_its_shared_memory(cuda):
-    q = torch.zeros(2, 256, 1, 128, device=cuda)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        tattn.mha_fwd(q, q, q)
+@pytest.mark.parametrize("hd", (16, 64))
+@pytest.mark.parametrize("t", (197, 256))
+def test_cuda_kernel_f32_with_vanishing_probabilities(cuda, t, hd):
+    """Integer Q and K: scores spread over hundreds, so that some p fall
+    below 2^-90 and the float32 kernel takes the IEEE division for their
+    rows; S is exact in both versions (the scale is a power of two), so only
+    the softmax's roundings differ."""
+    gen = torch.Generator().manual_seed(t + hd)
+    qk = torch.randint(-8, 9, (2, t, 2 * 2 * hd), generator=gen).float()
+    qkv = torch.cat([qk, torch.randn(2, t, 2 * hd, generator=gen)], dim=-1).to(cuda)
+    q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+    torch.testing.assert_close(tattn.mha_fwd(q, k, v), tattn.mha_fwd_plain(q, k, v), atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_f32_takes_what_passes_its_shared_memory(cuda):
+    """float32 [2, 256, 1, 128]: Q, K and V whole would pass a block's 227 KB
+    of shared memory; the kernel restages V into K's place and matches the
+    plain version."""
+    q, k, v = torch.randn(3, 2, 256, 1, 128, generator=torch.Generator().manual_seed(5)).to(cuda).unbind(0)
+    got = tattn.mha_fwd(q, k, v)
+    torch.testing.assert_close(got, tattn.mha_fwd_plain(q, k, v), atol=2e-5, rtol=0)
 
 
 @pytest.mark.gpu

@@ -9,7 +9,8 @@
 //   m = the row max; p = expf(S - m); l = sum of p;
 //   P = p / l (a division), rounded to V's dtype (this matters in bf16);
 //   O = P V accumulated in float32 and stored in Q's dtype.
-// Inputs are float32 or bf16, T <= 256, hd <= 128 and a multiple of 16.
+// Inputs are float32 or bf16, T <= 256, hd <= 128 and a multiple of 16; every
+// such shape fits a block's shared memory.
 //
 // The TPU kernel kept the whole T x T score block in VMEM. Here nothing of
 // size T x T leaves the SM: a block stages one head's K and V in shared
@@ -44,11 +45,35 @@
 //   SM to overlap them. Blocks are ordered head-major so the row blocks of a
 //   head share its K and V in L2.
 //
-// float32, CUDA cores (mha_fwd_f32): no tensor-core instruction multiplies
-//   in full float32, so the products run as FMAs. Lane j owns keys j, j+32,
-//   ...; a warp owns kRowsPerWarp = 4 rows, so each K and V element read from
-//   shared memory feeds 4 rows. Measured latency-bound (one resident block
-//   per SM): ~1.5x the time of the cuBLAS-based plain version at B = 64.
+// float32, tensor cores as 3xTF32 (mha_fwd_f32<HD>): no tensor-core
+//   instruction multiplies in full float32, so each product is three tf32
+//   mma.sync m16n8k8 over operands split into big and small halves
+//   (mma_tf32.cuh), ~2^-21 relative. At [64,197,12,64] the products are 7.6
+//   GFLOP: 114 us at the CUDA cores' 67 TFLOP/s, 46 us as three tf32
+//   products at the tensor cores' 495, as long as the bytes take (155 MB).
+//   The design is K2's float32 row pass (mha_bwd.cu) without dP: kSplit = 2
+//   warps share a group of 16 query rows, part p holding key tiles p, p + 2,
+//   ... of 8 keys, so a thread keeps 4 floats of S, then P, a tile (64
+//   registers at T = 256) and 16 warps a block fit the 128 registers a
+//   thread of a 512-thread block may use (hd <= 64; 8 warps above). S, the
+//   row max, exp and sum are the row pass's in the same order, and P = p / l
+//   is the same IEEE quotient (div_rn from one reciprocal a row where it is
+//   exact, else the division), so P is the number the backward recomputes.
+//   O = P V takes each P tile from the accumulators as its A operand; part 1
+//   parks its partial O in shared memory, where part 0 adds it
+//   (deterministic, no atomics). Q's rows, K and V are staged with cp.async
+//   in rows of pitch HD + 4 (32 distinct banks both along rows, for Q's A
+//   and S's B, and down columns, for P V's B): K and V whole, V landing
+//   during S, where they fit in 227 KB; else (hd 112 past T = 216, hd 128
+//   past 184) K alone, and V restaged into K's place once every warp has
+//   formed S, landing during the softmax. So every T <= 256 fits at every
+//   head dim. A warp's key tiles go in groups of 4 under one branch, S
+//   issuing each term of 3xTF32 for the whole group before the next. What
+//   holds it on the H100 (PERF.md, section 6): not the tensor cores nor the
+//   bytes but latency at 16 resident warps a SM (one block), with ~4 other
+//   instructions a product (operand splits, shared-memory loads) and the
+//   softmax's exact expf; grouping the tiles and div_rn each took time off
+//   (the ablations of tools/time_mha_bwd.py --kernel mha_fwd).
 //
 // The ragged edge (T = 197, 204) is masked per key and per row.
 
@@ -61,6 +86,7 @@
 
 #include "div_rn.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -343,168 +369,318 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32: 3xTF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-constexpr int kKeysPerLane = kMaxT / 32;
-constexpr int kDimsPerLane = kMaxHd / 32;
+// The block shape, the staging, the grouping of key tiles and the division
+// may be set with -D (THEIA_K1_F32_SPLIT, THEIA_K1_F32_WARPS,
+// THEIA_K1_F32_RESTAGE, THEIA_K1_F32_GROUP, THEIA_K1_F32_DIV_RN) to time the
+// alternatives (tools/time_mha_bwd.py --kernel mha_fwd --ablations); the
+// defaults are the fastest measured.
+#ifndef THEIA_K1_F32_SPLIT
+#define THEIA_K1_F32_SPLIT 2
+#endif
+#ifndef THEIA_K1_F32_GROUP
+#define THEIA_K1_F32_GROUP 4
+#endif
+#ifndef THEIA_K1_F32_RESTAGE
+#define THEIA_K1_F32_RESTAGE 0
+#endif
+#ifndef THEIA_K1_F32_DIV_RN
+#define THEIA_K1_F32_DIV_RN 1
+#endif
 
-__host__ __device__ constexpr int round4(int t) { return (t + 3) & ~3; }
+constexpr int kSplit = THEIA_K1_F32_SPLIT;     // warps that share a 16-row group, each with 1/kSplit of the keys
+constexpr bool kDivRn = THEIA_K1_F32_DIV_RN;  // P = p / l by div_rn where it is exact, else `/` throughout
+constexpr int kMaxKeyTiles = kMaxT / 8;
+static_assert(kMaxKeyTiles % kSplit == 0, "the parts hold whole key tiles");
+// A warp's key tiles go in groups of kSGroup under one branch (the last
+// group's tiles past T each under its own), and S issues each term of 3xTF32
+// for the group's tiles before the next: a branch a tile left the scheduler
+// one tile's chain of 3 dependent products at a time
+constexpr int kSGroup = THEIA_K1_F32_GROUP;
+static_assert(kMaxKeyTiles / kSplit % kSGroup == 0, "the parts hold whole groups of tiles");
+constexpr size_t kMaxSmem = 232448;  // the 227 KB a block of sm_90 may opt in to
 
-// Shared memory: K and V as [round4(T)][hd + 4] (16-byte padded rows), then
-// per warp kRowsPerWarp query rows [hd] and probability rows [round4(T)].
-size_t smem_bytes_f32(int t, int hd) {
-  return (2 * static_cast<size_t>(round4(t)) * (hd + 4) +
-          static_cast<size_t>(kWarps) * kRowsPerWarp * (hd + round4(t))) *
-         sizeof(float);
+// Warps a block: 16 (one block of 512 threads a SM at 128 registers a
+// thread) up to hd = 64, 8 above, where O's accumulators pass 128.
+template <int HD>
+__host__ __device__ constexpr int f32_warps() {
+#ifdef THEIA_K1_F32_WARPS
+  return THEIA_K1_F32_WARPS;
+#else
+  return HD <= 64 ? 16 : 8;
+#endif
 }
 
-__global__ void __launch_bounds__(kThreads)
-    mha_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                float* __restrict__ o, Layout lay, int hd, float scale, int rows_per_block) {
-  constexpr int R = kRowsPerWarp;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int t = lay.t;
-  const int pitch = hd + 4;
-  const int t4 = round4(t);
-  float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + t4 * pitch;
-  float* qbuf = vs + t4 * pitch;        // [kWarps][R][hd]
-  float* pbuf = qbuf + kWarps * R * hd;  // [kWarps][R][t4]
+template <int HD>
+__host__ __device__ constexpr int f32_rows() {  // query rows a block
+  return 16 * f32_warps<HD>() / kSplit;
+}
 
-  const int64_t rs = lay.in_tstride;
-  const float* qh = q + lay.in_head(blockIdx.x, hd);
-  const float* kh = k + lay.in_head(blockIdx.x, hd);
-  const float* vh = v + lay.in_head(blockIdx.x, hd);
-  float* oh = o + lay.out_head(blockIdx.x, hd);
+__host__ __device__ constexpr int round8(int t) { return (t + 7) & ~7; }
 
-  // Stage K and V (rows t..t4-1 as zeros): 16-byte vectors, neighbouring
-  // threads on neighbouring addresses.
-  const int vecs = hd / 4;
-  for (int i = threadIdx.x; i < t4 * vecs; i += kThreads) {
-    const int r = i / vecs;
-    const int c = (i - r * vecs) * 4;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(ks + r * pitch + c) =
-        r < t ? *reinterpret_cast<const float4*>(kh + r * rs + c) : zero;
-    *reinterpret_cast<float4*>(vs + r * pitch + c) =
-        r < t ? *reinterpret_cast<const float4*>(vh + r * rs + c) : zero;
+// Shared memory, in floats: a first region that holds K as [round8(T)][HD +
+// 4], then V where it is restaged there, then the parts' partial O
+// ([groups][kSplit - 1][16 * HD]); V as [round8(T)][HD + 4] where it has a
+// region of its own (`apart`); the parts' row maxima and sums
+// [2][warps][16]; and the block's Q rows, [rows][HD + 4].
+template <int HD>
+struct F32Smem {
+  static constexpr int kParked = f32_warps<HD>() / kSplit * (kSplit - 1) * 16 * HD;
+  int v, red, q, total;
+
+  __host__ __device__ F32Smem(int t, bool apart) {
+    const int staged = round8(t) * (HD + 4);
+    const int first = staged > kParked ? staged : kParked;
+    v = apart ? first : 0;
+    red = first + (apart ? staged : 0);
+    q = red + 2 * f32_warps<HD>() * 16;
+    total = q + f32_rows<HD>() * (HD + 4);
   }
-  __syncthreads();
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row_begin = blockIdx.y * rows_per_block;
-  const int row_end = min(t, row_begin + rows_per_block);
-  const int r0 = row_begin + warp * R;
-  if (r0 >= row_end) return;  // no block-wide barrier follows
-  float* qw = qbuf + warp * R * hd;
-  float* pw = pbuf + warp * R * t4;
+// V gets a region of its own, and lands during S = Q K^T, where it fits;
+// else (hd 112 past T = 216, hd 128 past 184) it is restaged into K's place
+// once every warp has formed S, and lands during the softmax.
+template <int HD>
+bool f32_apart(int t) {
+  return !THEIA_K1_F32_RESTAGE && F32Smem<HD>(t, true).total * sizeof(float) <= kMaxSmem;
+}
 
-  for (int idx = lane; idx < R * hd; idx += 32) {
-    const int rr = idx / hd;
-    const int row = r0 + rr;
-    qw[idx] = row < row_end ? qh[row * rs + idx - rr * hd] : 0.f;
-  }
-  __syncwarp();
+template <int HD>
+size_t smem_bytes_f32(int t) {
+  return F32Smem<HD>(t, f32_apart<HD>(t)).total * sizeof(float);
+}
 
-  // Scores: lane owns keys lane + 32*i, for R rows at once.
-  float s[R][kKeysPerLane];
+// f(i) for the tiles i < live of a warp's N, in order, kSGroup of them
+// under one branch where all of them are live.
+template <int N, typename F>
+__device__ __forceinline__ void for_live_tiles(int live, F&& f) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int i0 = 0; i0 < N; i0 += kSGroup) {
+    if (i0 + kSGroup <= live) {
 #pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) s[r][i] = 0.f;
-  for (int d = 0; d < hd; d += 4) {
-    float4 qv[R];
+      for (int i = i0; i < i0 + kSGroup; ++i) f(i);
+    } else {
 #pragma unroll
-    for (int r = 0; r < R; ++r) qv[r] = *reinterpret_cast<const float4*>(qw + r * hd + d);  // broadcast
-#pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      const int j = lane + 32 * i;
-      if (j < t) {
-        const float4 kv = *reinterpret_cast<const float4*>(ks + j * pitch + d);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          s[r][i] = fmaf(qv[r].x, kv.x, s[r][i]);
-          s[r][i] = fmaf(qv[r].y, kv.y, s[r][i]);
-          s[r][i] = fmaf(qv[r].z, kv.z, s[r][i]);
-          s[r][i] = fmaf(qv[r].w, kv.w, s[r][i]);
-        }
+      for (int i = i0; i < i0 + kSGroup; ++i) {
+        if (i < live) f(i);
       }
     }
   }
+}
 
-  // Softmax of each row, masked past T; P is zero from T up to t4.
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      const int j = lane + 32 * i;
-      s[r][i] = j < t ? s[r][i] * scale : -INFINITY;
-      m = fmaxf(m, s[r][i]);
+// The kSplit warps of a row group (named barrier 1 + group) combine their
+// partial values a, b of rows g and g + 8 in part order through red[kSplit][16],
+// so that all of them end with the same numbers (K2's row pass does the same).
+template <typename Op>
+__device__ __forceinline__ void combine_parts(float* red, int group, int part, float& a, float& b, Op op) {
+  constexpr int KS = kSplit;
+  if constexpr (KS > 1) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    if ((lane & 3) == 0) {
+      red[part * 16 + g] = a;
+      red[part * 16 + g + 8] = b;
     }
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(KS * 32) : "memory");
+    a = red[g];
+    b = red[g + 8];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float l = 0.f;
-#pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      const int j = lane + 32 * i;
-      s[r][i] = j < t ? expf(s[r][i] - m) : 0.f;
-      l += s[r][i];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-#pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      const int j = lane + 32 * i;
-      if (j < t4) pw[r * t4 + j] = j < t ? s[r][i] / l : 0.f;
+    for (int p = 1; p < KS; ++p) {
+      a = op(a, red[p * 16 + g]);
+      b = op(b, red[p * 16 + g + 8]);
     }
   }
-  __syncwarp();
+}
 
-  // O = P V: lane owns dims lane + 32*i, for R rows at once.
-  float acc[R][kDimsPerLane];
+// A row group is kSplit warps that own the same 16 query rows; part p of a
+// group holds key tiles p, p + kSplit, ... of 8 keys each: S = Q K^T (a
+// k-step at a time over its tiles, Q's A fragments read from the block's
+// rows in shared memory), then P in place in the accumulators. The parts'
+// maxima and sums meet behind the group's named barrier. O = P V takes each
+// P tile straight from the accumulators as its A operand (mma_cols_f32);
+// parts 1 .. kSplit - 1 park their partial O in shared memory, where part 0
+// adds them in part order and stores. Warps whose rows lie past T skip the
+// work but reach every barrier of the block and copy their share of Q, K
+// and V.
+template <int HD>
+__global__ void __launch_bounds__(f32_warps<HD>() * 32)
+    mha_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ o, Layout lay, int row_blocks, float scale, bool apart) {
+  constexpr int KS = kSplit;
+  constexpr int kWarpsF32 = f32_warps<HD>();
+  constexpr int kRows = f32_rows<HD>();
+  constexpr int kPitch = HD + 4;
+  constexpr int kTiles = kMaxKeyTiles / KS;  // key tiles a warp holds at most
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = lay.t;
+  const int t8 = round8(t);
+  const int key_tiles = t8 / 8;
+  const F32Smem<HD> at(t, apart);
+  float* ks = reinterpret_cast<float*>(smem);  // K; V where restaged; the parked O
+  float* vs = ks + at.v;
+  float* red = ks + at.red;  // [2][kWarpsF32][16]: the parts' max and sum
+  float* qs = ks + at.q;
+
+  const int slab = blockIdx.x / row_blocks;  // head-major: a slab's blocks share its K, V in L2
+  const int row0 = (blockIdx.x - slab * row_blocks) * kRows;
+  const size_t in_off = lay.in_head(slab, HD);
+  const int64_t ts = lay.in_tstride;
+  // a commit group each, in the order the block needs them: Q and K for S, V
+  stage_rows_f32<HD>(qs, q + in_off + row0 * ts, ts, t - row0, kRows);
+  stage_rows_f32<HD>(ks, k + in_off, ts, t, t8);
+  if (apart) {
+    stage_rows_f32<HD>(vs, v + in_off, ts, t, t8);
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();  // Q and K are in shared memory
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int group = warp / KS;
+  const int part = warp - group * KS;
+  const int r0 = row0 + group * 16;
+  const bool live = r0 < t;  // uniform over the group
+
+  // S = Q K^T: tile i holds keys 8n .. 8n+7, n = KS i + part; element e of a
+  // tile is row (e < 2 ? a : b), key 8n + 2*tq + (e & 1). The terms, their
+  // order and the scale's rounding are K2's row pass's, so P is the number
+  // the backward recomputes.
+  float sc[kTiles][4] = {};
+  const int live_tiles = (key_tiles - part + KS - 1) / KS;  // this warp's tiles below T
+  if (live) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+    for (int s = 0; s < HD / 8; ++s) {
+      const float* qa = qs + (group * 16 + (lane >> 2)) * kPitch + 8 * s + tq;
+      const float a[4] = {qa[0], qa[8 * kPitch], qa[4], qa[8 * kPitch + 4]};
+      uint32_t a_big[4], a_small[4];
+      split_tf32(a, a_big, a_small);
 #pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] = 0.f;
-  for (int j = 0; j < t4; j += 4) {
-    float4 p[R];
+      for (int i0 = 0; i0 < kTiles; i0 += kSGroup) {
+        if (i0 + kSGroup <= live_tiles) {
+          // mma_3xtf32's terms in its order, each for the whole group
+          uint32_t b_big[kSGroup][2], b_small[kSGroup][2];
 #pragma unroll
-    for (int r = 0; r < R; ++r) p[r] = *reinterpret_cast<const float4*>(pw + r * t4 + j);  // broadcast
+          for (int j = 0; j < kSGroup; ++j) b_rows<kPitch>(ks, 8 * (KS * (i0 + j) + part), 8 * s, b_big[j], b_small[j]);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const float* vrow = vs + (j + jj) * pitch;
+          for (int j = 0; j < kSGroup; ++j) mma_tf32_1688(sc[i0 + j], a_small, b_big[j][0], b_big[j][1]);
 #pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) {
-          const float vv = vrow[d];
+          for (int j = 0; j < kSGroup; ++j) mma_tf32_1688(sc[i0 + j], a_big, b_small[j][0], b_small[j][1]);
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float pj = jj == 0 ? p[r].x : jj == 1 ? p[r].y : jj == 2 ? p[r].z : p[r].w;
-            acc[r][i] = fmaf(pj, vv, acc[r][i]);
+          for (int j = 0; j < kSGroup; ++j) mma_tf32_1688(sc[i0 + j], a_big, b_big[j][0], b_big[j][1]);
+        } else {
+#pragma unroll
+          for (int i = i0; i < i0 + kSGroup; ++i) {
+            if (i < live_tiles) {
+              uint32_t b_big[2], b_small[2];
+              b_rows<kPitch>(ks, 8 * (KS * i + part), 8 * s, b_big, b_small);
+              mma_3xtf32(sc[i], a_big, a_small, b_big, b_small);
+            }
           }
         }
       }
     }
   }
+  if (!apart) {
+    __syncthreads();  // every warp is done with K
+    stage_rows_f32<HD>(ks, v + in_off, ts, t, t8);  // V in K's place, in flight during the softmax
+  }
+
+  // P = exp(S * scale - m) / l, masked past T: the exact expf and the IEEE
+  // quotient.
+  if (live) {
+    const auto fmax2 = [](float x, float y) { return fmaxf(x, y); };
+    const auto sum2 = [](float x, float y) { return x + y; };
+    float* red_group = red + group * KS * 16;
+    float m_a = -INFINITY, m_b = -INFINITY;
+    for_live_tiles<kTiles>(live_tiles, [&](int i) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = r0 + r;
-    if (row < row_end) {
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) oh[row * lay.out_tstride + d] = acc[r][i];
+      for (int e = 0; e < 4; ++e) {
+        const int key = (KS * i + part) * 8 + 2 * tq + (e & 1);
+        sc[i][e] = key < t ? __fmul_rn(sc[i][e], scale) : -INFINITY;
       }
+      m_a = fmaxf(m_a, fmaxf(sc[i][0], sc[i][1]));
+      m_b = fmaxf(m_b, fmaxf(sc[i][2], sc[i][3]));
+    });
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m_a = fmaxf(m_a, __shfl_xor_sync(0xffffffffu, m_a, off));
+      m_b = fmaxf(m_b, __shfl_xor_sync(0xffffffffu, m_b, off));
+    }
+    combine_parts(red_group, group, part, m_a, m_b, fmax2);  // finite: part 0 holds key 0
+    float l_a = 0.f, l_b = 0.f;
+    float p_min = 1.f;  // the least p of a key below T: whether a quotient needs the IEEE division
+    for_live_tiles<kTiles>(live_tiles, [&](int i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = (KS * i + part) * 8 + 2 * tq + (e & 1);
+        sc[i][e] = key < t ? expf(sc[i][e] - (e < 2 ? m_a : m_b)) : 0.f;
+        if (key < t) p_min = fminf(p_min, sc[i][e]);
+      }
+      l_a += sc[i][0] + sc[i][1];
+      l_b += sc[i][2] + sc[i][3];
+    });
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    combine_parts(red_group + kWarpsF32 * 16, group, part, l_a, l_b, sum2);
+    // P = p / l: div_rn from one reciprocal a row (p = 0 past T stays 0),
+    // or, where a p of the warp lies below div_rn's range, the division.
+    if (kDivRn && !__any_sync(0xffffffffu, p_min < kDivRnMin)) {
+      const float rl_a = 1.f / l_a, rl_b = 1.f / l_b;
+#pragma unroll
+      for (int i = 0; i < kTiles; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[i][e] = div_rn(sc[i][e], e < 2 ? l_a : l_b, e < 2 ? rl_a : rl_b);
+      }
+    } else {
+      for_live_tiles<kTiles>(live_tiles, [&](int i) {
+        sc[i][0] /= l_a;
+        sc[i][1] /= l_a;
+        sc[i][2] /= l_b;
+        sc[i][3] /= l_b;
+      });
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // V is in shared memory (and K is free where V has a region of its own)
+
+  // O = P V over this warp's key tiles.
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  if (live) for_live_tiles<kTiles>(live_tiles, [&](int i) { mma_cols_f32<HD>(acc, sc[i], vs, KS * i + part); });
+  if constexpr (KS > 1) {
+    if (!apart) __syncthreads();  // every warp is done with V before the parts park O in its place
+    if (!live) return;
+    // parked in K's place, in the fragments' own layout: a warp's 32 lanes
+    // on 32 consecutive floats
+    float* parked = ks + group * (KS - 1) * 16 * HD;
+    if (part > 0) {
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) parked[(part - 1) * 16 * HD + (n * 4 + e) * 32 + lane] = acc[n][e];
+    }
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(KS * 32) : "memory");
+    if (part > 0) return;
+#pragma unroll
+    for (int p = 1; p < KS; ++p)
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += parked[(p - 1) * 16 * HD + (n * 4 + e) * 32 + lane];
+  } else if (!live) {
+    return;
+  }
+  store_rows_f32<HD>(o + lay.out_head(slab, HD), lay.out_tstride, r0, t, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -534,56 +710,52 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int slabs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM of mha_fwd_bf16<HD, NCW> (its block size and
-// shared memory), or a negated cudaError_t.
-template <int HD, int NCW>
-int blocks_per_sm_bf16() {
-  const size_t smem = smem_bytes_bf16(NCW, HD);
-  cudaError_t err = allow_smem(mha_fwd_bf16<HD, NCW>, smem);
+// Resident blocks per SM of a kernel with `threads` a block and `smem` bytes
+// of dynamic shared memory, or a negated cudaError_t.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
+  cudaError_t err = allow_smem(kernel, smem);
   int blocks = 0;
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mha_fwd_bf16<HD, NCW>, kTcThreads, smem);
-  }
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// f(std::integral_constant<int, hd>{}, std::integral_constant<int, ncw>{})
-// for hd in 16..128 step 16 and ncw = round128(t) / 128 in 1..2.
-template <int HD, typename F>
-int with_nc(int t, F&& f) {
-  if (t <= 2 * kKeyChunk) return f(std::integral_constant<int, HD>{}, std::integral_constant<int, 1>{});
-  return f(std::integral_constant<int, HD>{}, std::integral_constant<int, kMaxWgChunks>{});
-}
-
+// f(std::integral_constant<int, hd>{}) for hd in 16..128 step 16.
 template <typename F>
-int with_hd_nc(int hd, int t, F&& f) {
+int with_hd(int hd, F&& f) {
   switch (hd) {
-    case 16: return with_nc<16>(t, f);
-    case 32: return with_nc<32>(t, f);
-    case 48: return with_nc<48>(t, f);
-    case 64: return with_nc<64>(t, f);
-    case 80: return with_nc<80>(t, f);
-    case 96: return with_nc<96>(t, f);
-    case 112: return with_nc<112>(t, f);
-    default: return with_nc<128>(t, f);
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    default: return f(std::integral_constant<int, 128>{});
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o, int slabs, const Layout& lay,
-               int hd, float scale, cudaStream_t stream) {
-  const int t = lay.t;
-  const size_t smem = smem_bytes_f32(t, hd);
-  const cudaError_t err = allow_smem(mha_fwd_f32, smem);
+// f(std::integral_constant<int, hd>{}, std::integral_constant<int, ncw>{})
+// for the bf16 kernel: ncw = round128(t) / 128 in 1..2.
+template <typename F>
+int with_hd_nc(int hd, int t, F&& f) {
+  return with_hd(hd, [&](auto h) {
+    if (t <= 2 * kKeyChunk) return f(h, std::integral_constant<int, 1>{});
+    return f(h, std::integral_constant<int, kMaxWgChunks>{});
+  });
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int slabs, const Layout& lay, float scale,
+               cudaStream_t stream) {
+  const bool apart = f32_apart<HD>(lay.t);
+  const size_t smem = smem_bytes_f32<HD>(lay.t);
+  const cudaError_t err = allow_smem(mha_fwd_f32<HD>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // Split the T rows evenly over the fewest blocks of at most kRowsPerBlock
-  // rows, in whole groups of kRowsPerWarp.
-  const int blocks_y = (t + kRowsPerBlock - 1) / kRowsPerBlock;
-  const int rows = (t + blocks_y - 1) / blocks_y;
-  const int rows_per_block = (rows + kRowsPerWarp - 1) / kRowsPerWarp * kRowsPerWarp;
-  const dim3 grid(slabs, blocks_y);
-  mha_fwd_f32<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                                static_cast<const float*>(v), static_cast<float*>(o), lay,
-                                                hd, scale, rows_per_block);
+  const int row_blocks = (lay.t + f32_rows<HD>() - 1) / f32_rows<HD>();
+  mha_fwd_f32<HD><<<slabs * row_blocks, f32_warps<HD>() * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(o),
+      lay, row_blocks, scale, apart);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -596,9 +768,7 @@ extern "C" {
 // dimension of size 1 is never used). Pointers and strides are 16-byte
 // aligned. dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
 // launch (0 on success); the kernel runs asynchronously on `stream`. Every
-// bf16 shape in range fits in shared memory; float32 shapes whose staged K,
-// V and row buffers exceed the 227 KB a block may use return
-// cudaErrorInvalidValue (hd <= 64 fits every T <= 256; hd = 128 fits T <= 152).
+// shape in range fits in shared memory, in both dtypes.
 int theia_mha_fwd(const void* q, const void* k, const void* v, void* o, int batch, int heads, int t,
                   int hd, int64_t in_bstride, int64_t in_tstride, int64_t out_bstride,
                   int64_t out_tstride, int dtype, float scale, void* stream) {
@@ -614,7 +784,9 @@ int theia_mha_fwd(const void* q, const void* k, const void* v, void* o, int batc
   const Layout lay{t, heads, in_bstride, in_tstride, out_bstride, out_tstride};
   const int slabs = batch * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(q, k, v, o, slabs, lay, hd, scale, s);
+  if (dtype == 0) {
+    return with_hd(hd, [&](auto h) { return launch_f32<decltype(h)::value>(q, k, v, o, slabs, lay, scale, s); });
+  }
   return with_hd_nc(hd, t, [&](auto h, auto nc) {
     return launch_bf16<decltype(h)::value, decltype(nc)::value>(q, k, v, o, slabs, lay, scale, s);
   });
@@ -624,7 +796,21 @@ int theia_mha_fwd(const void* q, const void* k, const void* v, void* o, int batc
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or a negated cudaError_t.
 int theia_mha_fwd_bf16_blocks_per_sm(int t, int hd) {
   if (t < 1 || t > kMaxT || hd < 16 || hd > kMaxHd || hd % 16 != 0) return -static_cast<int>(cudaErrorInvalidValue);
-  return with_hd_nc(hd, t, [](auto h, auto nc) { return blocks_per_sm_bf16<decltype(h)::value, decltype(nc)::value>(); });
+  return with_hd_nc(hd, t, [](auto h, auto nc) {
+    constexpr int HD = decltype(h)::value, NCW = decltype(nc)::value;
+    return blocks_per_sm(mha_fwd_bf16<HD, NCW>, kTcThreads, smem_bytes_bf16(NCW, HD));
+  });
+}
+
+// The same for the float32 kernel, with the threads of one of its blocks in
+// *threads.
+int theia_mha_fwd_f32_blocks_per_sm(int t, int hd, int* threads) {
+  if (t < 1 || t > kMaxT || hd < 16 || hd > kMaxHd || hd % 16 != 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return with_hd(hd, [&](auto h) {
+    constexpr int HD = decltype(h)::value;
+    *threads = f32_warps<HD>() * 32;
+    return blocks_per_sm(mha_fwd_f32<HD>, *threads, smem_bytes_f32<HD>(t));
+  });
 }
 
 const char* theia_cuda_error_string(int code) {

@@ -95,6 +95,8 @@ def load() -> ctypes.CDLL:
             lib.theia_mha_fwd.restype = i32
             lib.theia_mha_fwd_bf16_blocks_per_sm.argtypes = [i32, i32]
             lib.theia_mha_fwd_bf16_blocks_per_sm.restype = i32
+            lib.theia_mha_fwd_f32_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
+            lib.theia_mha_fwd_f32_blocks_per_sm.restype = i32
             lib.theia_mha_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 6 + [i32, ctypes.c_float, ptr]
             lib.theia_mha_bwd.restype = i32
             lib.theia_mha_bwd_f32_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
