@@ -9,7 +9,7 @@ failure (the script then exits nonzero and prints no result):
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes),
    ptxas's registers and spills, and the resident blocks per SM of K1 in
    bf16 and float32, of K2's two passes in bf16 and float32, of float32 K7,
-   K9 and K8 and of bf16 K7;
+   K9 and K8 and of bf16 K7, K9 and K8;
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
    64] as views of a packed QKV projection and over a sweep of head dim x
@@ -19,9 +19,9 @@ failure (the script then exits nonzero and prints no result):
    2^-90, which take the IEEE division), K7 (flash forward), K9 (flash
    dQ) and K8 (flash dK, dV) at [B, 197|204, 12, 64] and [16, 785, 12, 64]
    as such views and over a sweep of head dim x T (float32 K9/K8 also at
-   the edges of their 16-row groups and 64-row tiles, bf16 K7 at the edges
-   of its 128-row blocks), bf16 K7 also where every key tile raises the
-   row max and where most probabilities underflow, K3 and K4
+   the edges of their 16-row groups and 64-row tiles, bf16 K7-K9 at the
+   edges of their 128-row blocks), bf16 K7-K9 also where every key tile
+   raises the row max and where most probabilities underflow, K3 and K4
    (LayerNormSpatial backward) at every ladder LayerNorm of the Theia-Base
    cddsv heads, K5 and K6 (the fused loss's sums and d pred) at the five
    cddsv teachers' [16, D] and over a sweep of B and D;
@@ -103,7 +103,7 @@ FLASH_SWEEP_T = (1, 17, 130, 257, 785)
 # and float32 K9/K8 (3xTF32) also at the edges of their 16-row groups and
 # 64-row tiles
 FLASH_F32_EDGE_T = (15, 16, 63, 64, 65)
-# and bf16 K7 (wgmma) at the edges of its 128-row blocks
+# and bf16 K7, K9 and K8 (wgmma) at the edges of their 128-row blocks
 FLASH_BF16_EDGE_T = (127, 128, 129, 255, 256)
 # 448² uint8 images without resize: 28² patches and the CLS token
 BIG_IMAGE, BIG_T = 448, 1 + (448 // 16) ** 2
@@ -362,7 +362,7 @@ def compare_flash_kernels(attention) -> dict:
     training shapes [1|64, 197|204, 12, 64] and [1|16, 197|204, 12, 64], at
     448² images' [16, 785, 12, 64], and over head dims 16..128 x
     FLASH_SWEEP_T (float32 also FLASH_F32_EDGE_T, bf16 FLASH_BF16_EDGE_T);
-    float32 and bf16; then bf16 K7's hard cases (``k7_bf16_hard_cases``).
+    float32 and bf16; then bf16 K7-K9's hard cases (``flash_bf16_hard_cases``).
     The max abs errors."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     errors = {}
@@ -398,16 +398,18 @@ def compare_flash_kernels(attention) -> dict:
           f" (atol {KERNEL_F32_ATOL}); bf16 worst rel_l2 " +
           ", ".join(f"{n} {worst[(n, torch.bfloat16)]:.3e}" for n in ("flash_fwd", "flash_dq", "flash_dkv")) +
           f" (< {KERNEL_BF16_REL_L2}); lse, di within rel_l2 {KERNEL_F32_REL_L2}")
-    k7_bf16_hard_cases(attention, gen)
+    flash_bf16_hard_cases(attention, gen)
     return errors
 
 
-def k7_bf16_hard_cases(attention, gen: torch.Generator) -> None:
-    """bf16 K7 at [2, 785, 2, 64|128] where its online softmax works hardest,
-    held to its plain version (O rel_l2 < KERNEL_BF16_REL_L2, lse within
-    KERNEL_F32_REL_L2): "rising max", K scaled up along the keys (1x to
-    ~12x), so that each 64-key tile raises the row maxima and rescales O and
-    l; "scores x 40", Q scaled by 40, so that most p underflow to 0."""
+def flash_bf16_hard_cases(attention, gen: torch.Generator) -> None:
+    """bf16 K7, K9 and K8 at [2, 785, 2, 64|128] where the online softmax
+    works hardest and where P and dS are concentrated, each held to its
+    plain version on the kernels' O, lse and di (O, dQ, dK and dV rel_l2 <
+    KERNEL_BF16_REL_L2, lse and di within KERNEL_F32_REL_L2): "rising max",
+    K scaled up along the keys (1x to ~12x), so that each 64-key tile raises
+    the row maxima and rescales O and l; "scores x 40", Q scaled by 40, so
+    that most p underflow to 0."""
     worst = {}
     for hd in (64, 128):
         for case in ("rising max", "scores x 40"):
@@ -417,16 +419,25 @@ def k7_bf16_hard_cases(attention, gen: torch.Generator) -> None:
             else:
                 qkv[..., : 2 * hd] *= 40
             q, k, v = (y.view(2, BIG_T, 2, hd) for y in qkv.to(torch.bfloat16).split(2 * hd, dim=-1))
+            do = torch.randn(2, BIG_T, 2, hd, device="cuda", generator=gen).to(torch.bfloat16)
             o, lse = attention.flash_fwd(q, k, v)
+            dq, di = attention.flash_dq(q, k, v, o, lse, do)
+            dk, dv = attention.flash_dkv(q, k, v, lse, di, do)
             want_o, want_lse = attention.flash_fwd_plain(q, k, v)
-            errs = (rel_l2(o.float(), want_o.float()), rel_l2(lse, want_lse))
-            check(errs[0] < KERNEL_BF16_REL_L2 and errs[1] <= KERNEL_F32_REL_L2,
-                  f"K7 bf16 [2,{BIG_T},2,{hd}] {case} disagrees with its plain version: O rel_l2 {errs[0]:.3e}, "
-                  f"lse rel_l2 {errs[1]:.3e}")
-            worst[case] = tuple(map(max, zip(worst.get(case, errs), errs)))
-    print(f"  K7 flash_fwd bf16 [2, {BIG_T}, 2, 64|128]: " +
-          "; ".join(f"{case} worst rel_l2 O {o:.3e}, lse {l:.3e}" for case, (o, l) in worst.items()) +
-          f" (O < {KERNEL_BF16_REL_L2}, lse <= {KERNEL_F32_REL_L2})")
+            want_dq, want_di = attention.flash_dq_plain(q, k, v, o, lse, do)
+            want_dkv = torch.stack(attention.flash_dkv_plain(q, k, v, lse, di, do))
+            errs = {name: rel_l2(got.float(), want.float()) for name, got, want in (
+                ("O", o, want_o), ("lse", lse, want_lse), ("dQ", dq, want_dq), ("di", di, want_di),
+                ("dK/dV", torch.stack([dk, dv]), want_dkv))}
+            ok = all(errs[n] < KERNEL_BF16_REL_L2 for n in ("O", "dQ", "dK/dV"))
+            check(ok and errs["lse"] <= KERNEL_F32_REL_L2 and errs["di"] <= KERNEL_F32_REL_L2,
+                  f"K7-K9 bf16 [2,{BIG_T},2,{hd}] {case} disagree with their plain versions: " +
+                  ", ".join(f"{n} rel_l2 {e:.3e}" for n, e in errs.items()))
+            worst[case] = {n: max(worst.get(case, {}).get(n, 0.0), e) for n, e in errs.items()}
+    print(f"  K7/K9/K8 flash bf16 [2, {BIG_T}, 2, 64|128]: " +
+          "; ".join(f"{case} worst rel_l2 " + ", ".join(f"{n} {e:.3e}" for n, e in w.items())
+                    for case, w in worst.items()) +
+          f" (O, dQ, dK/dV < {KERNEL_BF16_REL_L2}; lse, di <= {KERNEL_F32_REL_L2})")
 
 
 def compare_loss_kernels(fused_loss, teacher_dims: list[int]) -> dict:
@@ -523,7 +534,8 @@ def main() -> int:
     for name, line in usage:
         print(f"  ptxas: {name}: {line}")
     usage = dict(usage)
-    for name, reason in wgmma_serialized(lib_path.with_suffix(".log").read_text()):
+    serialized = wgmma_serialized(lib_path.with_suffix(".log").read_text())
+    for name, reason in serialized:
         print(f"  ptxas serialized the wgmma of {name} ({reason})")
     # K1 bf16 at the main path's T = 197: two chunks of 64 keys a warpgroup
     k1 = f"mha_fwd_bf16<{HEAD_DIM},2>"
@@ -563,11 +575,22 @@ def main() -> int:
     k7 = f"flash_fwd_bf16<{HEAD_DIM}>"
     threads = ctypes.c_int(0)
     blocks = build.load().theia_flash_fwd_bf16_blocks_per_sm(HEAD_DIM, ctypes.byref(threads))
-    notes = [reason for name, reason in wgmma_serialized(lib_path.with_suffix(".log").read_text()) if name == k7]
+    notes = [reason for name, reason in serialized if name == k7]
     print(f"  K7 {k7}: ptxas {usage.get(k7)}; {blocks} resident blocks per SM "
           f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block); wgmma serialized: "
           f"{'; '.join(notes) or 'no'}")
     check(k7 in usage and blocks > 0, f"{k7}'s ptxas line or occupancy query is missing ({blocks})")
+    # K9 and K8 bf16 (wgmma) at the main path's head dim and at the widest
+    for number, kernel in ((9, "flash_dq_bf16"), (8, "flash_dkv_bf16")):
+        for hd in (HEAD_DIM, 128):
+            name = f"{kernel}<{hd}>"
+            threads = ctypes.c_int(0)
+            blocks = build.load().theia_flash_bwd_bf16_blocks_per_sm(hd, number, ctypes.byref(threads))
+            notes = [reason for n, reason in serialized if n == name]
+            print(f"  K{number} {name}: ptxas {usage.get(name)}; {blocks} resident blocks per SM "
+                  f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block); wgmma "
+                  f"serialized: {'; '.join(notes) or 'no'}")
+            check(name in usage and blocks > 0, f"{name}'s ptxas line or occupancy query is missing ({blocks})")
 
     # phase 3: kernel vs plain; float32 phases run with TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -144,6 +144,26 @@ def test_plain_bf16_forward_matches_the_tpu_flash_kernel_at_the_block_edges(t, h
     assert _rel_l2(lse.numpy(), want_lse) <= 1e-5
 
 
+@pytest.mark.parametrize("t, hd", [(127, 64), (129, 128), (255, 128), (257, 64)])
+def test_plain_bf16_backward_matches_the_tpu_flash_kernels_at_the_block_edges(t, hd):
+    """The bf16 flash backward's plain versions (K9's dQ, K8's dK and dV)
+    against jax.vjp of the reference's flash path in interpret mode, on bf16
+    inputs, at the edges of bf16 K9's 128-row blocks and K8's 128-key blocks
+    (one row short of and past one and two of them; T = 257 pads to 384 in
+    the reference), at the main path's and the widest head dims."""
+    q, k, v, do = _arrays((1, t, H, hd), 4, seed=t * 1000 + hd + 13)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda a, b, c: jattn._flash_attention(a, b, c, jnp.bfloat16),
+                         *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+        want_grads = vjp(jnp.asarray(do, jnp.bfloat16))
+    tq, tk, tv, tdo = (_torch(x, torch.bfloat16) for x in (q, k, v, do))
+    o, lse = tattn.flash_fwd_plain(tq, tk, tv)
+    grads = tattn.flash_bwd_plain(tq, tk, tv, o, lse, tdo)
+    assert grads.dtype == torch.bfloat16 and tuple(grads.shape) == (1, t, 3, H, hd)
+    for i, w in enumerate(want_grads):
+        _close(grads[:, :, i], w, torch.bfloat16, 2e-2)
+
+
 def test_plain_matches_einsum_where_the_reference_flash_path_refuses():
     """T = 785 (448² images): the reference pads to 896 and asks for blocks of
     512, which its library refuses; the port's plain versions (and kernels)
@@ -407,3 +427,59 @@ def test_cuda_float32_backward_kernels_match_plain(cuda, hd, t):
     assert float(want_di.norm()) == 0 or _rel_l2(di.cpu(), want_di.cpu()) <= 1e-5
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 130, 197, 255, 256, 257, 785))
+@pytest.mark.parametrize("hd", (16, 32, 48, 64, 80, 96, 112, 128))
+def test_cuda_bf16_backward_kernels_match_plain(cuda, hd, t):
+    """bf16 K9 and K8 (wgmma) against their plain versions at every head dim
+    and at the edges of their 16-row warps, 64-row warpgroups, 64-key and
+    32-query tiles and 128-row blocks, on views of a packed projection: dQ,
+    dK and dV within relative L2 1e-2, di within 1e-5; one launch each."""
+    gen = torch.Generator().manual_seed(hd * 1000 + t + 3)
+    qkv = torch.randn(2, t, 3 * 2 * hd, generator=gen).to(cuda, torch.bfloat16)
+    q, k, v = (y.view(2, t, 2, hd) for y in qkv.split(2 * hd, dim=-1))
+    do = torch.randn(2, t, 2, hd, generator=gen).to(cuda, torch.bfloat16)
+    o, lse = tattn.flash_fwd(q, k, v)
+    before = _counts()
+    dq, di = tattn.flash_dq(q, k, v, o, lse, do)
+    dk, dv = tattn.flash_dkv(q, k, v, lse, di, do)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert {n: after[n] - before[n] for n in COUNTERS} == {
+        "MHA_FWD_LAUNCHES": 0, "MHA_BWD_LAUNCHES": 0, "FLASH_FWD_LAUNCHES": 0, "FLASH_DKV_LAUNCHES": 1,
+        "FLASH_DQ_LAUNCHES": 1}
+    want_dq, want_di = tattn.flash_dq_plain(q, k, v, o, lse, do)
+    want_dk, want_dv = tattn.flash_dkv_plain(q, k, v, lse, di, do)
+    assert float(want_di.norm()) == 0 or _rel_l2(di.cpu(), want_di.cpu()) <= 1e-5
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        got, want = got.float().cpu(), want.float().cpu()
+        # at T = 1 dQ and dK are 0 but for float32 rounding on both sides
+        assert _rel_l2(got, want) < 1e-2 or float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("rising max", "scores x 40"))
+@pytest.mark.parametrize("hd", (64, 128))
+def test_cuda_bf16_backward_kernels_where_p_and_ds_concentrate(cuda, hd, case):
+    """bf16 K9 and K8 at [2, 785, 2, hd] against their plain versions, on
+    K7's O and lse: K scaled up along the keys (1x to ~12x), or Q scaled by
+    40, so that most p underflow to 0 and dS gathers on a few keys. dQ, dK
+    and dV within relative L2 1e-2, di within 1e-5."""
+    t = 785
+    qkv = torch.randn(2, t, 3 * 2 * hd, generator=torch.Generator().manual_seed(hd + len(case) + 1))
+    if case == "rising max":
+        qkv[..., 2 * hd: 4 * hd] *= torch.linspace(1, t / 64, t)[None, :, None]
+    else:
+        qkv[..., : 2 * hd] *= 40
+    q, k, v = (y.view(2, t, 2, hd) for y in qkv.to(cuda, torch.bfloat16).split(2 * hd, dim=-1))
+    do = torch.randn(2, t, 2, hd, generator=torch.Generator().manual_seed(hd)).to(cuda, torch.bfloat16)
+    o, lse = tattn.flash_fwd(q, k, v)
+    dq, di = tattn.flash_dq(q, k, v, o, lse, do)
+    dk, dv = tattn.flash_dkv(q, k, v, lse, di, do)
+    want_dq, want_di = tattn.flash_dq_plain(q, k, v, o, lse, do)
+    want_dk, want_dv = tattn.flash_dkv_plain(q, k, v, lse, di, do)
+    assert _rel_l2(di.cpu(), want_di.cpu()) <= 1e-5
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert _rel_l2(got.float().cpu(), want.float().cpu()) < 1e-2

@@ -33,7 +33,8 @@
 // likewise (45 and 61 GFLOP). At T = 197 all three are bound by their
 // bytes, a few microseconds. Nothing of size T x T leaves the SM: a block
 // owns 64 rows (queries, or keys in the dK/dV pass; 128 queries in the bf16
-// forward) and streams the other side through shared memory in tiles of 64.
+// forward) and streams the other side through shared memory in tiles of 64
+// (32 queries in the bf16 dK/dV pass).
 //
 // bf16 forward, wgmma (flash_fwd_bf16): two warpgroups (256 threads) own
 //   128 query rows of a slab, 64 each, and share the block's Q, staged once,
@@ -61,16 +62,34 @@
 //   softmax, and the last tile's 8-key groups wholly past T skip their
 //   exp; keys past T are zero-filled and masked to -inf.
 //
-// bf16 dQ and dK/dV, tensor cores (flash_dq_bf16, flash_dkv_bf16): four
-//   warps, each owning 16 rows, run mma.sync m16n8k16 with the building
-//   blocks of K1 and K2 (mma_bf16.cuh). The streamed tiles are
-//   double-buffered with cp.async: tile j + 1 is in flight while tile j is
-//   used. dQ holds its rows' Q and dO as A fragments; the S accumulators of
-//   two 8-key tiles are the A fragment of bf(dS) for the next 16-key step,
-//   and K's B fragments come from a transposing ldmatrix, as in K1. The
-//   dK/dV pass computes S^T = K Q^T and dP^T = V dO^T, whose accumulators
-//   are the A operands of dV = P^T dO and dK = dS^T Q, as K2's column pass
-//   does.
+// bf16 dQ and dK/dV, wgmma (flash_dq_bf16, flash_dkv_bf16): the forward's
+//   design, each pass owning one reduction direction. dQ: a warpgroup owns
+//   64 query rows of a slab (THEIA_K9_BF16_WG of them a block), whose Q and
+//   dO are staged once, and streams K and V through a ring of
+//   THEIA_K9_BF16_STAGES tiles of 64 keys, one barrier a tile; di =
+//   rowsum(O * dO) is formed first, from global memory while the first
+//   copies land. S = Q K^T and dP = dO V^T are m64n64k16 products with A
+//   and B in shared memory, committed as two groups so that dP is in flight
+//   during P's expf; dS, rounded to bf16 in the accumulator layout, is the
+//   register A of dQ += dS K with K the MN-major B, as P is of O += P V.
+//   S, dP and dQ take 96 floats a thread at hd 64, ~167 registers: 3
+//   blocks of 128 threads a SM, where 2 blocks of 256 at 128 registers
+//   spilled. dK/dV is K2 bf16's column pass over a streamed query ring: a
+//   warpgroup owns 64 keys (THEIA_K8_BF16_WG of them a block), whose K and
+//   V are staged once and are the A in shared memory of S^T = K Q^T and
+//   dP^T = V dO^T (m64n32k16); each of the THEIA_K8_BF16_STAGES slots holds
+//   32 queries' Q and dO and their lse and di; P^T and dS^T, rounded to
+//   bf16 in the accumulator layout, are the register A of dV += P^T dO and
+//   dK += dS^T Q (dO and Q the MN-major B); 4 blocks of 128 threads a SM at
+//   128 registers at hd 64. Keys past T are zero-filled and masked to P = 0
+//   in dQ's last tile, queries past T likewise in dK/dV's; rows past T are
+//   computed on zeros and never stored. What bounds them at [16, 785, 12,
+//   64]: not HBM (117 MB, 35 us) nor the tensor cores (dQ's 51 GFLOP of
+//   padded products take 52 us of its ~170, dK/dV's 65 take 66 of ~225).
+//   What is left is each block staging its slab's whole other side (~0.5
+//   GB through L2 a pass) and the exact expf of every score with the
+//   elementwise work around it, between a tile's barrier and its
+//   products' waits; their shares are not measured (PERF.md, section 6).
 //
 // float32, tensor cores as 3xTF32 (flash_fwd_f32, flash_dq_f32,
 //   flash_dkv_f32): no tensor-core instruction multiplies in full float32,
@@ -104,7 +123,7 @@
 //
 // No atomics: each pass owns one reduction direction, so the results are
 // deterministic. TMA, clusters, a producer warp and persistent blocks are
-// later work, as is wgmma for the bf16 backward and the float32 kernels.
+// later work, as is wgmma for the float32 kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,7 +132,6 @@
 
 #include <type_traits>
 
-#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -203,68 +221,62 @@ size_t smem_bytes_fwd_bf16(int hd) {
   return 1024 + static_cast<size_t>(round64(hd) / 64) * (kFwdRows + 2 * kStages * kTile) * 128;
 }
 
-template <int N>
-__device__ __forceinline__ void fence_all(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_operand(x[i]);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(uint32_t (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) fence_operand(x[i][e]);
-}
-
 // 16 bytes global -> shared, of which the first src_bytes (16, or 0) are
 // read and the rest zero-filled.
 __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
 }
 
-// Tile i of a slab's K or V (rows 64 i .., token stride ts) into ring slot
-// i % kStages, in the swizzled atom layout of stage_sw128, as one cp.async
-// commit group; rows from T on are zero-filled by the copy (src-size 0,
-// row 0's address); past the last tile an empty group, so that every thread
-// counts the same groups. Each thread copies the same chunks of every
-// tile, a fixed count.
-template <int HD>
-__device__ __forceinline__ void stage_ring(uint32_t ring, const bf16* x, int64_t ts, int i, int t) {
+// 4 bytes global -> shared, of which the first src_bytes (4, or 0) are
+// read and the rest zero-filled.
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
+}
+
+// Tile i of a slab's K, V, Q or dO (rows kRows i .., token stride ts) into
+// ring slot i % kSlots, in the swizzled atom layout of stage_sw128 (atoms
+// kRows rows apart), by the block's kThreads threads with cp.async, not
+// committed; rows from T on are zero-filled by the copy (src-size 0, row
+// 0's address), and past the last tile nothing is copied. Each thread
+// copies the same chunks of every tile, a fixed count.
+template <int HD, int kThreads, int kSlots, int kRows>
+__device__ __forceinline__ void copy_tile(uint32_t ring, const bf16* x, int64_t ts, int i, int t) {
   constexpr int kChunks = HD / 8;  // 16-byte chunks a row
-  constexpr int kAll = kTile * kChunks;
-  constexpr uint32_t kTileBytes = round64(HD) / 64 * kTile * 128;
-  if (i * kTile < t) {
-    const uint32_t slot = ring + static_cast<unsigned>(i) % kStages * kTileBytes;
-    const bf16* tile = x + static_cast<int64_t>(i) * kTile * ts;
-    const int rows = t - i * kTile;
+  constexpr int kAll = kRows * kChunks;
+  constexpr uint32_t kTileBytes = round64(HD) / 64 * kRows * 128;
+  if (i * kRows < t) {
+    const uint32_t slot = ring + static_cast<unsigned>(i) % kSlots * kTileBytes;
+    const bf16* tile = x + static_cast<int64_t>(i) * kRows * ts;
+    const int rows = t - i * kRows;
 #pragma unroll
-    for (int i0 = 0; i0 < kAll; i0 += kFwdThreads) {
+    for (int i0 = 0; i0 < kAll; i0 += kThreads) {
       const unsigned e = i0 + threadIdx.x;
-      if (kAll % kFwdThreads == 0 || e < kAll) {
+      if (kAll % kThreads == 0 || e < kAll) {
         const int r = e / kChunks, c = e % kChunks;
         const bool in = r < rows;
-        cp_async16_zfill(slot + (c >> 3) * kTile * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+        cp_async16_zfill(slot + (c >> 3) * kRows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4),
                          tile + (in ? r : 0) * ts + c * 8, in ? 16 : 0);
       }
     }
   }
+}
+
+// K7's ring: tile i of K or V (64 keys) as one cp.async commit group, an
+// empty one past the last tile, so that every thread counts the same groups.
+template <int HD>
+__device__ __forceinline__ void stage_ring(uint32_t ring, const bf16* x, int64_t ts, int i, int t) {
+  copy_tile<HD, kFwdThreads, kStages, kTile>(ring, x, ts, i, t);
   cp_async_commit();
 }
 
 // d (64 rows x 64 keys, float32) = Q K^T over HD: a warpgroup's Q rows at
 // shared address qa (swizzle atoms q_atom bytes apart) and a ring slot's K
 // tile at ka, both K-major, m64n64k16 with A in shared memory; issued and
-// committed, not waited for.
+// committed, not waited for. (Also dP = dO V^T.)
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&d)[32], uint32_t qa, uint32_t q_atom, uint32_t ka) {
   wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < HD / 16; ++s) {
-    const uint32_t col = (s % 4) * 32;
-    wgmma_ss<0>(d, desc_sw128(qa + (s / 4) * q_atom + col, 16, 1024),
-                desc_sw128(ka + (s / 4) * kTile * 128 + col, 16, 1024), s > 0);
-  }
+  wgmma_abt<HD>(d, qa, q_atom, ka, kTile * 128);
   wgmma_commit();
 }
 
@@ -343,7 +355,7 @@ __device__ __forceinline__ void rescale_o(float (&acc)[HD / 2], float al_a, floa
 
 // O += P V over a 64-key tile: pa the register A fragments, the ring slot's
 // V at vt the MN-major B (the transpose bit), m64n(HD)k16; `first` sets O
-// (scale_d 0). Issued and committed, not waited for.
+// (scale_d 0). Issued and committed, not waited for. (Also K9's dQ += dS K.)
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2], const uint32_t (&pa)[kTile / 16][4], uint32_t vt,
                                          bool first) {
@@ -517,86 +529,202 @@ __global__ void __launch_bounds__(kFwdThreads, fwd_bf16_min_blocks<HD>())
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K9 and K8: mma.sync
+// bf16 K9 and K8: wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = kTcWarps * 32;
-constexpr int kSteps = kTile / 16;  // 16-wide k steps of a tile
+// The backward's block shapes may be set with -D to time the alternatives
+// (tools/time_mha_bwd.py --kernel flash_bwd --dtype bfloat16 --ablations);
+// the defaults are the fastest measured.
+//   THEIA_K9_BF16_WG: warpgroups a dQ block, each owning 64 query rows (1 or 2).
+//   THEIA_K9_BF16_STAGES: slots of the dQ pass's K and V ring (2 to 4).
+//   THEIA_K8_BF16_WG: warpgroups a dK/dV block, each owning 64 keys (1 or 2).
+//   THEIA_K8_BF16_N: queries a step of the dK/dV pass (32 or 64).
+//   THEIA_K8_BF16_STAGES: slots of its ring of query tiles (2 to 4).
+#ifndef THEIA_K9_BF16_WG
+#define THEIA_K9_BF16_WG 1
+#endif
+#ifndef THEIA_K9_BF16_STAGES
+#define THEIA_K9_BF16_STAGES 2
+#endif
+#ifndef THEIA_K8_BF16_WG
+#define THEIA_K8_BF16_WG 1
+#endif
+#ifndef THEIA_K8_BF16_N
+#define THEIA_K8_BF16_N 32
+#endif
+#ifndef THEIA_K8_BF16_STAGES
+#define THEIA_K8_BF16_STAGES 4
+#endif
 
-// Two double-buffered tiles of [kTile][HD + 8] bf16, plus `floats` float32
-// values a buffer (the dK/dV pass's lse and di of its query tile).
-size_t smem_bytes_bf16(int hd, int floats) {
-  return 2 * (2 * static_cast<size_t>(kTile) * (hd + 8) * sizeof(bf16) + floats * sizeof(float));
+constexpr int kDqWgs = THEIA_K9_BF16_WG;
+constexpr int kDqThreads = kDqWgs * kWgThreads;
+constexpr int kDqRows = kDqWgs * kTile;  // query rows a dQ block
+constexpr int kDqStages = THEIA_K9_BF16_STAGES;
+constexpr int kDkvWgs = THEIA_K8_BF16_WG;
+constexpr int kDkvThreads = kDkvWgs * kWgThreads;
+constexpr int kDkvKeys = kDkvWgs * kTile;  // keys a dK/dV block
+constexpr int kDkvN = THEIA_K8_BF16_N;     // queries a tile of its ring
+constexpr int kDkvStages = THEIA_K8_BF16_STAGES;
+static_assert(kDqWgs == 1 || kDqWgs == 2, "a dQ block has 1 or 2 warpgroups");
+static_assert(kDqStages >= 2 && kDqStages <= 4, "the dQ ring has 2 to 4 slots");
+static_assert(kDkvWgs == 1 || kDkvWgs == 2, "a dK/dV block has 1 or 2 warpgroups");
+static_assert(kDkvN == 32 || kDkvN == 64, "the dK/dV pass steps over 32 or 64 queries");
+static_assert(kDkvStages >= 2 && kDkvStages <= 4, "the dK/dV ring has 2 to 4 slots");
+static_assert(2 * kDkvN <= kDkvThreads, "a thread copies each query's lse or di");
+
+// Blocks a SM the launch bounds ask for. dQ holds S and dP (32 floats
+// each) and dQ (HD / 2) a thread, 96 floats at hd 64, which take ~167
+// registers with the rest: 3 blocks of 128 threads (170 registers a
+// thread) at hd <= 64; with 2 warpgroups, 2 blocks of 256 (128 registers,
+// which spill). dK/dV holds dK and dV (HD / 2 each) and S^T and dP^T
+// (kDkvN / 2 each), within 96 floats at hd 64 and 32 queries a step: 512
+// threads a SM at 128 registers. Above, one block, which may take up to 255
+// registers.
+template <int HD>
+__host__ __device__ constexpr int dq_bf16_min_blocks() {
+  return HD <= 64 ? (kDqWgs == 1 ? 3 : 2) : 1;
 }
 
-// Stage the tile of rows [r, r + kTile) of two tensors (row i at base + i * ts)
-// as two cp.async groups; rows from T on become zeros.
 template <int HD>
-__device__ __forceinline__ void stage_pair(bf16* xs, bf16* ys, const bf16* x, const bf16* y, int64_t ts, int r,
-                                           int t) {
-  stage_rows<HD>(xs, x + r * ts, ts, t - r, kTile);
-  stage_rows<HD>(ys, y + r * ts, ts, t - r, kTile);
+__host__ __device__ constexpr int dkv_bf16_min_blocks() {
+  return HD + kDkvN <= 96 ? 4 / kDkvWgs : 1;
 }
 
-// float32 dot of the bf16 A fragments of 16 rows of two tensors: the
-// partial sums of rows g and g + 8 over this lane's columns.
+// Shared memory of dQ: 1 KB to align the base to the swizzle's period, the
+// block's Q and dO rows, then the ring's kDqStages K tiles and kDqStages V
+// tiles of 64 keys, each in round64(hd) / 64 swizzle atoms of 128-byte rows.
+size_t smem_bytes_dq_bf16(int hd) {
+  return 1024 + static_cast<size_t>(round64(hd) / 64) * (2 * kDqRows + 2 * kDqStages * kTile) * 128;
+}
+
+// Of dK/dV: the block's K and V rows, the ring's kDkvStages Q tiles and
+// kDkvStages dO tiles of kDkvN queries, then each slot's lse and di.
+size_t smem_bytes_dkv_bf16(int hd) {
+  return 1024 + static_cast<size_t>(round64(hd) / 64) * (2 * kDkvKeys + 2 * kDkvStages * kDkvN) * 128 +
+         kDkvStages * 2 * kDkvN * sizeof(float);
+}
+
+// This lane's part of rowsum(x * y) over row r of two slabs (token strides
+// xs, ys) in float32: lane tq of a fragment row group takes the 16-byte
+// chunks tq, tq + 4, ...; 0 for a row from T on.
 template <int HD>
-__device__ __forceinline__ void frag_dot(float& da, float& db, const uint32_t (&x)[HD / 16][4],
-                                         const uint32_t (&y)[HD / 16][4]) {
-  da = db = 0.f;
+__device__ __forceinline__ float row_dot(const bf16* x, int64_t xs, const bf16* y, int64_t ys, int r, int t) {
+  float sum = 0.f;
+  if (r < t) {
 #pragma unroll
-  for (int s = 0; s < HD / 16; ++s) {
+    for (int i = 0; i < (HD / 8 + 3) / 4; ++i) {
+      const int c = 4 * i + static_cast<int>(threadIdx.x & 3);
+      if (c < HD / 8) {
+        const uint4 a = *reinterpret_cast<const uint4*>(x + r * xs + c * 8);
+        const uint4 b = *reinterpret_cast<const uint4*>(y + r * ys + c * 8);
+        const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[s][e]));
-      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y[s][e]));
-      const float p = fmaf(a.y, b.y, a.x * b.x);
-      if (e & 1) {
-        db += p;
-      } else {
-        da += p;
+        for (int e = 0; e < 4; ++e) {
+          const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[e]));
+          const float2 fb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bv[e]));
+          sum = fmaf(fa.y, fb.y, fmaf(fa.x, fb.x, sum));
+        }
       }
+    }
+  }
+  return sum;
+}
+
+// The register A fragments of a product that sums over the columns of a
+// 64 x 2F accumulator, from x(e), its element e rounded to bf16: the n8
+// tiles 2s and 2s + 1 are k16 step s (mma.sync's C layout is its A layout).
+template <int F, typename X>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[F / 8][4], X x) {
+#pragma unroll
+  for (int s = 0; s < F / 8; ++s) {
+    a[s][0] = pack_bf16(x(8 * s), x(8 * s + 1));
+    a[s][1] = pack_bf16(x(8 * s + 2), x(8 * s + 3));
+    a[s][2] = pack_bf16(x(8 * s + 4), x(8 * s + 5));
+    a[s][3] = pack_bf16(x(8 * s + 6), x(8 * s + 7));
+  }
+}
+
+// K9's P = exp(S scale - lse) in place on the retired accumulators sc of S
+// = Q K^T over key tile key0 .. key0 + 63 (element e: row e & 2 ? b : a,
+// key key0 + 8 (e >> 2) + 2 tq + (e & 1)), the scale multiply pinned as
+// the plain version rounds it. In the last tile (kMask) keys from T give P
+// = 0 (their zero-filled K gives S = 0, and exp(-lse) may overflow), and
+// the 8-key groups wholly past T skip their expf.
+template <bool kMask>
+__device__ __forceinline__ void dq_probs(float (&sc)[32], float lse_a, float lse_b, int key0, int t, float scale) {
+  const int keys = t - key0 - 2 * static_cast<int>(threadIdx.x & 3);  // element e's key is below T when 8 (e >> 2) + (e & 1) < keys
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (kMask && 8 * i >= t - key0) {  // no key of the group is below T: a branch uniform over the block
+      sc[4 * i] = sc[4 * i + 1] = sc[4 * i + 2] = sc[4 * i + 3] = 0.f;
+      continue;
+    }
+#pragma unroll
+    for (int e = 4 * i; e < 4 * i + 4; ++e) {
+      const float p = expf(__fmul_rn(sc[e], scale) - ((e & 2) ? lse_b : lse_a));
+      sc[e] = !kMask || 8 * i + (e & 1) < keys ? p : 0.f;
     }
   }
 }
 
+// K9, the bf16 dQ. A block owns kDqRows query rows of one slab, one
+// warpgroup each 64, sharing the block's Q and dO (staged once) and a ring
+// of kDqStages K and V tiles of 64 keys, all staged by cp.async in wgmma's
+// 128-byte swizzle. First each row's di = rowsum(O * dO), in float32 from
+// global memory while the copies land, stored for K8. Then for each key
+// tile, behind one barrier: S = Q K^T and dP = dO V^T (m64n64k16, A and B
+// in shared memory), two commit groups, so that dP is in flight during the
+// expf of P = exp(S scale - lse); dS = (dP - di) P scale, rounded to bf16
+// in the accumulator layout, is the register A of dQ += dS K, m64n(HD)k16
+// with K the MN-major B (the transpose bit), as P is of K7's O += P V.
+// Every loop and branch around a product is uniform over the block: rows
+// past T are computed on zero-filled Q and dO with lse 0 (P finite, dS 0)
+// and never stored, and a warp wholly past T skips its elementwise work.
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kDqThreads, dq_bf16_min_blocks<HD>())
     flash_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                   const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-                  float* __restrict__ di, bf16* __restrict__ dq, Layout lay, int q_tiles, float scale) {
-  constexpr int kBuf = kTile * (HD + 8);
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][kTile][HD + 8]
-  bf16* vs = ks + 2 * kBuf;                  // [2][kTile][HD + 8]
+                  float* __restrict__ di, bf16* __restrict__ dq, Layout lay, int q_blocks, float scale) {
+  constexpr int kAtoms = round64(HD) / 64;
+  constexpr uint32_t kRowAtom = kDqRows * 128;           // bytes of a swizzle atom of the block's Q or dO
+  constexpr uint32_t kTileBytes = kAtoms * kTile * 128;  // of a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* os = qs + kAtoms * kRowAtom;
+  const uint32_t kaddr = smem_addr(os) + kAtoms * kRowAtom;  // [kDqStages] K tiles
+  const uint32_t vaddr = kaddr + kDqStages * kTileBytes;      // [kDqStages] V tiles
   const int t = lay.t;
-  const int slab = blockIdx.x / q_tiles;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tq = lane & 3;
-  const int r0 = (blockIdx.x - slab * q_tiles) * kTile + warp * 16;
-  const int row_a = r0 + (lane >> 2);
-  const int row_b = row_a + 8;
+  // head-major: the row blocks of a slab run together and share its K, V in L2
+  const int slab = blockIdx.x / q_blocks;
+  const int row0 = (blockIdx.x - slab * q_blocks) * kDqRows;
   const int64_t ts = lay.qkv.t;
   const int64_t in_off = lay.head(lay.qkv, slab);
   const bf16* kh = k + in_off;
   const bf16* vh = v + in_off;
-  const int k_tiles = (t + kTile - 1) / kTile;
+  const bf16* doh = dout + lay.head(lay.dout, slab);
+  const int n = (t + kTile - 1) / kTile;  // key tiles
 
-  stage_pair<HD>(ks, vs, kh, vh, ts, 0, t);
-  uint32_t qa[HD / 16][4], oa[HD / 16][4];
-  load_a<HD>(qa, q + in_off, ts, r0, t);
-  load_a<HD>(oa, dout + lay.head(lay.dout, slab), lay.dout.t, r0, t);
-  // di = rowsum(O * dO) in float32, from O's fragments in dO's layout
-  float di_a, di_b;
-  {
-    uint32_t xa[HD / 16][4];
-    load_a<HD>(xa, o + lay.head(lay.out, slab), lay.out.t, r0, t);
-    frag_dot<HD>(di_a, di_b, xa, oa);
-  }
-  di_a = quad_sum(di_a);
-  di_b = quad_sum(di_b);
+  // cp.async groups, in order: Q, dO, then K and V tile i for i = 0, 1,
+  // ...: tiles 0 .. kDqStages - 2 here, tile j + kDqStages - 1 by tile j
+  // (an empty group past the last tile).
+  const auto stage = [&](int i) {
+    copy_tile<HD, kDqThreads, kDqStages, kTile>(kaddr, kh, ts, i, t);
+    copy_tile<HD, kDqThreads, kDqStages, kTile>(vaddr, vh, ts, i, t);
+    cp_async_commit();
+  };
+  stage_sw128<HD, kDqThreads>(qs, q + in_off + row0 * ts, ts, t - row0, kDqRows);
+  stage_sw128<HD, kDqThreads>(os, doh + row0 * lay.dout.t, lay.dout.t, t - row0, kDqRows);
+#pragma unroll
+  for (int i = 0; i < kDqStages - 1; ++i) stage(i);
+
+  const int wg = threadIdx.x / kWgThreads;
+  const int tq = threadIdx.x & 3;
+  const int warp_row0 = row0 + wg * kTile + ((threadIdx.x >> 5) & 3) * 16;  // the warp's 16 rows
+  const int row_a = warp_row0 + ((threadIdx.x & 31) >> 2);
+  const int row_b = row_a + 8;
+  const bf16* oh = o + lay.head(lay.out, slab);
+  const float di_a = quad_sum(row_dot<HD>(oh, lay.out.t, doh, lay.dout.t, row_a, t));
+  const float di_b = quad_sum(row_dot<HD>(oh, lay.out.t, doh, lay.dout.t, row_b, t));
   const float* ls = lse + static_cast<int64_t>(slab) * t;
   const float lse_a = row_a < t ? ls[row_a] : 0.f;
   const float lse_b = row_b < t ? ls[row_b] : 0.f;
@@ -606,145 +734,194 @@ __global__ void __launch_bounds__(kTcThreads)
     if (row_b < t) dst[row_b] = di_b;
   }
 
-  float acc[HD / 8][4];
+  const uint32_t qaddr = smem_addr(qs) + wg * kTile * 128;  // this warpgroup's 64 rows
+  const uint32_t oaddr = smem_addr(os) + wg * kTile * 128;
+  const bool warp_live = warp_row0 < t;
+  float acc[HD / 2];  // dQ; set by the first tile's product (scale_d 0)
+  const auto slot = [](int j) { return static_cast<unsigned>(j) % kDqStages * kTileBytes; };  // of tile j
+  const auto tile = [&](int j, auto last) {
+    cp_async_wait<kDqStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile j is in shared memory; every product of tile j - 1 has retired
+    stage(j + kDqStages - 1);
+    float sc[32], dp[32];        // S, then P, and dP of the tile
+    uint32_t da[kTile / 16][4];  // bf(dS), the register A of dQ += dS K (0 in a warp wholly past T)
+    issue_qk<HD>(sc, qaddr, kRowAtom, kaddr + slot(j));
+    issue_qk<HD>(dp, oaddr, kRowAtom, vaddr + slot(j));  // in flight during P's expf
+    wgmma_wait<1>();
+    fence_all(sc);
+    if (warp_live) dq_probs<decltype(last)::value>(sc, lse_a, lse_b, j * kTile, t, scale);
+    wgmma_wait<0>();
+    fence_all(dp);
+    pack_a<32>(da, [&](int e) { return warp_live ? (dp[e] - ((e & 2) ? di_b : di_a)) * sc[e] * scale : 0.f; });
+    issue_pv<HD>(acc, da, kaddr + slot(j), j == 0);  // dQ += dS K
+    wgmma_wait<0>();
+    fence_all(acc);
+    fence_all(da);
+  };
+  for (int j = 0; j + 1 < n; ++j) tile(j, std::false_type{});
+  tile(n - 1, std::true_type{});
+
+  bf16* dqh = dq + lay.head(lay.grad, slab);
+  const int64_t gts = lay.grad.t;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int j = 0; j < k_tiles; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < k_tiles) {
-      stage_pair<HD>(ks + (cur ^ 1) * kBuf, vs + (cur ^ 1) * kBuf, kh, vh, ts, (j + 1) * kTile, t);
-      cp_async_wait<2>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile j is in shared memory
-    const bf16* kt = ks + cur * kBuf;
-    const bf16* vt = vs + cur * kBuf;
-    if (r0 < t) {
-      const int key0 = j * kTile;
-#pragma unroll
-      for (int s = 0; s < kSteps; ++s) {
-        float ds[2][4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int n = 2 * s + h;
-          float s4[4] = {0.f, 0.f, 0.f, 0.f};
-          float d4[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_rows<HD>(s4, qa, kt, n);
-          mma_rows<HD>(d4, oa, vt, n);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool in = key0 + n * 8 + 2 * tq + (e & 1) < t;
-            const float p = in ? expf(s4[e] * scale - (e < 2 ? lse_a : lse_b)) : 0.f;
-            ds[h][e] = (d4[e] - (e < 2 ? di_a : di_b)) * p * scale;
-          }
-        }
-        const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                                pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-        mma_cols<HD>(acc, da, kt, s);
-      }
-    }
-    __syncthreads();  // every warp is done with buffer cur before it is staged again
+  for (int i = 0; i < HD / 8; ++i) {
+    const int d = i * 8 + 2 * tq;
+    if (row_a < t) *reinterpret_cast<uint32_t*>(dqh + row_a * gts + d) = pack_bf16(acc[4 * i], acc[4 * i + 1]);
+    if (row_b < t) *reinterpret_cast<uint32_t*>(dqh + row_b * gts + d) = pack_bf16(acc[4 * i + 2], acc[4 * i + 3]);
   }
-  if (r0 < t) store_rows<HD>(dq + lay.head(lay.grad, slab), lay.grad.t, r0, t, acc);
 }
 
+// K8, the bf16 dK and dV: K2 bf16's column pass over a ring of query tiles.
+// A block owns kDkvKeys keys of one slab, one warpgroup each 64, whose K and
+// V rows are staged once; the queries stream through a ring of kDkvStages
+// slots, each holding kDkvN queries' Q and dO (in wgmma's 128-byte swizzle)
+// and their lse and di, one cp.async group a tile. For each tile, behind
+// one barrier: S^T = K Q^T and dP^T = V dO^T (m64n(kDkvN)k16, K and V the A
+// and Q and dO the K-major B, in shared memory), two commit groups; P^T =
+// exp(S^T scale - lse), rounded to bf16 in the accumulator layout, is the
+// register A of dV += P^T dO, and dS^T = (dP^T - di) P^T scale, rounded
+// likewise, of dK += dS^T Q (dO and Q the MN-major B). Queries past T are
+// zero-filled (lse and di 0) and in the last tile masked to P = 0; keys
+// past T are computed on zeros and never stored, and a warp whose 16 keys
+// all lie past T skips its elementwise work.
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kDkvThreads, dkv_bf16_min_blocks<HD>())
     flash_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, Layout lay, int k_tiles, float scale) {
-  constexpr int kBuf = kTile * (HD + 8);
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);          // [2][kTile][HD + 8]
-  bf16* os = qs + 2 * kBuf;                          // [2][kTile][HD + 8]: dO
-  float* stat = reinterpret_cast<float*>(os + 2 * kBuf);  // [2][2][kTile]: lse, di
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, Layout lay, int k_blocks, float scale) {
+  constexpr int N = kDkvN;
+  constexpr int kAtoms = round64(HD) / 64;
+  constexpr uint32_t kKeyAtom = kDkvKeys * 128;       // bytes of a swizzle atom of the block's K or V
+  constexpr uint32_t kQAtom = N * 128;                // of a Q or dO tile
+  constexpr uint32_t kTileBytes = kAtoms * kQAtom;    // a Q or dO tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* vs = ks + kAtoms * kKeyAtom;
+  const uint32_t qring = smem_addr(vs) + kAtoms * kKeyAtom;  // [kDkvStages] Q tiles
+  const uint32_t oring = qring + kDkvStages * kTileBytes;     // [kDkvStages] dO tiles
+  const uint32_t sring = oring + kDkvStages * kTileBytes;     // [kDkvStages][2][N] floats: lse, di
+  const float* stats = reinterpret_cast<const float*>(ks + (sring - smem_addr(ks)));
   const int t = lay.t;
-  const int slab = blockIdx.x / k_tiles;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tq = lane & 3;
-  const int k0 = (blockIdx.x - slab * k_tiles) * kTile + warp * 16;
+  const int slab = blockIdx.x / k_blocks;
+  const int k0 = (blockIdx.x - slab * k_blocks) * kDkvKeys;
   const int64_t ts = lay.qkv.t;
+  const int64_t dts = lay.dout.t;
   const int64_t in_off = lay.head(lay.qkv, slab);
   const bf16* qh = q + in_off;
-  const bf16* oh = dout + lay.head(lay.dout, slab);
+  const bf16* doh = dout + lay.head(lay.dout, slab);
   const float* lh = lse + static_cast<int64_t>(slab) * t;
   const float* dh = di + static_cast<int64_t>(slab) * t;
-  const int q_tiles = (t + kTile - 1) / kTile;
+  const int n = (t + N - 1) / N;  // query tiles
 
-  // lse and di of query tile r into stat buffer b; rows from T on are never read
-  auto stage_stats = [&](int b, int r) {
-    for (int i = threadIdx.x; i < 2 * kTile; i += kTcThreads) {
-      const int qi = r + (i & (kTile - 1));
-      stat[b * 2 * kTile + i] = qi < t ? (i < kTile ? lh[qi] : dh[qi]) : 0.f;
+  // cp.async groups, in order: K, V, then query tile i for i = 0, 1, ...:
+  // tiles 0 .. kDkvStages - 2 here, tile j + kDkvStages - 1 by tile j (an
+  // empty group past the last tile). Queries from T on are zero-filled, lse
+  // and di included.
+  const auto stage = [&](int i) {
+    copy_tile<HD, kDkvThreads, kDkvStages, N>(qring, qh, ts, i, t);
+    copy_tile<HD, kDkvThreads, kDkvStages, N>(oring, doh, dts, i, t);
+    if (i * N < t && threadIdx.x < 2 * N) {
+      const int qi = i * N + static_cast<int>(threadIdx.x % N);
+      const bool in = qi < t;
+      cp_async4_zfill(sring + (static_cast<unsigned>(i) % kDkvStages * 2 * N + threadIdx.x) * 4,
+                      (threadIdx.x < N ? lh : dh) + (in ? qi : 0), in ? 4 : 0);
     }
+    cp_async_commit();
   };
-  stage_rows<HD>(qs, qh, ts, t, kTile);
-  stage_rows<HD>(os, oh, lay.dout.t, t, kTile);
-  stage_stats(0, 0);
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-  load_a<HD>(ka, k + in_off, ts, k0, t);
-  load_a<HD>(va, v + in_off, ts, k0, t);
+  stage_sw128<HD, kDkvThreads>(ks, k + in_off + k0 * ts, ts, t - k0, kDkvKeys);
+  stage_sw128<HD, kDkvThreads>(vs, v + in_off + k0 * ts, ts, t - k0, kDkvKeys);
+#pragma unroll
+  for (int i = 0; i < kDkvStages - 1; ++i) stage(i);
 
-  float av[HD / 8][4], ak[HD / 8][4];
+  const int wg = threadIdx.x / kWgThreads;
+  const int tq = threadIdx.x & 3;
+  const uint32_t kaddr = smem_addr(ks) + wg * kTile * 128;  // this warpgroup's 64 keys
+  const uint32_t vaddr = smem_addr(vs) + wg * kTile * 128;
+  const int warp_k0 = k0 + wg * kTile + ((threadIdx.x >> 5) & 3) * 16;  // the warp's 16 keys
+  const bool warp_live = warp_k0 < t;
+  float dv_acc[HD / 2], dk_acc[HD / 2];  // set by the first tile's products (scale_d 0)
+  const auto tile = [&](int j, auto last) {
+    constexpr bool kMask = decltype(last)::value;
+    cp_async_wait<kDkvStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile j is in shared memory; every product of tile j - 1 has retired
+    stage(j + kDkvStages - 1);
+    const unsigned slot = static_cast<unsigned>(j) % kDkvStages;
+    const uint32_t qt = qring + slot * kTileBytes, ot = oring + slot * kTileBytes;
+    const float* st = stats + slot * 2 * N;  // the tile's lse, then its di
+    // S^T and dP^T: element e is key row e & 2 ? b : a, query j N + 8 (e >> 2) + 2 tq + (e & 1)
+    float s[N / 2], dp[N / 2];
+    uint32_t pa[N / 16][4], da[N / 16][4];  // bf(P^T) and bf(dS^T), the register A of dV and dK
+    wgmma_fence();
+    wgmma_abt<HD>(s, kaddr, kKeyAtom, qt, kQAtom);
+    wgmma_commit();
+    wgmma_abt<HD>(dp, vaddr, kKeyAtom, ot, kQAtom);  // in flight during P's expf
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_all(s);
+    // the queries of the last tile from T on give P = 0; its 8-query groups
+    // wholly past T skip their expf, as does a warp whose keys all lie past T
+    const int queries = t - j * N - 2 * tq;
+    if (warp_live) {
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    av[n][0] = av[n][1] = av[n][2] = av[n][3] = 0.f;
-    ak[n][0] = ak[n][1] = ak[n][2] = ak[n][3] = 0.f;
-  }
-  for (int j = 0; j < q_tiles; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < q_tiles) {
-      const int r = (j + 1) * kTile;
-      stage_rows<HD>(qs + (cur ^ 1) * kBuf, qh + r * ts, ts, t - r, kTile);
-      stage_rows<HD>(os + (cur ^ 1) * kBuf, oh + r * lay.dout.t, lay.dout.t, t - r, kTile);
-      stage_stats(cur ^ 1, r);
-      cp_async_wait<2>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile j is in shared memory
-    const bf16* qt = qs + cur * kBuf;
-    const bf16* ot = os + cur * kBuf;
-    const float* lt = stat + cur * 2 * kTile;
-    const float* dt = lt + kTile;
-    if (k0 < t) {
-      const int q0 = j * kTile;
-      // Over 16-query steps: tiles of S^T = K Q^T and dP^T = V dO^T (rows
-      // are this warp's keys; element e is query 8n + 2 tq + (e & 1)).
-#pragma unroll
-      for (int s = 0; s < kSteps; ++s) {
-        float p[2][4], ds[2][4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int n = 2 * s + h;
-          float s4[4] = {0.f, 0.f, 0.f, 0.f};
-          float d4[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_rows<HD>(s4, ka, qt, n);
-          mma_rows<HD>(d4, va, ot, n);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = n * 8 + 2 * tq + (e & 1);
-            const float pv = q0 + qi < t ? expf(s4[e] * scale - lt[qi]) : 0.f;
-            p[h][e] = pv;
-            ds[h][e] = (d4[e] - dt[qi]) * pv * scale;
-          }
+      for (int i = 0; i < N / 8; ++i) {
+        if (kMask && 8 * i >= t - j * N) {  // a branch uniform over the block
+          s[4 * i] = s[4 * i + 1] = s[4 * i + 2] = s[4 * i + 3] = 0.f;
+          continue;
         }
-        const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                                pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-        const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                                pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-        mma_cols<HD>(av, pa, ot, s);
-        mma_cols<HD>(ak, da, qt, s);
+        const float2 l = *reinterpret_cast<const float2*>(st + 8 * i + 2 * tq);
+#pragma unroll
+        for (int e = 4 * i; e < 4 * i + 4; ++e) {
+          const float p = expf(__fmul_rn(s[e], scale) - ((e & 1) ? l.y : l.x));
+          s[e] = !kMask || 8 * i + (e & 1) < queries ? p : 0.f;
+        }
       }
     }
-    __syncthreads();  // every warp is done with buffer cur before it is staged again
-  }
-  if (k0 >= t) return;
+    wgmma_wait<0>();
+    fence_all(dp);
+    pack_a<N / 2>(pa, [&](int e) { return warp_live ? s[e] : 0.f; });
+    pack_a<N / 2>(da, [&](int e) {
+      const float2 d = *reinterpret_cast<const float2*>(st + N + 8 * (e >> 2) + 2 * tq);
+      return warp_live ? (dp[e] - ((e & 1) ? d.y : d.x)) * s[e] * scale : 0.f;
+    });
+    // dV += P^T dO and dK += dS^T Q: dO and Q the MN-major B (queries down,
+    // dims across), one m64n(HD)k16 wgmma per 16 queries each
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < N / 16; ++i) {
+      wgmma_rs<1>(dv_acc, pa[i], desc_sw128(ot + i * 16 * 128, kQAtom, 1024), j > 0 || i > 0);
+    }
+#pragma unroll
+    for (int i = 0; i < N / 16; ++i) {
+      wgmma_rs<1>(dk_acc, da[i], desc_sw128(qt + i * 16 * 128, kQAtom, 1024), j > 0 || i > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_all(dv_acc);
+    fence_all(dk_acc);
+    fence_all(pa);
+    fence_all(da);
+  };
+  for (int j = 0; j + 1 < n; ++j) tile(j, std::false_type{});
+  tile(n - 1, std::true_type{});
+
+  const int ra = warp_k0 + ((threadIdx.x & 31) >> 2);
+  const int rb = ra + 8;
   const int64_t g_off = lay.head(lay.grad, slab);
-  store_rows<HD>(dk + g_off, lay.grad.t, k0, t, ak);
-  store_rows<HD>(dv + g_off, lay.grad.t, k0, t, av);
+  const int64_t gts = lay.grad.t;
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) {
+    const int d = i * 8 + 2 * tq;
+    if (ra < t) {
+      *reinterpret_cast<uint32_t*>(dk + g_off + ra * gts + d) = pack_bf16(dk_acc[4 * i], dk_acc[4 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + g_off + ra * gts + d) = pack_bf16(dv_acc[4 * i], dv_acc[4 * i + 1]);
+    }
+    if (rb < t) {
+      *reinterpret_cast<uint32_t*>(dk + g_off + rb * gts + d) = pack_bf16(dk_acc[4 * i + 2], dk_acc[4 * i + 3]);
+      *reinterpret_cast<uint32_t*>(dv + g_off + rb * gts + d) = pack_bf16(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1444,21 +1621,26 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
                 static_cast<bf16*>(o), lse, lay, q_blocks, scale);
 }
 
+// bf16 K9 over `slabs` slabs: blocks of kDqRows query rows.
 template <int HD>
 int dq_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
-            float* di, void* dq, int blocks, int tiles, const Layout& lay, float scale, cudaStream_t s) {
-  return launch(flash_dq_bf16<HD>, blocks, kTcThreads, smem_bytes_bf16(HD, 0), s, static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-                static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dq), lay, tiles, scale);
+            float* di, void* dq, int slabs, const Layout& lay, float scale, cudaStream_t s) {
+  const int q_blocks = (lay.t + kDqRows - 1) / kDqRows;
+  return launch(flash_dq_bf16<HD>, slabs * q_blocks, kDqThreads, smem_bytes_dq_bf16(HD), s,
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dq), lay,
+                q_blocks, scale);
 }
 
+// bf16 K8 over `slabs` slabs: blocks of kDkvKeys keys.
 template <int HD>
 int dkv_bf16(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* di,
-             void* dk, void* dv, int blocks, int tiles, const Layout& lay, float scale, cudaStream_t s) {
-  return launch(flash_dkv_bf16<HD>, blocks, kTcThreads, smem_bytes_bf16(HD, 2 * kTile), s,
+             void* dk, void* dv, int slabs, const Layout& lay, float scale, cudaStream_t s) {
+  const int k_blocks = (lay.t + kDkvKeys - 1) / kDkvKeys;
+  return launch(flash_dkv_bf16<HD>, slabs * k_blocks, kDkvThreads, smem_bytes_dkv_bf16(HD), s,
                 static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lay, tiles,
-                scale);
+                static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lay,
+                k_blocks, scale);
 }
 
 template <int HD>
@@ -1515,6 +1697,18 @@ int fwd_bf16_blocks_per_sm(int* threads) {
   return blocks_per_sm(flash_fwd_bf16<HD>, kFwdThreads, smem_bytes_fwd_bf16(HD));
 }
 
+// The same for bf16 K9 or K8 (kernel = 9 or 8) at head dim HD, with the
+// threads of a block in *threads.
+template <int HD>
+int bwd_bf16_blocks_per_sm(int kernel, int* threads) {
+  if (kernel == 9) {
+    *threads = kDqThreads;
+    return blocks_per_sm(flash_dq_bf16<HD>, kDqThreads, smem_bytes_dq_bf16(HD));
+  }
+  *threads = kDkvThreads;
+  return blocks_per_sm(flash_dkv_bf16<HD>, kDkvThreads, smem_bytes_dkv_bf16(HD));
+}
+
 // Calls fn<HD>(args...) for the runtime head dim (a multiple of 16 up to 128).
 #define THEIA_FLASH_BY_HD(fn, hd, ...)                 \
   switch (hd) {                                        \
@@ -1567,13 +1761,12 @@ int theia_flash_dq(const void* q, const void* k, const void* v, const void* o, c
   if (!valid(batch, heads, t, hd, dtype, strides, 8)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay{t, heads, hd, {in_bstride, in_tstride}, {out_bstride, out_tstride}, {do_bstride, do_tstride},
                    {grad_bstride, grad_tstride}};
-  const int tiles = (t + kTile - 1) / kTile;
-  const int blocks = batch * heads * tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    THEIA_FLASH_BY_HD(dq_f32, hd, q, k, v, o, dout, lse, di, dq, blocks, tiles, lay, scale, s)
+    const int tiles = (t + kTile - 1) / kTile;
+    THEIA_FLASH_BY_HD(dq_f32, hd, q, k, v, o, dout, lse, di, dq, batch * heads * tiles, tiles, lay, scale, s)
   }
-  THEIA_FLASH_BY_HD(dq_bf16, hd, q, k, v, o, dout, lse, di, dq, blocks, tiles, lay, scale, s)
+  THEIA_FLASH_BY_HD(dq_bf16, hd, q, k, v, o, dout, lse, di, dq, batch * heads, lay, scale, s)
 }
 
 // K8. q, k, v, dout, lse as for K9; di: K9's output; dk, dv: with
@@ -1586,13 +1779,12 @@ int theia_flash_dkv(const void* q, const void* k, const void* v, const void* dou
   if (!valid(batch, heads, t, hd, dtype, strides, 6)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay{t, heads, hd, {in_bstride, in_tstride}, {0, 0}, {do_bstride, do_tstride},
                    {grad_bstride, grad_tstride}};
-  const int tiles = (t + kTile - 1) / kTile;
-  const int blocks = batch * heads * tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    THEIA_FLASH_BY_HD(dkv_f32, hd, q, k, v, dout, lse, di, dk, dv, blocks, tiles, lay, scale, s)
+    const int tiles = (t + kTile - 1) / kTile;
+    THEIA_FLASH_BY_HD(dkv_f32, hd, q, k, v, dout, lse, di, dk, dv, batch * heads * tiles, tiles, lay, scale, s)
   }
-  THEIA_FLASH_BY_HD(dkv_bf16, hd, q, k, v, dout, lse, di, dk, dv, blocks, tiles, lay, scale, s)
+  THEIA_FLASH_BY_HD(dkv_bf16, hd, q, k, v, dout, lse, di, dk, dv, batch * heads, lay, scale, s)
 }
 
 // Resident blocks per SM of the float32 K7, K9 or K8 (kernel = 7, 9 or 8)
@@ -1611,6 +1803,16 @@ int theia_flash_f32_blocks_per_sm(int hd, int kernel, int* threads) {
 int theia_flash_fwd_bf16_blocks_per_sm(int hd, int* threads) {
   if (hd < 16 || hd > kMaxHd || hd % 16 != 0) return -static_cast<int>(cudaErrorInvalidValue);
   THEIA_FLASH_BY_HD(fwd_bf16_blocks_per_sm, hd, threads)
+}
+
+// Resident blocks per SM of the bf16 K9 or K8 (kernel = 9 or 8) at head
+// dim hd, with the threads of one of their blocks in *threads; a negative
+// cudaError_t if the query failed.
+int theia_flash_bwd_bf16_blocks_per_sm(int hd, int kernel, int* threads) {
+  if (hd < 16 || hd > kMaxHd || hd % 16 != 0 || (kernel != 8 && kernel != 9)) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  THEIA_FLASH_BY_HD(bwd_bf16_blocks_per_sm, hd, kernel, threads)
 }
 
 }  // extern "C"

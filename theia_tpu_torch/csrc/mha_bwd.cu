@@ -204,33 +204,6 @@ size_t smem_bytes_cols_bf16(int t, int hd) {
   return 1024 + static_cast<size_t>(round64(hd) / 64) * (2 * kColWgs * kTile + 2 * tn) * 128 + tn * sizeof(float4);
 }
 
-// d (64 x 2F, float32) = A B^T over HD: A the 64 rows at shared address a
-// and B the 2F rows at b, both K-major in swizzle atoms a_atom and b_atom
-// bytes apart; issued, not waited for.
-template <int HD, int F>
-__device__ __forceinline__ void wgmma_abt(float (&d)[F], uint32_t a, uint32_t a_atom, uint32_t b, uint32_t b_atom) {
-#pragma unroll
-  for (int s = 0; s < HD / 16; ++s) {
-    const uint32_t col = (s % 4) * 32;
-    wgmma_ss<0>(d, desc_sw128(a + (s / 4) * a_atom + col, 16, 1024), desc_sw128(b + (s / 4) * b_atom + col, 16, 1024),
-                s > 0);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_operand(x[i]);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(uint32_t (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) fence_operand(x[i][e]);
-}
-
 // A p that div_rn does not cover (div_rn.cuh); p = 0 divides exactly.
 __device__ __forceinline__ bool below_div_rn(float p) { return p > 0.f && p < kDivRnMin; }
 

@@ -1,9 +1,9 @@
 // Hopper warpgroup matrix multiply (wgmma) building blocks for the bf16
-// attention forward (mha_fwd.cu), backward (mha_bwd.cu) and flash forward
+// attention forward (mha_fwd.cu), backward (mha_bwd.cu) and flash kernels
 // (flash_attn.cu): wgmma.mma_async
 // with float32 accumulation, m64n32k16 and m64n64k16 with A in shared
-// memory and m64nNk16 with A in registers for N = 16..128 step 16, its
-// fence / commit / wait,
+// memory (and A B^T over a head dim of them) and m64nNk16 with A in
+// registers for N = 16..128 step 16, its fence / commit / wait,
 // shared-memory matrix descriptors for the 128-byte swizzle, and cp.async
 // staging of token rows into that layout.
 //
@@ -109,6 +109,20 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_operand(float& x) { asm volatile("" : "+f"(x)::"memory"); }
 __device__ __forceinline__ void fence_operand(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
 
+template <int N>
+__device__ __forceinline__ void fence_all(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(x[i]);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fence_operand(x[i][e]);
+}
+
 // d (64 x 64, float32) = A (64 x 16 bf16, K-major, the descriptor a) * B
 // (16 x 64 bf16, the descriptor b) + (scale_d ? d : 0); TransB = 1 reads B
 // MN-major.
@@ -140,6 +154,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
+// d (64 x 2F, float32) = A B^T over HD: A the 64 rows at shared address a
+// and B the 2F rows at b, both K-major in swizzle atoms a_atom and b_atom
+// bytes apart; issued, not committed.
+template <int HD, int F>
+__device__ __forceinline__ void wgmma_abt(float (&d)[F], uint32_t a, uint32_t a_atom, uint32_t b, uint32_t b_atom) {
+#pragma unroll
+  for (int s = 0; s < HD / 16; ++s) {
+    const uint32_t col = (s % 4) * 32;
+    wgmma_ss<0>(d, desc_sw128(a + (s / 4) * a_atom + col, 16, 1024), desc_sw128(b + (s / 4) * b_atom + col, 16, 1024),
+                s > 0);
+  }
 }
 
 // d (64 x N, float32) = A (64 x 16 bf16, registers) * B (16 x N bf16, the

@@ -113,6 +113,8 @@ def load() -> ctypes.CDLL:
             lib.theia_flash_f32_blocks_per_sm.restype = i32
             lib.theia_flash_fwd_bf16_blocks_per_sm.argtypes = [i32, ctypes.POINTER(i32)]
             lib.theia_flash_fwd_bf16_blocks_per_sm.restype = i32
+            lib.theia_flash_bwd_bf16_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
+            lib.theia_flash_bwd_bf16_blocks_per_sm.restype = i32
             lib.theia_ln_bwd_partials.argtypes = [i64]
             lib.theia_ln_bwd_partials.restype = i32
             lib.theia_ln_bwd_stats.argtypes = [ptr] * 11 + [i32, i64, i32, ptr]

@@ -2,10 +2,10 @@
 other builds of its source: the whole-row forward K1 (``csrc/mha_fwd.cu``,
 float32), the backward K2 (``csrc/mha_bwd.cu``, float32 or bf16), the flash
 forward K7 (``csrc/flash_attn.cu``, float32 or bf16) or the flash backward
-pair K9 + K8 (``csrc/flash_attn.cu``, float32).
+pair K9 + K8 (``csrc/flash_attn.cu``, float32 or bf16).
 
     python -m theia_tpu_torch.tools.time_mha_bwd [--kernel mha_fwd|mha_bwd|flash_fwd|flash_bwd]
-        [--dtype float32|bfloat16] [--parent DIR] [--ablations]
+        [--dtype float32|bfloat16] [--parent DIR] [--ablations] [--hd HD ...]
 
 Builds the kernels (``kernels/build.py``) and prints ptxas's registers and
 spills of the kernel's passes in that dtype at hd = 64 (and any wgmma it
@@ -18,7 +18,8 @@ at the check shapes (a shape the earlier tree's kernel refuses to launch,
 as K1 float32 did past its shared memory, is reported and skipped for that
 build alone) (float32: max abs error within 2e-5, on each output:
 K7's O and lse; bf16: relative L2 below 1e-2, K7's lse within 1e-5), then
-all are timed at the timing shapes as views of a packed projection, with
+all are timed at the timing shapes (12 heads of ``--hd``, 64 by default,
+each head dim given) as views of a packed projection, with
 SDPA (float32: its memory-efficient forward or backward; bf16: its flash
 kernels) and the plain version, in the order a, b, ..., b, a (device time,
 the stream held while the host enqueues), twice after a round that warms the
@@ -132,11 +133,11 @@ def flash_launcher(lib: ctypes.CDLL):
         di = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
         scale, stream = 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream
         err = lib.theia_flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                                 lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, h, t, hd, *_strides(q, o, do, dq), 0,
-                                 scale, stream)
+                                 lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, h, t, hd, *_strides(q, o, do, dq),
+                                 attention._DTYPE_CODES[q.dtype], scale, stream)
         err = err or lib.theia_flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                                          di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, hd,
-                                         *_strides(q, do, dk), 0, scale, stream)
+                                         *_strides(q, do, dk), attention._DTYPE_CODES[q.dtype], scale, stream)
         if err:
             raise RuntimeError(f"launch failed ({err})")
         return grads
@@ -262,6 +263,22 @@ BF16_TARGETS = {
                 *((2, t, hd) for hd in (16, 64, 80, 128) for t in (1, 17, 64, 65, 127, 128, 129, 257))),
         dtype=torch.bfloat16,
     ),
+    # bf16 K9 + K8 (wgmma); the parent's are the mma.sync kernels of the same names
+    "flash_bwd": dataclasses.replace(
+        TARGETS["flash_bwd"],
+        passes=(f"flash_dq_bf16<{HD}>", f"flash_dkv_bf16<{HD}>", "flash_dq_bf16<128>", "flash_dkv_bf16<128>"),
+        numbers=(9, 8),
+        ablations={
+            "k9_wg2": ("THEIA_K9_BF16_WG=2",),
+            "k8_wg2": ("THEIA_K8_BF16_WG=2",),
+            "k9_stages3": ("THEIA_K9_BF16_STAGES=3",),
+            "k8_n64": ("THEIA_K8_BF16_N=64",),
+            "k8_stages2": ("THEIA_K8_BF16_STAGES=2",),
+        },
+        checks=((16, 197, HD), (16, 785, HD),
+                *((2, t, hd) for hd in (16, 64, 80, 128) for t in (1, 17, 63, 64, 65, 127, 128, 129, 257))),
+        dtype=torch.bfloat16,
+    ),
 }
 
 
@@ -311,9 +328,13 @@ def print_occupancy(kernel: str, dtype: torch.dtype, lib: ctypes.CDLL) -> None:
         for cols, name in enumerate(("row pass", "column pass")):
             blocks = query(t, HD, cols, ctypes.byref(threads))
             print(f"  kernel: {name} at T = {t}: {blocks} resident blocks per SM of {threads.value} threads")
-    elif dtype == torch.bfloat16:  # K7
+    elif dtype == torch.bfloat16 and kernel == "flash_fwd":
         blocks = lib.theia_flash_fwd_bf16_blocks_per_sm(HD, ctypes.byref(threads))
         print(f"  kernel: flash_fwd_bf16<{HD}>: {blocks} resident blocks per SM of {threads.value} threads")
+    elif dtype == torch.bfloat16:  # K9 and K8
+        for number, name in zip(BF16_TARGETS[kernel].numbers, BF16_TARGETS[kernel].passes):
+            blocks = lib.theia_flash_bwd_bf16_blocks_per_sm(HD, number, ctypes.byref(threads))
+            print(f"  kernel: {name}: {blocks} resident blocks per SM of {threads.value} threads")
     else:
         for number, name in zip(TARGETS[kernel].numbers, TARGETS[kernel].passes):
             blocks = lib.theia_flash_f32_blocks_per_sm(HD, number, ctypes.byref(threads))
@@ -359,9 +380,10 @@ def main() -> int:
                         help="K1 (mha_fwd), K2 (mha_bwd), the flash forward K7 (flash_fwd) or the flash pair K9 + K8 "
                              "(flash_bwd)")
     parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                        help="the kernel's inputs; bfloat16 for --kernel mha_bwd or flash_fwd")
+                        help="the kernel's inputs; bfloat16 for --kernel mha_bwd, flash_fwd or flash_bwd")
     parser.add_argument("--parent", type=Path, help="an unpacked earlier tree whose source of the kernel to time too")
     parser.add_argument("--ablations", action="store_true", help="also time the builds of the kernel's ablations")
+    parser.add_argument("--hd", type=int, nargs="+", default=[HD], help="head dims of the timed shapes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_mha_bwd: no CUDA device", file=sys.stderr)
@@ -412,8 +434,8 @@ def main() -> int:
                 return 1
         print(f"  worst {metric} over the {len(target.checks)} check shapes: "
               + ", ".join(f"{n} {shown(e)}" for n, e in worst.items()))
-        for b, t in target.timed:
-            q, k, v, do = packed(b, t, H, HD, gen, dtype)
+        for (b, t), hd in ((shape, hd) for hd in args.hd for shape in target.timed):
+            q, k, v, do = packed(b, t, H, hd, gen, dtype)
             inputs = target.inputs(q, k, v, do)
             timed = {name: (lambda fn=fn: fn(*inputs)) for name, fn in fns.items()}
             timed["plain"] = lambda: target.plain(*inputs)
@@ -421,11 +443,11 @@ def main() -> int:
             for rep in range(3):  # the first round warms the card and is not printed
                 ms = interleaved_ms(timed)
                 if rep:
-                    print(f"  [{b},{t},{H},{HD}] {args.dtype}, device ms (order a..b..a, {card}): "
+                    print(f"  [{b},{t},{H},{hd}] {args.dtype}, device ms (order a..b..a, {card}): "
                           + ", ".join(f"{n} {v:.4f}" for n, v in ms.items()))
             for name in fns:
                 split = kernel_ms(timed[name])
-                print(f"  [{b},{t},{H},{HD}] {name}, device ms a call by kernel (torch.profiler, 50 calls): "
+                print(f"  [{b},{t},{H},{hd}] {name}, device ms a call by kernel (torch.profiler, 50 calls): "
                       + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     return 0
 
