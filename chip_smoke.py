@@ -9,7 +9,7 @@ failure (the script then exits nonzero and prints no result):
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes),
    ptxas's registers and spills, and the resident blocks per SM of K1 in
    bf16 and float32, of K2's two passes in bf16 and float32, of float32 K7,
-   K9 and K8 and of bf16 K7, K9 and K8;
+   K9 and K8, of bf16 K7, K9 and K8 and of K3;
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
    64] as views of a packed QKV projection and over a sweep of head dim x
@@ -23,7 +23,10 @@ failure (the script then exits nonzero and prints no result):
    edges of their 128-row blocks), bf16 K7-K9 also where every key tile
    raises the row max and where most probabilities underflow, K3 and K4
    (LayerNormSpatial backward) at every ladder LayerNorm of the Theia-Base
-   cddsv heads, K5 and K6 (the fused loss's sums and d pred) at the five
+   cddsv heads, K3 also over B x S x C at its edges, bit-identical across
+   calls, over 50 calls back to back and on two streams at once, one launch
+   a call (torch.profiler),
+   K5 and K6 (the fused loss's sums and d pred) at the five
    cddsv teachers' [16, D] and over a sweep of B and D;
 4. serving: Theia-Base cddsv (seeded random weights) behind
    ``serving.Predictor``, answering requests through ``forward_feature``,
@@ -52,7 +55,8 @@ failure (the script then exits nonzero and prints no result):
    with the fused preprocessing against the unfused one;
 7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
    also with the stream held, the device's time alone), and each kernel's
-   bound and library call.
+   bound and library call; K3's and K4's sums over a recipe step's 15
+   LayerNormSpatial sites against their bounds.
 
 The last two lines of standard output are the kernels' JSON record (the
 bf16 figures; ``mha_fwd``, ``mha_bwd``, ``flash_fwd``, ``flash_dq`` and
@@ -87,6 +91,14 @@ HEADS, HEAD_DIM = 12, 64
 KERNEL_F32_ATOL = 2e-5
 KERNEL_F32_REL_L2 = 1e-5  # K3/K4 sums over up to 3.1M elements
 KERNEL_BF16_REL_L2 = 1e-2
+# K3 (B, side, C) at its edges: one sample to the recipe's 16, 7x7 and
+# 31x31 (whose last tile holds one position at 768 channels), one vector of
+# channels (256 positions a tile) and the heads' 768
+K3_EDGES = tuple((b, s, c) for b in (1, 3, 9, 16) for s in (7, 16, 31) for c in (8, 768))
+# the recipe step's LayerNormSpatial sites by side (models/adapter_heads.py):
+# three at 16x16 in each of the three 16x16 teachers' heads, one each at
+# 16x16, 31x31 and 64x64 in SAM's and Depth-Anything's
+LN_SITES = {16: 11, 31: 2, 64: 2}
 # the largest T whose float32 K2 passes fit a block's shared memory, by head
 # dim (csrc/mha_bwd.cu smem_bytes_f32 within 227 KB); every other head dim
 # takes every T <= 256
@@ -320,7 +332,55 @@ def compare_kernels(attention, ln_pallas) -> dict:
         torch.cuda.synchronize()
         errors[("ln_bwd_dx", dtype, s)] = compare(
             f"K4 ln_bwd_dx {dn} [16,768,{s},{s}]", dx, ln_pallas.ln_bwd_dx_plain(x, w, mean, r, g, *want[:2]), dtype)
+    check_ln_bwd_stats_edges(ln_pallas, gen)
     return errors
+
+
+def check_ln_bwd_stats_edges(ln_pallas, gen: torch.Generator) -> None:
+    """K3 over its edges, against the plain version on the same inputs in
+    float64 (each output within rel L2 KERNEL_F32_REL_L2, dw and db
+    contiguous (C, H, W)), bit-identical on a second call; bit-identical
+    over 50 calls back to back (its ticket counters reset themselves) and
+    over calls in flight on two streams at once (each stream has its own
+    counters); and one device operation a call (torch.profiler: no copy,
+    memset or second kernel)."""
+    from theia_tpu_torch.tools.timing import device_ops
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s, c in K3_EDGES:
+            x, g, w, mean, r = ln_inputs(b, c, s, dtype, gen)
+            got = ln_pallas.ln_bwd_stats(x, w, mean, r, g)
+            want = ln_pallas.ln_bwd_stats_plain(*(t.double() for t in (x, w, mean, r, g)))
+            errs = [rel_l2(a, bb) for a, bb in zip(got, want)]
+            worst = max(worst, *errs)
+            check(max(errs) < KERNEL_F32_REL_L2,
+                  f"K3 disagrees with its plain version at [{b},{c},{s},{s}] {dtype}: rel_l2 s1/s2/dw/db {errs}")
+            check(all(t.shape == w.shape and t.is_contiguous() for t in got[2:]),
+                  "K3's dw, db are not contiguous (C, H, W)")
+            again = ln_pallas.ln_bwd_stats(x, w, mean, r, g)
+            check(all(torch.equal(a, bb) for a, bb in zip(got, again)), f"K3's two calls differ at [{b},{c},{s},{s}]")
+    print(f"  K3 ln_bwd_stats over B x S x C = (1, 3, 9, 16) x (7², 16², 31²) x (8, 768), bf16 and float32, "
+          f"against the plain version in float64: worst rel_l2 {worst:.3e} (< {KERNEL_F32_REL_L2}); dw, db "
+          f"contiguous (C, H, W); bit-identical on two calls")
+    x, g, w, mean, r = ln_inputs(16, 768, 16, torch.bfloat16, gen)
+    first = ln_pallas.ln_bwd_stats(x, w, mean, r, g)
+    runs = [ln_pallas.ln_bwd_stats(x, w, mean, r, g) for _ in range(50)]
+    check(all(torch.equal(a, bb) for run in runs for a, bb in zip(first, run)), "K3's 50 calls back to back differ")
+    torch.cuda.synchronize()
+    streams, runs = [torch.cuda.Stream() for _ in range(2)], []
+    for _ in range(20):
+        for stream in streams:
+            with torch.cuda.stream(stream):
+                runs.append(ln_pallas.ln_bwd_stats(x, w, mean, r, g))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, bb) for run in runs for a, bb in zip(first, run)),
+          "K3's calls on two streams at once differ from one stream's")
+    ops = device_ops(lambda: ln_pallas.ln_bwd_stats(x, w, mean, r, g))
+    print(f"  K3 ln_bwd_stats bf16 [16,768,16,16]: 50 calls back to back and 40 on two streams at once "
+          f"bit-identical; device operations a call (torch.profiler): {ops}")
+    check(len(ops) == 1 and next(iter(ops)).startswith("ln_bwd_stats_sm90") and next(iter(ops.values())) == 1.0,
+          f"a K3 call is not one kernel launch: {ops}")
 
 
 def flash_case(attention, b: int, t: int, h: int, hd: int, dtype: torch.dtype, gen: torch.Generator) -> dict:
@@ -591,6 +651,17 @@ def main() -> int:
                   f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block); wgmma "
                   f"serialized: {'; '.join(notes) or 'no'}")
             check(name in usage and blocks > 0, f"{name}'s ptxas line or occupancy query is missing ({blocks})")
+
+    # K3 at the recipe's three sites in bf16 and at 64x64 in float32
+    for dtype, side in ((torch.bfloat16, 16), (torch.bfloat16, 31), (torch.bfloat16, 64), (torch.float32, 64)):
+        k3 = f"ln_bwd_stats_sm90<{'bf16' if dtype == torch.bfloat16 else 'f32'}>"
+        threads, grid = ctypes.c_int(0), ctypes.c_int(0)
+        blocks = build.load().theia_ln_bwd_stats_blocks_per_sm(
+            side * side, 768, ln_pallas._DTYPE_CODES[dtype], ctypes.byref(threads), ctypes.byref(grid))
+        print(f"  K3 {k3} [{TRAIN_BATCH},768,{side},{side}]: ptxas {usage.get(k3)}; {blocks} resident blocks per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block), a grid of "
+              f"{grid.value}")
+        check(k3 in usage and blocks > 0, f"K3's ptxas line or occupancy query is missing ({blocks})")
 
     # phase 3: kernel vs plain; float32 phases run with TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1119,6 +1190,7 @@ def main() -> int:
                     flops = products * bh * t * t * HEAD_DIM
                     tf32_row(key, label, res, flops, shape, errs[key] if t == BIG_T else None)
     f32_records["flash_dkv"]["pair"] = f32_records.pop("pair")
+    ln_rows = {}
     for dtype, s in [(bf16, 16), (bf16, 31), (bf16, 64), (torch.float32, 64)]:
         x, g, w, mean, r = ln_inputs(TRAIN_BATCH, 768, s, dtype, gen)
         s1, s2 = ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)[:2]
@@ -1141,6 +1213,14 @@ def main() -> int:
             3 * maps + per_sample * 4, 8 * x.numel(), dtype, shape)
         if dtype == bf16 and s == 64:
             record["ln_bwd_stats"], record["ln_bwd_dx"] = r3, r4
+        if dtype == bf16:
+            ln_rows[s] = (r3, r4)
+    # a recipe step's 15 LayerNormSpatial sites (bf16): 11 at 16x16, 2 at 31x31, 2 at 64x64
+    for i, name in enumerate(("K3 ln_bwd_stats", "K4 ln_bwd_dx")):
+        total = sum(n * ln_rows[s][i][0]["kernel"] for s, n in LN_SITES.items())
+        bound = sum(n * ln_rows[s][i][1] for s, n in LN_SITES.items())
+        print(f"    {name} bf16, a recipe step's 15 sites (11/2/2 at 16²/31²/64²): kernel {total:.4f} ms, bound "
+              f"{bound:.4f} ms, bound / kernel {100 * bound / total:.1f}%")
 
     # K5 and K6 over the five teachers of one step: [16, D] bf16 pred from
     # the heads, float32 targets (the recipe's loss_dtype), and float32 both

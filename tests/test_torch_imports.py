@@ -44,6 +44,7 @@ SLICE_MODULES = [
     "theia_tpu_torch.tools.check_div_rn",
     "theia_tpu_torch.tools.profile_train_step",
     "theia_tpu_torch.tools.sass_loops",
+    "theia_tpu_torch.tools.time_ln_bwd",
     "theia_tpu_torch.tools.time_mha_bwd",
     "theia_tpu_torch.tools.timing",
 ]

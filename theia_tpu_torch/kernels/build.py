@@ -115,10 +115,14 @@ def load() -> ctypes.CDLL:
             lib.theia_flash_fwd_bf16_blocks_per_sm.restype = i32
             lib.theia_flash_bwd_bf16_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
             lib.theia_flash_bwd_bf16_blocks_per_sm.restype = i32
-            lib.theia_ln_bwd_partials.argtypes = [i64]
-            lib.theia_ln_bwd_partials.restype = i32
-            lib.theia_ln_bwd_stats.argtypes = [ptr] * 11 + [i32, i64, i32, ptr]
+            lib.theia_ln_bwd_stats_parts.argtypes = [i32] * 3
+            lib.theia_ln_bwd_stats_parts.restype = i32
+            lib.theia_ln_bwd_stats_counter_words.argtypes = []
+            lib.theia_ln_bwd_stats_counter_words.restype = i32
+            lib.theia_ln_bwd_stats.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
             lib.theia_ln_bwd_stats.restype = i32
+            lib.theia_ln_bwd_stats_blocks_per_sm.argtypes = [i32] * 3 + [ctypes.POINTER(i32)] * 2
+            lib.theia_ln_bwd_stats_blocks_per_sm.restype = i32
             lib.theia_ln_bwd_dx.argtypes = [ptr] * 8 + [i32, i64, i32, ptr]
             lib.theia_ln_bwd_dx.restype = i32
             lib.theia_loss_sums_partials.argtypes = [i64]

@@ -12,7 +12,9 @@ forward is plain PyTorch and saves (x, weight, mean, r); the backward runs
 
 The kernels read the maps in channels_last memory, [B, S = H*W, C] with C
 contiguous, as the head ladders hold them; a gradient that arrives in
-another memory format is copied into channels_last first.
+another memory format is copied into channels_last first. K3 is one launch:
+it reads the weight in its own (C, H, W) layout and writes dw and db
+there, so autograd receives them in the parameter's layout.
 """
 
 from __future__ import annotations
@@ -107,49 +109,60 @@ def _check_kernel_inputs(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
 
 
 def _rows_sc(w: torch.Tensor) -> torch.Tensor:
-    """(C, H, W) -> [S, C] float32, the kernels' weight layout."""
+    """(C, H, W) -> [S, C] float32, K4's weight layout."""
     return w.detach().float().permute(1, 2, 0).contiguous()
 
 
-def _as_chw(t: torch.Tensor, shape_chw) -> torch.Tensor:
-    """[S, C] float32 -> (C, H, W)."""
-    c, h, w = shape_chw
-    return t.view(h, w, c).permute(2, 0, 1)
+# K3's ticket counters, one int32 buffer a (device index, stream), zeroed
+# once at creation. The kernel's last blocks reset them to 0, so calls in
+# order on one stream share a buffer, and calls on two streams never do
+# (their tickets would interleave). Counters that need no reset between
+# calls also keep the launch capturable by a CUDA graph.
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket_counters(lib, device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(lib.theia_ln_bwd_stats_counter_words(), dtype=torch.int32,
+                                    device=torch.device("cuda", key[0]))
+    return _TICKETS[key]
 
 
 def ln_bwd_stats(
     x: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor, r: torch.Tensor, g: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3 on CUDA tensors: per sample s1 = Σ g·w, s2 = Σ g·w·x̂ ([B] float32)
-    and per position dw = Σ_b g·x̂, db = Σ_b g ((C, H, W) float32), with
-    the weight in float32 as ``_autodiff_bwd`` takes it. Raises on inputs
-    the kernel does not take or on a failed launch."""
+    """K3 on CUDA tensors, one launch: per sample s1 = Σ g·w, s2 = Σ g·w·x̂
+    ([B] float32) and per position dw = Σ_b g·x̂, db = Σ_b g (contiguous
+    (C, H, W) float32), with the weight in float32 as ``_autodiff_bwd``
+    takes it. Raises on inputs the kernel does not take or on a refused or
+    failed launch."""
     if x.device.type != "cuda":
         raise ValueError(f"ln_bwd_stats runs on CUDA tensors, got {x.device}")
     _check_kernel_inputs(x, g, weight, mean)
     from theia_tpu_torch.kernels import build
 
     lib = build.load()
-    b = x.shape[0]
-    n = x[0].numel()
-    w_sc = _rows_sc(weight)
+    b, c, h, w = x.shape
+    weight = weight.detach().float().contiguous()
     mean, r = (t.reshape(b).float().contiguous() for t in (mean, r))
-    parts = torch.empty((2, b, lib.theia_ln_bwd_partials(n)), dtype=torch.float32, device=x.device)
     sums = torch.empty((2, b), dtype=torch.float32, device=x.device)
-    dwb = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    dw, db = torch.empty((2, *weight.shape), dtype=torch.float32, device=x.device).unbind(0)
+    # the blocks' s1, s2 partials, then their groups'
+    part = torch.empty((2, b, lib.theia_ln_bwd_stats_parts(b, h * w, c)), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.theia_ln_bwd_stats(
-            g.data_ptr(), x.data_ptr(), w_sc.data_ptr(), mean.data_ptr(), r.data_ptr(),
-            parts[0].data_ptr(), parts[1].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
-            dwb[0].data_ptr(), dwb[1].data_ptr(), b, n, _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            g.data_ptr(), x.data_ptr(), weight.data_ptr(), mean.data_ptr(), r.data_ptr(), part.data_ptr(),
+            _ticket_counters(lib, x.device, stream).data_ptr(), sums.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            b, h * w, c, _DTYPE_CODES[x.dtype], stream,
         )
     if err:
         raise RuntimeError(f"ln_bwd_stats launch failed for {tuple(x.shape)} {x.dtype}: "
                            f"{lib.theia_cuda_error_string(err).decode()}")
     global LN_BWD_STATS_LAUNCHES
     LN_BWD_STATS_LAUNCHES += 1
-    return sums[0], sums[1], _as_chw(dwb[0], weight.shape), _as_chw(dwb[1], weight.shape)
+    return sums[0], sums[1], dw, db
 
 
 def ln_bwd_dx(

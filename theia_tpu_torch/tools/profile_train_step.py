@@ -40,7 +40,7 @@ CLASSES = (
     ("K7 flash_fwd", ("flash_fwd",)),
     ("K9 flash_dq", ("flash_dq",)),
     ("K8 flash_dkv", ("flash_dkv",)),
-    ("K3 ln_bwd_stats", ("ln_bwd_stats", "ln_bwd_finish")),
+    ("K3 ln_bwd_stats", ("ln_bwd_stats",)),
     ("K4 ln_bwd_dx", ("ln_bwd_dx",)),
     ("K5 loss_sums_fwd", ("loss_sums_partial", "loss_sums_finish")),
     ("K6 loss_sums_bwd", ("loss_sums_bwd",)),

@@ -43,8 +43,8 @@ import torch
 
 from theia_tpu_torch.kernels import build
 from theia_tpu_torch.ops import attention
-from theia_tpu_torch.tools.timing import (interleaved_ms, kernel_ms, ptxas_usage, sdpa_backward, sdpa_forward,
-                                          wgmma_serialized)
+from theia_tpu_torch.tools.timing import (build_libraries, interleaved_ms, kernel_ms, ptxas_usage, sdpa_backward,
+                                          sdpa_forward, wgmma_serialized)
 
 F32_ATOL = 2e-5
 BF16_REL_L2 = 1e-2  # P and dS round to bf16 before their products; a rounding may land either side
@@ -292,29 +292,6 @@ def print_ptxas(target: Target, name: str, log: str) -> None:
             print(f"  {name}: ptxas {kernel}: {usage[kernel]}" + (f"; wgmma serialized ({notes})" if notes else ""))
 
 
-def build_libraries(target: Target, sources: dict[str, tuple[Path, tuple[str, ...]]],
-                    work: Path) -> dict[str, ctypes.CDLL]:
-    """One shared library per (source, -D settings), nvcc processes in parallel."""
-    procs = {}
-    for name, (source, defines) in sources.items():
-        procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-shared", "-o",
-             str(work / f"lib{name}.so"), str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{log[-4000:]}")
-        print_ptxas(target, name, log)
-        lib = ctypes.CDLL(str(work / f"lib{name}.so"))
-        for fn, argtypes in target.signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = I32
-        libs[name] = lib
-    return libs
-
-
 def print_occupancy(kernel: str, dtype: torch.dtype, lib: ctypes.CDLL) -> None:
     """Resident blocks per SM of the port's passes at hd = 64 in ``dtype``."""
     threads = ctypes.c_int(0)
@@ -403,12 +380,14 @@ def main() -> int:
     print_occupancy(args.kernel, dtype, build.load())
     sources = {}
     if args.parent:
-        sources["parent"] = (args.parent / "theia_tpu_torch" / "csrc" / target.source, ())
+        sources["parent"] = (args.parent / "theia_tpu_torch" / "csrc" / target.source, (), target.signatures)
     if args.ablations:
-        sources.update({name: (build.PACKAGE_DIR / "csrc" / target.source, d) for name, d in target.ablations.items()})
+        sources.update({name: (build.PACKAGE_DIR / "csrc" / target.source, d, target.signatures)
+                        for name, d in target.ablations.items()})
     fns = {"kernel": target.main}
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
-        fns.update({name: target.launcher(lib) for name, lib in build_libraries(target, sources, Path(work)).items()})
+        libs = build_libraries(sources, Path(work), lambda name, log: print_ptxas(target, name, log))
+        fns.update({name: target.launcher(lib) for name, lib in libs.items()})
         gen = torch.Generator(device="cuda").manual_seed(0)
         worst = {}
         metric = "relative L2 error (O/lse for K7)" if dtype == torch.bfloat16 else "max abs error"

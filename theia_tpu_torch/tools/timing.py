@@ -1,12 +1,19 @@
-"""Device timing, ptxas's report and the library attention calls, shared
-by ``chip_smoke.py`` and the timing tools. Needs a CUDA device to time."""
+"""Device timing, ptxas's report, the library attention calls and the
+parallel build of other versions of a kernel's source, shared by
+``chip_smoke.py`` and the timing tools. Needs a CUDA device to time."""
 
 from __future__ import annotations
 
+import ctypes
 import re
+import subprocess
 import time
+from pathlib import Path
+from typing import Callable
 
 import torch
+
+from theia_tpu_torch.kernels import build
 
 # torch.cuda._sleep's unit is an SM clock cycle; at most 1.98 GHz on an H100
 SLEEP_CYCLES_PER_MS = 2_000_000
@@ -49,21 +56,37 @@ def interleaved_ms(fns: dict, iters: int = 20, hold: bool = True) -> dict:
     return {k: sum(v) / len(v) for k, v in times.items()}
 
 
-def kernel_ms(fn, iters: int = 50) -> dict[str, float]:
-    """Device milliseconds per call of each CUDA kernel ``fn`` launches, by
-    the kernel's name without its arguments (torch.profiler over ``iters``
-    calls after one warm call)."""
+def _device_events(fn, iters: int) -> list:
+    """torch.profiler's device events (kernels, memsets, copies) over
+    ``iters`` calls of ``fn`` after one warm call, summed by name."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return [ev for ev in prof.key_averages() if ev.device_time_total > 0]
+
+
+def kernel_ms(fn, iters: int = 50) -> dict[str, float]:
+    """Device milliseconds per call of each CUDA kernel ``fn`` launches, by
+    the kernel's name without its arguments (torch.profiler over ``iters``
+    calls after one warm call)."""
     out = {}
-    for ev in prof.key_averages():
-        if ev.device_time_total > 0:
-            name = profiled_kernel_name(ev.key)
-            out[name] = out.get(name, 0.0) + ev.device_time_total / iters / 1e3
+    for ev in _device_events(fn, iters):
+        name = profiled_kernel_name(ev.key)
+        out[name] = out.get(name, 0.0) + ev.device_time_total / iters / 1e3
+    return out
+
+
+def device_ops(fn, iters: int = 10) -> dict[str, float]:
+    """Device operations (kernels, memsets, copies) per call of ``fn``, by
+    name without arguments (torch.profiler over ``iters`` calls after one
+    warm call)."""
+    out = {}
+    for ev in _device_events(fn, iters):
+        name = profiled_kernel_name(ev.key)
+        out[name] = out.get(name, 0.0) + ev.count / iters
     return out
 
 
@@ -104,6 +127,31 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
         elif "Used" in line and "registers" in line:
             out.append((name, f"{line.split('Used', 1)[1].strip()}; {spills}"))
     return out
+
+
+def build_libraries(sources: dict[str, tuple[Path, tuple[str, ...], dict[str, list]]], work: Path,
+                    report: Callable[[str, str], None]) -> dict[str, ctypes.CDLL]:
+    """One shared library in ``work`` per name -> (source, -D settings, C
+    functions -> their argtypes, each returning int), nvcc processes in
+    parallel; ``report(name, log)`` reads each build's nvcc output."""
+    procs = {}
+    for name, (source, defines, _) in sources.items():
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-shared", "-o",
+             str(work / f"lib{name}.so"), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log[-4000:]}")
+        report(name, log)
+        lib = ctypes.CDLL(str(work / f"lib{name}.so"))
+        for fn, argtypes in sources[name][2].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
 
 
 def wgmma_serialized(log: str) -> list[tuple[str, str]]:
