@@ -53,6 +53,20 @@ failure (the script then exits nonzero and prints no result):
    exact launch counts (K1 = K2 = 0, K3-K6 on every step), one float32
    step on the kernel path against the plain path, and ``forward_feature``
    with the fused preprocessing against the unfused one;
+6b. the training runtime, this slice's main path: ``train.loop.train_from_config``
+   on the recipe's config (``load_config("train_rvfm_imagenet", ...)``,
+   Theia-Base cddsv, batch 16) over synthetic shards at the teachers' real
+   sizes (96 train and 16 val samples, 224² uint8 images, bf16 features)
+   in a temporary directory whose free space is checked first: 6 steps, an
+   async save at step 3 and the blocking one at step 6, one eval step
+   (finite losses), exact launch counts (K3 = K4 = 90, K5 = 35, K6 = 30,
+   K1 = K2 = K7-K9 = 0), a JSONL log at steps 2, 4 and 6; a restore of step
+   6 into a TrainState built on the card as the loop builds it, every
+   tensor equal to the file's and the model's own parameters moved; then
+   ``training.epochs=2``, which resumes at step 6 and ends at 12. It prints
+   the loop's wall time a step, images/s, the loaders' share of the wall,
+   each save's blocked and written time and the restore's, beside the
+   card's name and power limit;
 7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
    also with the stream held, the device's time alone), and each kernel's
    bound and library call; K3's and K4's sums over a recipe step's 15
@@ -157,6 +171,14 @@ TRAIN_STEPS = 20
 FLASH_TRAIN_STEPS = 10
 # the recipe, theia_tpu/configs/training/frame_level.yaml
 BASE_LR, BASE_BATCH, BASE_WORLD, WARMUP_STEPS = 2e-3, 64, 8, 2
+# the training runtime (train_from_config) on synthetic cddsv shards at the
+# teachers' real sizes: 6 steps of 16 from 96 samples, an async save at step 3
+# and the blocking one at step 6, one eval step (16 val samples at the
+# config's eval ratio of 0.1 give 2, one batch); then a resume to 12
+RUNTIME_TRAIN, RUNTIME_VAL, RUNTIME_STEPS = 96, 16, 6
+RUNTIME_OVERRIDES = ("model/backbone=deit_base", "training/target_models=cddsv", "dataset.dataset_ratio=1.0",
+                     f"training.batch_size={TRAIN_BATCH}", "logging.save_ckpt_interval=3",
+                     "logging.log_interval=2")
 # JAX's TPU flash attention library, whose three Pallas kernels K7-K9 replace
 FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # the H100 SXM's published peaks
@@ -551,6 +573,128 @@ def loss_and_grads(model, images, targets):
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
     return float(loss.detach()), dict(zip(names, grads))
+
+
+def training_runtime(card: str, teachers: list[str], reset_counts, read_counts, expected: dict) -> dict:
+    """Phase 6b: ``train.loop.train_from_config`` at the production recipe on
+    synthetic shards, a restore checked tensor for tensor against the file,
+    and a resume. Returns the launch counts of the first call."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from theia_tpu_torch.config import load_config
+    from theia_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from theia_tpu_torch.foundation.common import MODEL_FEATURE_SIZES
+    from theia_tpu_torch.train import loop
+    from theia_tpu_torch.train.checkpoint import restore_checkpoint
+    from theia_tpu_torch.train.state import TrainState
+
+    sizes = {t: MODEL_FEATURE_SIZES[t] for t in teachers}
+    sample_bytes = 224 * 224 * 3 + sum(2 * math.prod(s) for s in sizes.values())
+    tmp = tempfile.mkdtemp(prefix="theia_runtime_")
+    try:
+        def config(epochs: int):
+            return load_config("train_rvfm_imagenet", [
+                *RUNTIME_OVERRIDES, f"dataset.dataset_root={tmp}", f"training.epochs={epochs}",
+                f"logging.model_path={tmp}/ckpt", f"logging.log_path={tmp}/logs"])
+
+        cfg = config(1)
+        # the student at step 0, as the loop builds it; the restore below lands in it
+        model = loop.build_model(cfg, "cuda")
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        state = TrainState.create(dict(model.named_parameters()), loop.build_optimizer(cfg, 0.0))
+        ckpt_bytes = sum(t.numel() * t.element_size() for tree in (state.params, state.opt_state.mu,
+                                                                    state.opt_state.nu) for t in tree.values())
+        need = sample_bytes * (RUNTIME_TRAIN + RUNTIME_VAL) + 5 * ckpt_bytes + (1 << 30)
+        free = shutil.disk_usage(tmp).free
+        print(f"phase 6b, the training runtime: {MODEL} at the recipe through train_from_config; {tmp}: "
+              f"{free / 1e9:.1f} GB free, {need / 1e9:.1f} GB needed ({RUNTIME_TRAIN + RUNTIME_VAL} samples of "
+              f"{sample_bytes / 1e6:.2f} MB, 5 checkpoints of {ckpt_bytes / 1e9:.2f} GB, 1 GiB spare)")
+        check(free >= need, f"{tmp} has {free} bytes free, the phase needs {need}")
+        t0 = time.perf_counter()
+        generate_synthetic_dataset(tmp, feature_models=sizes, n_train=RUNTIME_TRAIN, n_val=RUNTIME_VAL, seed=0)
+        print(f"  synthetic cddsv shards (224² uint8 images, bf16 features at the teachers' sizes): "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        def train(cfg) -> tuple[dict, dict, list[str]]:
+            """One train_from_config call with the launch counts set to 0 just
+            before and read just after; its own printing is kept apart."""
+            out = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(out):
+                summary = loop.train_from_config(cfg)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            return summary, counts, [ln for ln in out.getvalue().splitlines() if ln.startswith("[theia_tpu_torch]")]
+
+        def report(label: str, summary: dict, counts: dict) -> None:
+            t = summary["timing"]
+            blocked = sum(b for _, b, _ in t["saves"])
+            ev = summary["eval"]
+            print(f"  {label}: step {summary['step']}; eval cos {ev['avg_eval_cos_loss']:.6f}, l1 "
+                  f"{ev['avg_eval_l1_loss']:.6f}, mse {ev['avg_eval_mse_loss']:.6f}; train loss "
+                  f"{summary['train']['loss']:.6f}; launches {counts}, expected {expected}")
+            print(f"  {label}: loop wall {t['wall_s']:.3f} s for {t['steps']} steps + 1 eval + "
+                  f"{len(t['saves'])} saves: {t['wall_s'] / t['steps'] * 1e3:.1f} ms a step, "
+                  f"{t['images'] / t['wall_s']:.1f} images/s ({(t['wall_s'] - blocked) / t['steps'] * 1e3:.1f} ms "
+                  f"a step less the {blocked:.3f} s save() blocked); waiting in the loaders' next() "
+                  f"{t['loader_wait_s']:.3f} s, {100 * t['loader_wait_s'] / t['wall_s']:.1f}% of the wall ({card})")
+            for step, blocked_s, write_s in t["saves"]:
+                print(f"  {label}: save at step {step}: save() blocked {blocked_s:.3f} s, its background write "
+                      f"(torch.save, fsync, rename) {write_s:.3f} s ({card})")
+            check(all(math.isfinite(v) for v in ev.values()), f"{label}: an eval loss is not finite")
+            check(counts == expected, f"{label}: kernel launch counts are off")
+
+        summary, counts, lines = train(cfg)
+        report("call 1 (epochs=1)", summary, counts)
+        check(summary["step"] == RUNTIME_STEPS, f"call 1 ended at step {summary['step']}")
+        check([s for s, _, _ in summary["timing"]["saves"]] == [3, 6], "call 1 saved at other steps than 3 and 6")
+        (log,) = Path(tmp, "logs").glob("*.metrics.jsonl")
+        rows = [json.loads(ln) for ln in log.read_text().splitlines()]
+        train_steps = [r["step"] for r in rows if "loss" in r]
+        eval_steps = [r["step"] for r in rows if "avg_eval_cos_loss" in r]
+        print(f"  JSONL log {log.name}: train rows at steps {train_steps}, eval rows at {eval_steps}")
+        check(train_steps == [2, 4, 6] and eval_steps == [6] and len(rows) == 4, "the JSONL log's steps are off")
+
+        # restore step 6 into the state built before call 1, and hold it to the file
+        ckpt_dir = summary["ckpt_dir"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(ckpt_dir, state, step=RUNTIME_STEPS)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        saved = torch.load(os.path.join(ckpt_dir, f"{RUNTIME_STEPS}.pt"), map_location="cpu", weights_only=True)
+        opt = state.opt_state
+        live = {"step": {"": state.step}, "sched_count": {"": opt.sched_count}, "params": state.params,
+                "count": opt.count, "mu": opt.mu, "nu": opt.nu}
+        differ = [f"{k}.{n}" for k, tree in live.items() for n, t in tree.items()
+                  if not torch.equal(t.cpu(), saved[k] if n == "" else saved[k][n])]
+        own = dict(model.named_parameters())
+        differ += [n for n, p in own.items() if not torch.equal(p.detach().cpu(), saved["params"][n])]
+        changed = sum(not torch.equal(own[n], init[n]) for n in init)
+        print(f"  restore of step {RUNTIME_STEPS} into a TrainState built on the card as the loop builds it: "
+              f"{restore_s:.3f} s ({card}); {sum(len(t) for t in live.values())} tensors and the model's "
+              f"{len(own)} parameters against the file: {len(differ)} differ; {changed} of the model's "
+              f"{len(own)} parameters moved from step 0; step {int(state.step)}, moments "
+              f"{opt.mu[next(iter(opt.mu))].dtype}")
+        check(not differ, f"restored tensors differ from the file: {differ[:5]}")
+        check(changed > 0 and int(state.step) == RUNTIME_STEPS, "the restore did not reach the model's parameters")
+        del model, state, opt, live, own, init, saved
+        torch.cuda.empty_cache()
+
+        summary2, counts2, lines2 = train(config(2))
+        for ln in lines2:
+            print(f"  call 2: {ln}")
+        report("call 2 (epochs=2, resumed)", summary2, counts2)
+        check(any(f"resuming at step {RUNTIME_STEPS} " in ln for ln in lines2), "call 2 did not resume at step 6")
+        check(summary2["step"] == 2 * RUNTIME_STEPS, f"call 2 ended at step {summary2['step']}")
+        print(f"  call 2: the loop's own restore {summary2['timing']['restore_s']:.3f} s ({card})")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -1033,6 +1177,11 @@ def main() -> int:
     del fused_m, unfused_m, a, b
     torch.cuda.empty_cache()
 
+    # phase 6b: the training runtime, this slice's main path
+    runtime_counts = training_runtime(card, teachers, reset_counts, read_counts,
+                                      expected_launches(RUNTIME_STEPS, forward_only(0)))
+    torch.cuda.empty_cache()
+
     # phase 7: timings
     print(f"phase 7: timings on {card}:")
     x1 = torch.from_numpy(requests[0]).cuda()
@@ -1276,10 +1425,11 @@ def main() -> int:
     rows = []
     for name, (src, replaces, err) in meta.items():
         t, bound, by = record[name]
-        # launches on the path that runs the kernel: the recipe's training,
-        # or for the attention kernels, which the recipe skips, exact mode's
-        # (the flash kernels: exact mode's through attention_impl="flash")
-        launches = recipe_counts[name] or exact_counts[name] or flash_counts[name]
+        # launches on the path that runs the kernel: the training runtime
+        # (train_from_config at the recipe), or for the attention kernels,
+        # which the recipe skips, exact mode's (the flash kernels: exact
+        # mode's through attention_impl="flash")
+        launches = runtime_counts[name] or exact_counts[name] or flash_counts[name]
         rows.append({
             "name": name, "route": "cuda", "source": f"theia_tpu_torch/{src}", "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],

@@ -1,5 +1,5 @@
-"""Framework boundary of the PyTorch port: importing it loads no JAX, Flax or
-Triton, and its copied tables equal the JAX package's."""
+"""Framework boundary of the PyTorch port: importing it loads no JAX, Flax,
+Triton or ml_dtypes, and its copied tables equal the JAX package's."""
 
 import dataclasses
 import json
@@ -11,15 +11,32 @@ from pathlib import Path
 import pytest
 
 import theia_tpu_torch as tpackage
+from theia_tpu.data import registries as jregistries
 from theia_tpu.foundation import common as jcommon
 from theia_tpu.models import hub as jhub
 from theia_tpu.models import vit as jvit
+from theia_tpu_torch.data import registries as tregistries
 from theia_tpu_torch.foundation import common as tcommon
 from theia_tpu_torch.models import hub as thub
 from theia_tpu_torch.models import vit as tvit
 
 SLICE_MODULES = [
     "theia_tpu_torch",
+    "theia_tpu_torch.config",
+    "theia_tpu_torch.utils",
+    "theia_tpu_torch.utils.seed",
+    "theia_tpu_torch.utils.logging",
+    "theia_tpu_torch.data",
+    "theia_tpu_torch.data.registries",
+    "theia_tpu_torch.data.stats",
+    "theia_tpu_torch.data.webdataset",
+    "theia_tpu_torch.data.dataset",
+    "theia_tpu_torch.data.synthetic",
+    "theia_tpu_torch.data.oxe",
+    "theia_tpu_torch.train.checkpoint",
+    "theia_tpu_torch.train.loop",
+    "theia_tpu_torch.scripts",
+    "theia_tpu_torch.scripts.train_rvfm",
     "theia_tpu_torch.foundation.common",
     "theia_tpu_torch.ops.image",
     "theia_tpu_torch.ops.init",
@@ -55,7 +72,8 @@ def test_port_imports_no_jax_flax_or_triton():
         "import importlib, json, sys\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
-        "                  if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'triton', 'theia_tpu'))))\n"
+        "                  if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'triton', 'theia_tpu',\n"
+        "                                         'ml_dtypes'))))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -76,6 +94,10 @@ def test_copied_tables_equal_the_jax_package():
     assert tcommon.MODELS == jcommon.MODELS
     assert tcommon.MODEL_FEATURE_SIZES == jcommon.MODEL_FEATURE_SIZES
     assert thub.TEACHER_SETS == jhub.TEACHER_SETS
+    assert tregistries.ALL_IMAGE_DATASETS == jregistries.ALL_IMAGE_DATASETS
+    assert tregistries.ALL_VIDEO_DATASETS == jregistries.ALL_VIDEO_DATASETS
+    assert (Path(tpackage.__file__).parent / "data" / "oxe_catalog.json").read_bytes() == (
+        Path(jregistries.__file__).parent / "oxe_catalog.json").read_bytes()
     assert set(tvit.BACKBONE_CONFIGS) == set(jvit.BACKBONE_CONFIGS)
     for name, jcfg in jvit.BACKBONE_CONFIGS.items():
         tcfg = tvit.BACKBONE_CONFIGS[name]

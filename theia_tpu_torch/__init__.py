@@ -12,5 +12,8 @@ hand-written kernel in ``csrc/mha_fwd.cu``) and the lconv translator heads.
 Training path: ``train.step.make_train_step`` over the same ``Theia``, with
 ``models.losses`` and ``train.optim``; attention's backward is
 ``csrc/mha_bwd.cu`` and the head ladders' LayerNorm backward
-``csrc/ln_bwd.cu``.
+``csrc/ln_bwd.cu``. Training runtime: ``scripts/train_rvfm.py`` ->
+``train.loop.train_from_config`` over ``config.py`` (the port's own
+``configs/``), ``data/`` (webdataset shards, the batched loader) and
+``train/checkpoint.py``.
 """
