@@ -67,6 +67,25 @@ failure (the script then exits nonzero and prints no result):
    the loop's wall time a step, images/s, the loaders' share of the wall,
    each save's blocked and written time and the restore's, beside the
    card's name and power limit;
+6c. worker-process loading: 6b's config with ``dataset.num_workers`` =
+   min(4, cores - 1): the first 3 batches of the ordered shm and queue
+   loaders bit-equal to the same splits merged round-robin in this
+   process, 3 steps of ``train_from_config`` with workers (finite losses,
+   exact launch counts, the loader's share of the wall), and
+   ``measure_loader_throughput`` at 0, 1, 2, 4 and cores - 1 workers in
+   both transports on 256 more samples, with the host's cores, /dev/shm's
+   free bytes and the transport that ran;
+4b. serving the student 6b trained: ``from_pretrained`` from the run's
+   checkpoint directory, its step-6 file and a safetensors file of its
+   state dict, each served through ``Predictor`` at B=16 in float32, bf16
+   (K1) and through "flash" (K7), bit-equal to the same build with the
+   weights copied in directly, moved from the random init, within MSE 5e-4
+   of the trained model's recipe forward (float32), with K1's or K7's
+   launches, the load time and the first request's latency;
+4c. export: the float32 student's ``forward_feature`` exported, saved and
+   loaded; the artifact's graph calls K1's operator and its outputs at
+   B = 1, 3, 16 equal the eager model's within atol 1e-5; B=1 latency of
+   phase 4's model, the student and the artifact;
 7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
    also with the stream held, the device's time alone), and each kernel's
    bound and library call; K3's and K4's sums over a recipe step's 15
@@ -84,11 +103,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -176,6 +198,18 @@ BASE_LR, BASE_BATCH, BASE_WORLD, WARMUP_STEPS = 2e-3, 64, 8, 2
 # and the blocking one at step 6, one eval step (16 val samples at the
 # config's eval ratio of 0.1 give 2, one batch); then a resume to 12
 RUNTIME_TRAIN, RUNTIME_VAL, RUNTIME_STEPS = 96, 16, 6
+# 8 samples a shard: 12 train shards, so that every loader worker of phase 6c
+# reads a disjoint subset of at least one
+RUNTIME_SHARD = 8
+# phase 6c: worker-process loading. The loop trains 3 steps with workers;
+# the loader's throughput is measured on its own shards (16 of 16 samples),
+# 2 batches of warmup (the workers' start) and 12 timed
+LOADER_STEPS, LOADER_COMPARE_BATCHES = 3, 3
+LOADER_TRAIN, LOADER_SHARD, LOADER_WARMUP, LOADER_BATCHES = 256, 16, 2, 12
+# phase 4c: the exported forward_feature against the eager model in float32
+# (the same kernels and float32 ops; the batch is symbolic in the graph)
+EXPORT_F32_ATOL = 1e-5
+EXPORT_BATCHES = (1, 3, 16)
 RUNTIME_OVERRIDES = ("model/backbone=deit_base", "training/target_models=cddsv", "dataset.dataset_ratio=1.0",
                      f"training.batch_size={TRAIN_BATCH}", "logging.save_ckpt_interval=3",
                      "logging.log_interval=2")
@@ -575,17 +609,45 @@ def loss_and_grads(model, images, targets):
     return float(loss.detach()), dict(zip(names, grads))
 
 
-def training_runtime(card: str, teachers: list[str], reset_counts, read_counts, expected: dict) -> dict:
-    """Phase 6b: ``train.loop.train_from_config`` at the production recipe on
-    synthetic shards, a restore checked tensor for tensor against the file,
-    and a resume. Returns the launch counts of the first call."""
+def runtime_config(tmp: str, epochs: int = 1, extra: tuple = ()):
+    """Phase 6b's config: the recipe, Theia-Base cddsv, batch 16, on the shards under ``tmp``."""
+    from theia_tpu_torch.config import load_config
+
+    return load_config("train_rvfm_imagenet", [
+        *RUNTIME_OVERRIDES, f"dataset.dataset_root={tmp}", f"training.epochs={epochs}",
+        f"logging.model_path={tmp}/ckpt", f"logging.log_path={tmp}/logs", *extra])
+
+
+def run_quietly(fn, reset_counts, read_counts) -> tuple[dict, dict, list[str]]:
+    """``fn()`` (a ``train_from_config`` call) with the launch counts set to 0
+    just before and read just after; its own printing is kept apart."""
     import contextlib
     import io
+
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        summary = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    return summary, counts, [ln for ln in out.getvalue().splitlines() if ln.startswith("[theia_tpu_torch]")]
+
+
+def sample_bytes_of(sizes: dict) -> int:
+    """One synthetic sample: a 224² uint8 image and each teacher's bf16 features."""
+    return 224 * 224 * 3 + sum(2 * math.prod(s) for s in sizes.values())
+
+
+def training_runtime(card: str, tmp: str, teachers: list[str], reset_counts, read_counts,
+                     expected: dict) -> tuple[dict, dict]:
+    """Phase 6b: ``train.loop.train_from_config`` at the production recipe on
+    synthetic shards written under ``tmp`` (left there for phases 6c and
+    4b), a restore checked tensor for tensor against the file, and a
+    resume. Returns the launch counts of the first call and the summary of
+    the second."""
     import os
     import shutil
-    import tempfile
 
-    from theia_tpu_torch.config import load_config
     from theia_tpu_torch.data.synthetic import generate_synthetic_dataset
     from theia_tpu_torch.foundation.common import MODEL_FEATURE_SIZES
     from theia_tpu_torch.train import loop
@@ -593,108 +655,353 @@ def training_runtime(card: str, teachers: list[str], reset_counts, read_counts, 
     from theia_tpu_torch.train.state import TrainState
 
     sizes = {t: MODEL_FEATURE_SIZES[t] for t in teachers}
-    sample_bytes = 224 * 224 * 3 + sum(2 * math.prod(s) for s in sizes.values())
-    tmp = tempfile.mkdtemp(prefix="theia_runtime_")
-    try:
-        def config(epochs: int):
-            return load_config("train_rvfm_imagenet", [
-                *RUNTIME_OVERRIDES, f"dataset.dataset_root={tmp}", f"training.epochs={epochs}",
-                f"logging.model_path={tmp}/ckpt", f"logging.log_path={tmp}/logs"])
+    sample_bytes = sample_bytes_of(sizes)
+    cfg = runtime_config(tmp, 1)
+    # the student at step 0, as the loop builds it; the restore below lands in it
+    model = loop.build_model(cfg, "cuda")
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = TrainState.create(dict(model.named_parameters()), loop.build_optimizer(cfg, 0.0))
+    ckpt_bytes = sum(t.numel() * t.element_size() for tree in (state.params, state.opt_state.mu,
+                                                                state.opt_state.nu) for t in tree.values())
+    need = sample_bytes * (RUNTIME_TRAIN + RUNTIME_VAL + LOADER_TRAIN) + 7 * ckpt_bytes + (1 << 30)
+    free = shutil.disk_usage(tmp).free
+    print(f"phase 6b, the training runtime: {MODEL} at the recipe through train_from_config; {tmp}: "
+          f"{free / 1e9:.1f} GB free, {need / 1e9:.1f} GB needed ({RUNTIME_TRAIN + RUNTIME_VAL} samples of "
+          f"{sample_bytes / 1e6:.2f} MB, phase 6c's {LOADER_TRAIN} more, 7 checkpoints of {ckpt_bytes / 1e9:.2f} "
+          "GB, 1 GiB spare)")
+    check(free >= need, f"{tmp} has {free} bytes free, the phase needs {need}")
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(tmp, feature_models=sizes, n_train=RUNTIME_TRAIN, n_val=RUNTIME_VAL,
+                               samples_per_shard=RUNTIME_SHARD, seed=0)
+    print(f"  synthetic cddsv shards (224² uint8 images, bf16 features at the teachers' sizes, "
+          f"{RUNTIME_SHARD} samples a shard): {time.perf_counter() - t0:.1f} s")
 
-        cfg = config(1)
-        # the student at step 0, as the loop builds it; the restore below lands in it
-        model = loop.build_model(cfg, "cuda")
-        init = {n: p.detach().clone() for n, p in model.named_parameters()}
-        state = TrainState.create(dict(model.named_parameters()), loop.build_optimizer(cfg, 0.0))
-        ckpt_bytes = sum(t.numel() * t.element_size() for tree in (state.params, state.opt_state.mu,
-                                                                    state.opt_state.nu) for t in tree.values())
-        need = sample_bytes * (RUNTIME_TRAIN + RUNTIME_VAL) + 5 * ckpt_bytes + (1 << 30)
-        free = shutil.disk_usage(tmp).free
-        print(f"phase 6b, the training runtime: {MODEL} at the recipe through train_from_config; {tmp}: "
-              f"{free / 1e9:.1f} GB free, {need / 1e9:.1f} GB needed ({RUNTIME_TRAIN + RUNTIME_VAL} samples of "
-              f"{sample_bytes / 1e6:.2f} MB, 5 checkpoints of {ckpt_bytes / 1e9:.2f} GB, 1 GiB spare)")
-        check(free >= need, f"{tmp} has {free} bytes free, the phase needs {need}")
-        t0 = time.perf_counter()
-        generate_synthetic_dataset(tmp, feature_models=sizes, n_train=RUNTIME_TRAIN, n_val=RUNTIME_VAL, seed=0)
-        print(f"  synthetic cddsv shards (224² uint8 images, bf16 features at the teachers' sizes): "
-              f"{time.perf_counter() - t0:.1f} s")
+    def train(cfg) -> tuple[dict, dict, list[str]]:
+        return run_quietly(lambda: loop.train_from_config(cfg), reset_counts, read_counts)
 
-        def train(cfg) -> tuple[dict, dict, list[str]]:
-            """One train_from_config call with the launch counts set to 0 just
-            before and read just after; its own printing is kept apart."""
-            out = io.StringIO()
-            reset_counts()
-            with contextlib.redirect_stdout(out):
-                summary = loop.train_from_config(cfg)
+    def report(label: str, summary: dict, counts: dict) -> None:
+        t = summary["timing"]
+        blocked = sum(b for _, b, _ in t["saves"])
+        ev = summary["eval"]
+        print(f"  {label}: step {summary['step']}; eval cos {ev['avg_eval_cos_loss']:.6f}, l1 "
+              f"{ev['avg_eval_l1_loss']:.6f}, mse {ev['avg_eval_mse_loss']:.6f}; train loss "
+              f"{summary['train']['loss']:.6f}; launches {counts}, expected {expected}")
+        print(f"  {label}: loop wall {t['wall_s']:.3f} s for {t['steps']} steps + 1 eval + "
+              f"{len(t['saves'])} saves: {t['wall_s'] / t['steps'] * 1e3:.1f} ms a step, "
+              f"{t['images'] / t['wall_s']:.1f} images/s ({(t['wall_s'] - blocked) / t['steps'] * 1e3:.1f} ms "
+              f"a step less the {blocked:.3f} s save() blocked); waiting in the loaders' next() "
+              f"{t['loader_wait_s']:.3f} s, {100 * t['loader_wait_s'] / t['wall_s']:.1f}% of the wall ({card})")
+        for step, blocked_s, write_s in t["saves"]:
+            print(f"  {label}: save at step {step}: save() blocked {blocked_s:.3f} s, its background write "
+                  f"(torch.save, fsync, rename) {write_s:.3f} s ({card})")
+        check(all(math.isfinite(v) for v in ev.values()), f"{label}: an eval loss is not finite")
+        check(counts == expected, f"{label}: kernel launch counts are off")
+
+    summary, counts, lines = train(cfg)
+    report("call 1 (epochs=1)", summary, counts)
+    check(summary["step"] == RUNTIME_STEPS, f"call 1 ended at step {summary['step']}")
+    check([s for s, _, _ in summary["timing"]["saves"]] == [3, 6], "call 1 saved at other steps than 3 and 6")
+    (log,) = Path(tmp, "logs").glob("*.metrics.jsonl")
+    rows = [json.loads(ln) for ln in log.read_text().splitlines()]
+    train_steps = [r["step"] for r in rows if "loss" in r]
+    eval_steps = [r["step"] for r in rows if "avg_eval_cos_loss" in r]
+    print(f"  JSONL log {log.name}: train rows at steps {train_steps}, eval rows at {eval_steps}")
+    check(train_steps == [2, 4, 6] and eval_steps == [6] and len(rows) == 4, "the JSONL log's steps are off")
+
+    # restore step 6 into the state built before call 1, and hold it to the file
+    ckpt_dir = summary["ckpt_dir"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_checkpoint(ckpt_dir, state, step=RUNTIME_STEPS)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    saved = torch.load(os.path.join(ckpt_dir, f"{RUNTIME_STEPS}.pt"), map_location="cpu", weights_only=True)
+    opt = state.opt_state
+    live = {"step": {"": state.step}, "sched_count": {"": opt.sched_count}, "params": state.params,
+            "count": opt.count, "mu": opt.mu, "nu": opt.nu}
+    differ = [f"{k}.{n}" for k, tree in live.items() for n, t in tree.items()
+              if not torch.equal(t.cpu(), saved[k] if n == "" else saved[k][n])]
+    own = dict(model.named_parameters())
+    differ += [n for n, p in own.items() if not torch.equal(p.detach().cpu(), saved["params"][n])]
+    changed = sum(not torch.equal(own[n], init[n]) for n in init)
+    print(f"  restore of step {RUNTIME_STEPS} into a TrainState built on the card as the loop builds it: "
+          f"{restore_s:.3f} s ({card}); {sum(len(t) for t in live.values())} tensors and the model's "
+          f"{len(own)} parameters against the file: {len(differ)} differ; {changed} of the model's "
+          f"{len(own)} parameters moved from step 0; step {int(state.step)}, moments "
+          f"{opt.mu[next(iter(opt.mu))].dtype}")
+    check(not differ, f"restored tensors differ from the file: {differ[:5]}")
+    check(changed > 0 and int(state.step) == RUNTIME_STEPS, "the restore did not reach the model's parameters")
+    del model, state, opt, live, own, init, saved
+    torch.cuda.empty_cache()
+
+    summary2, counts2, lines2 = train(runtime_config(tmp, 2))
+    for ln in lines2:
+        print(f"  call 2: {ln}")
+    report("call 2 (epochs=2, resumed)", summary2, counts2)
+    check(any(f"resuming at step {RUNTIME_STEPS} " in ln for ln in lines2), "call 2 did not resume at step 6")
+    check(summary2["step"] == 2 * RUNTIME_STEPS, f"call 2 ended at step {summary2['step']}")
+    print(f"  call 2: the loop's own restore {summary2['timing']['restore_s']:.3f} s ({card})")
+    return counts, summary2
+
+
+class RoundRobin:
+    """The ordered worker merge's order, iterated in this process: one sample
+    from each part in turn, a part dropping out when it ends."""
+
+    def __init__(self, parts: list) -> None:
+        self.parts = parts
+
+    def __iter__(self):
+        iters = [iter(p) for p in self.parts]
+        while iters:
+            live = []
+            for it in iters:
+                for sample in itertools.islice(it, 1):
+                    yield sample
+                    live.append(it)
+            iters = live
+
+
+def leaves_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(leaves_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def latency_b1(fn, x1: torch.Tensor, calls: int = 50) -> tuple[float, float, float]:
+    """p50, min and max ms of ``fn(x1)`` after 5 warmup calls: CUDA events
+    around each synchronous call, so the host's launches are included."""
+    with torch.inference_mode():
+        for _ in range(5):
+            fn(x1)
+        samples = []
+        for _ in range(calls):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(x1)
+            end.record()
             torch.cuda.synchronize()
-            counts = read_counts()
-            return summary, counts, [ln for ln in out.getvalue().splitlines() if ln.startswith("[theia_tpu_torch]")]
+            samples.append(start.elapsed_time(end))
+    return statistics.median(samples), min(samples), max(samples)
 
-        def report(label: str, summary: dict, counts: dict) -> None:
-            t = summary["timing"]
-            blocked = sum(b for _, b, _ in t["saves"])
-            ev = summary["eval"]
-            print(f"  {label}: step {summary['step']}; eval cos {ev['avg_eval_cos_loss']:.6f}, l1 "
-                  f"{ev['avg_eval_l1_loss']:.6f}, mse {ev['avg_eval_mse_loss']:.6f}; train loss "
-                  f"{summary['train']['loss']:.6f}; launches {counts}, expected {expected}")
-            print(f"  {label}: loop wall {t['wall_s']:.3f} s for {t['steps']} steps + 1 eval + "
-                  f"{len(t['saves'])} saves: {t['wall_s'] / t['steps'] * 1e3:.1f} ms a step, "
-                  f"{t['images'] / t['wall_s']:.1f} images/s ({(t['wall_s'] - blocked) / t['steps'] * 1e3:.1f} ms "
-                  f"a step less the {blocked:.3f} s save() blocked); waiting in the loaders' next() "
-                  f"{t['loader_wait_s']:.3f} s, {100 * t['loader_wait_s'] / t['wall_s']:.1f}% of the wall ({card})")
-            for step, blocked_s, write_s in t["saves"]:
-                print(f"  {label}: save at step {step}: save() blocked {blocked_s:.3f} s, its background write "
-                      f"(torch.save, fsync, rename) {write_s:.3f} s ({card})")
-            check(all(math.isfinite(v) for v in ev.values()), f"{label}: an eval loss is not finite")
-            check(counts == expected, f"{label}: kernel launch counts are off")
 
-        summary, counts, lines = train(cfg)
-        report("call 1 (epochs=1)", summary, counts)
-        check(summary["step"] == RUNTIME_STEPS, f"call 1 ended at step {summary['step']}")
-        check([s for s, _, _ in summary["timing"]["saves"]] == [3, 6], "call 1 saved at other steps than 3 and 6")
-        (log,) = Path(tmp, "logs").glob("*.metrics.jsonl")
-        rows = [json.loads(ln) for ln in log.read_text().splitlines()]
-        train_steps = [r["step"] for r in rows if "loss" in r]
-        eval_steps = [r["step"] for r in rows if "avg_eval_cos_loss" in r]
-        print(f"  JSONL log {log.name}: train rows at steps {train_steps}, eval rows at {eval_steps}")
-        check(train_steps == [2, 4, 6] and eval_steps == [6] and len(rows) == 4, "the JSONL log's steps are off")
+def worker_loading(card: str, tmp: str, reset_counts, read_counts, expected: dict) -> None:
+    """Phase 6c: phase 6b's config with ``dataset.num_workers``: the worker
+    loader's first batches against the same splits merged in this process
+    and against the queue transport, 3 steps of ``train_from_config`` with
+    workers, and the loader's throughput at several worker counts."""
+    import gc
+    import os
 
-        # restore step 6 into the state built before call 1, and hold it to the file
-        ckpt_dir = summary["ckpt_dir"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restore_checkpoint(ckpt_dir, state, step=RUNTIME_STEPS)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        saved = torch.load(os.path.join(ckpt_dir, f"{RUNTIME_STEPS}.pt"), map_location="cpu", weights_only=True)
-        opt = state.opt_state
-        live = {"step": {"": state.step}, "sched_count": {"": opt.sched_count}, "params": state.params,
-                "count": opt.count, "mu": opt.mu, "nu": opt.nu}
-        differ = [f"{k}.{n}" for k, tree in live.items() for n, t in tree.items()
-                  if not torch.equal(t.cpu(), saved[k] if n == "" else saved[k][n])]
-        own = dict(model.named_parameters())
-        differ += [n for n, p in own.items() if not torch.equal(p.detach().cpu(), saved["params"][n])]
-        changed = sum(not torch.equal(own[n], init[n]) for n in init)
-        print(f"  restore of step {RUNTIME_STEPS} into a TrainState built on the card as the loop builds it: "
-              f"{restore_s:.3f} s ({card}); {sum(len(t) for t in live.values())} tensors and the model's "
-              f"{len(own)} parameters against the file: {len(differ)} differ; {changed} of the model's "
-              f"{len(own)} parameters moved from step 0; step {int(state.step)}, moments "
-              f"{opt.mu[next(iter(opt.mu))].dtype}")
-        check(not differ, f"restored tensors differ from the file: {differ[:5]}")
-        check(changed > 0 and int(state.step) == RUNTIME_STEPS, "the restore did not reach the model's parameters")
-        del model, state, opt, live, own, init, saved
+    from theia_tpu_torch.data.dataset import get_frame_dataloader, get_image_video_dataset
+    from theia_tpu_torch.data.parallel_loader import ParallelSampleSource, _shm_free_bytes, measure_loader_throughput
+    from theia_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from theia_tpu_torch.foundation.common import MODEL_FEATURE_SIZES
+    from theia_tpu_torch.train import loop
+
+    cores = os.cpu_count() or 1
+    workers = max(1, min(4, cores - 1))
+    shm_free = _shm_free_bytes()
+    print(f"phase 6c, worker-process loading: {cores} cores, /dev/shm {shm_free} bytes free; {workers} workers "
+          f"on phase 6b's {RUNTIME_TRAIN // RUNTIME_SHARD} train shards ({card})")
+    cfg = runtime_config(tmp, 1, (f"dataset.num_workers={workers}", f"logging.model_path={tmp}/ckpt_workers",
+                                  f"logging.log_path={tmp}/logs_workers"))
+    _, names, _ = loop.select_target_models(cfg)
+    mix = cfg.dataset.dataset_mix
+    ds_kwargs = dict(feature_models=names, dataset_mix=mix if isinstance(mix, str) else list(mix), split="train",
+                     dataset_ratio=1.0, feature_norm=cfg.dataset.feature_norm, seed=cfg.seed)
+    train_ds, _ = get_image_video_dataset(dataset_root=tmp, shuffle=cfg.dataset.shuffle, **ds_kwargs)
+
+    def first_batches(source) -> list:
+        loader = get_frame_dataloader(source, batch_size=TRAIN_BATCH, shuffle=cfg.dataset.shuffle,
+                                      shuffle_buffer_size=cfg.dataset.shuffle_buffer_size, seed=cfg.seed)
+        it = iter(loader)
+        out = [next(it) for _ in range(LOADER_COMPARE_BATCHES)]
+        it.close()
+        return out
+
+    t0 = time.perf_counter()
+    shm_source = ParallelSampleSource(train_ds, workers, transport="shm")
+    got = first_batches(shm_source)
+    queue_source = ParallelSampleSource(train_ds, workers, transport="queue")
+    queued = first_batches(queue_source)
+    inproc = first_batches(RoundRobin(train_ds.split(workers)))
+    equal = [leaves_equal(a, b) and leaves_equal(a, c) for a, b, c in zip(got, queued, inproc)]
+    print(f"  first {LOADER_COMPARE_BATCHES} batches of {TRAIN_BATCH}, ordered, {workers} workers: transport "
+          f"{shm_source.transport_used} (asked shm) and {queue_source.transport_used} (asked queue), bit-equal to each "
+          f"other and to the same {workers} splits merged round-robin in this process: {equal} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(all(equal) and len(equal) == LOADER_COMPARE_BATCHES, "worker batches differ from the in-process merge")
+    del got, queued, inproc
+
+    summary, counts, _ = run_quietly(
+        lambda: loop.train_from_config(cfg, resume=False, max_steps=LOADER_STEPS), reset_counts, read_counts)
+    t = summary["timing"]
+    ev = summary["eval"]
+    print(f"  train_from_config, {LOADER_STEPS} steps with dataset.num_workers={workers}: step {summary['step']}; "
+          f"train loss {summary['train']['loss']:.6f}, eval cos {ev['avg_eval_cos_loss']:.6f}; launches {counts}, "
+          f"expected {expected}")
+    print(f"  loop wall {t['wall_s']:.3f} s for {t['steps']} steps + 1 eval + 1 save; waiting in the loaders' next() "
+          f"{t['loader_wait_s']:.3f} s, {100 * t['loader_wait_s'] / t['wall_s']:.1f}% of the wall; the loop's "
+          f"loader ran the {shm_source.transport_used} transport as above ({card})")
+    check(summary["step"] == LOADER_STEPS and math.isfinite(summary["train"]["loss"])
+          and all(math.isfinite(v) for v in ev.values()), "training with workers: a loss is not finite")
+    check(counts == expected, "training with workers: kernel launch counts are off")
+
+    root = os.path.join(tmp, "loader")
+    sizes = {t: MODEL_FEATURE_SIZES[t] for t in names}
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(root, feature_models=sizes, n_train=LOADER_TRAIN, n_val=1,
+                               samples_per_shard=LOADER_SHARD, seed=1)
+    print(f"  loader throughput shards: {LOADER_TRAIN} samples, {LOADER_TRAIN // LOADER_SHARD} shards "
+          f"({time.perf_counter() - t0:.1f} s); batches of {TRAIN_BATCH} into pinned memory, {LOADER_WARMUP} "
+          f"warmup (the workers' start), {LOADER_BATCHES} timed:")
+    loader_ds, _ = get_image_video_dataset(dataset_root=root, shuffle=False, **ds_kwargs)
+    for n in sorted({0, 1, 2, 4, cores - 1}):
+        for transport in (("in-process",) if n == 0 else ("shm", "queue")):
+            source = loader_ds if n == 0 else ParallelSampleSource(loader_ds, n, transport=transport)
+            loader = get_frame_dataloader(source, batch_size=TRAIN_BATCH, pin_memory=True)
+            r = measure_loader_throughput(loader, max_batches=LOADER_BATCHES, warmup=LOADER_WARMUP)
+            ran = transport if n == 0 else source.transport_used
+            print(f"    {n} workers, {transport} (ran {ran}): {r['images_per_sec']:.1f} images/s, "
+                  f"{r['mb_per_sec']:.1f} MB/s ({r['batches']} batches in {r['seconds']:.3f} s)")
+            check(r["batches"] == LOADER_BATCHES, "the loader ended early")
+            del loader, source
+            gc.collect()
+
+
+def serve_trained(card: str, tmp: str, ckpt_dir: str, attention_model, reset_attention_counts, attention_counts,
+                  forward_only) -> torch.nn.Module:
+    """Phase 4b: phase 6b's student loaded by ``from_pretrained`` from its
+    checkpoint directory, its step-6 file and a safetensors file of its
+    state dict, each served through ``Predictor`` in float32, bf16 and
+    through "flash", bit for bit against the same build with the weights
+    copied in directly. Returns the float32 student loaded from the
+    directory."""
+    import os
+
+    from theia_tpu_torch.data.webdataset import save_safetensors
+    from theia_tpu_torch.models.hub import build_theia, from_pretrained
+    from theia_tpu_torch.serving import Predictor
+    from theia_tpu_torch.train import loop
+    from theia_tpu_torch.train.checkpoint import all_steps
+
+    steps = all_steps(ckpt_dir)
+    newest, step6 = os.path.join(ckpt_dir, f"{steps[-1]}.pt"), os.path.join(ckpt_dir, f"{RUNTIME_STEPS}.pt")
+    final = torch.load(newest, map_location="cpu", weights_only=True)["params"]
+    at6 = torch.load(step6, map_location="cpu", weights_only=True)["params"]
+    # the trained student as the loop builds it (the recipe's fast_math and
+    # fused preprocessing), in float32 compute
+    trained = loop.build_model(runtime_config(tmp, 2, ("training.compute_dtype=float32",)), "cuda").eval()
+    trained.load_state_dict(final)
+    st_path = os.path.join(tmp, "student.safetensors")
+    t0 = time.perf_counter()
+    with open(st_path, "wb") as f:
+        f.write(save_safetensors(trained.state_dict()))
+    print(f"phase 4b, serving a trained student: {MODEL} from phase 6b's run (committed steps {steps}); "
+          f"safetensors of the trained model's state dict written in {time.perf_counter() - t0:.3f} s "
+          f"({os.path.getsize(st_path) / 1e9:.2f} GB)")
+    sources = {"checkpoint directory": (ckpt_dir, final), f"step-{RUNTIME_STEPS} .pt file": (step6, at6),
+               "safetensors": (st_path, final)}
+    variants = {"float32": ("pallas", dict(dtype=torch.float32)),
+                "bf16": ("pallas", dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)),
+                "flash bf16": ("flash", dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16))}
+    x16 = np.random.default_rng(5).integers(0, 256, (TRAIN_BATCH, 224, 224, 3), dtype=np.uint8)
+    n_layers = trained.backbone.cfg.num_layers
+    with torch.inference_mode():
+        trained_feats = trained.forward_feature(torch.from_numpy(x16).cuda()).float().cpu().numpy()
+    del trained
+    loaded = None
+    for vname, (impl, kw) in variants.items():
+        # the same build as from_pretrained's, weights copied in directly
+        ref = attention_model(impl, generator=torch.Generator().manual_seed(0), **kw)
+        ref_serve = Predictor(ref, buckets=BUCKETS)
+        random_out = ref_serve(x16)
+        want = {}
+        for params in (final, at6):
+            ref.load_state_dict(params)
+            want[id(params)] = ref_serve(x16)
+        del ref, ref_serve
+        for sname, (path, params) in sources.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = attention_model(impl, build=lambda name, **k: from_pretrained(name, checkpoint_path=path, **k),
+                                    **kw)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            serve = Predictor(model, buckets=BUCKETS)
+            reset_attention_counts()
+            t0 = time.perf_counter()
+            out = serve(x16)
+            first_s = time.perf_counter() - t0
+            counts = attention_counts()
+            expect = forward_only(n_layers) if impl == "flash" else {**forward_only(0), "mha_fwd": n_layers}
+            same = np.array_equal(out, want[id(params)])
+            moved = float(np.abs(out - random_out).max())
+            line = (f"  {sname}, {vname}: from_pretrained {load_s:.3f} s, first request (B={TRAIN_BATCH}) "
+                    f"{first_s * 1e3:.1f} ms; bit-equal to the directly copied weights: {same}; max abs from the "
+                    f"random init {moved:.3e}; launches {counts}")
+            if vname == "float32" and params is final:
+                mse = float(np.square(out - trained_feats).mean())
+                line += f"; MSE against the trained model's recipe forward {mse:.3e} (< {FUSED_PREPROCESSING_MSE})"
+                check(mse < FUSED_PREPROCESSING_MSE, f"{sname}: far from the trained model's forward")
+            print(line + f" ({card})")
+            check(out.shape == trained_feats.shape and bool(np.isfinite(out).all()), f"{sname} {vname}: output")
+            check(same, f"{sname} {vname}: differs from the same weights copied in directly")
+            check(moved > 1e-3, f"{sname} {vname}: equal to the random init")
+            check(counts == expect, f"{sname} {vname}: launch counts are off (expected {expect})")
+            if vname == "float32" and sname == "checkpoint directory":
+                loaded = model
+            del model, serve
         torch.cuda.empty_cache()
+    return loaded
 
-        summary2, counts2, lines2 = train(config(2))
-        for ln in lines2:
-            print(f"  call 2: {ln}")
-        report("call 2 (epochs=2, resumed)", summary2, counts2)
-        check(any(f"resuming at step {RUNTIME_STEPS} " in ln for ln in lines2), "call 2 did not resume at step 6")
-        check(summary2["step"] == 2 * RUNTIME_STEPS, f"call 2 ended at step {summary2['step']}")
-        print(f"  call 2: the loop's own restore {summary2['timing']['restore_s']:.3f} s ({card})")
-        return counts
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+
+def export_trained(card: str, tmp: str, loaded, served, reset_attention_counts, attention_counts,
+                   forward_only) -> None:
+    """Phase 4c: the loaded student's forward_feature exported on the card,
+    saved, loaded and run at several batch sizes against the eager model;
+    B=1 latency of the eager path beside phase 4's model and the artifact."""
+    import os
+
+    from theia_tpu_torch import export
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = export.export_model(loaded)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "student.pt2")
+    with open(path, "wb") as f:
+        f.write(blob)
+    t0 = time.perf_counter()
+    pred = export.load_artifact(path)
+    load_s = time.perf_counter() - t0
+    ops = sorted({str(n.target) for n in pred.program.graph.nodes if str(n.target).startswith("theia.")})
+    print(f"phase 4c, export: forward_feature of the loaded student exported in {export_s:.1f} s, "
+          f"{len(blob) / 1e9:.2f} GB, loaded in {load_s:.1f} s; header {pred.meta}; the graph's theia operators {ops}")
+    check(ops == ["theia.mha_attention.default"], "the exported graph does not call K1's operator")
+    n_layers = loaded.model.backbone.cfg.num_layers
+    rng = np.random.default_rng(6)
+    for n in EXPORT_BATCHES:
+        x = rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+        reset_attention_counts()
+        got = pred(x)
+        counts = attention_counts()
+        with torch.inference_mode():
+            want = loaded.forward_feature(torch.from_numpy(x).cuda()).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        print(f"  B={n}: artifact vs eager max_abs {err:.3e} (atol {EXPORT_F32_ATOL}); the artifact's launches {counts}")
+        check(got.shape == want.shape == (n, 196, loaded.model.backbone.cfg.hidden_size) and err <= EXPORT_F32_ATOL,
+              f"the artifact at B={n} disagrees with eager")
+        check(counts == {**forward_only(0), "mha_fwd": n_layers}, f"the artifact at B={n}: launch counts are off")
+    x1 = torch.from_numpy(rng.integers(0, 256, (1, 224, 224, 3), dtype=np.uint8)).cuda()
+    timings = {"phase 4's model (eager)": latency_b1(served.forward_feature, x1),
+               "the loaded student (eager)": latency_b1(loaded.forward_feature, x1),
+               "the artifact": latency_b1(pred.module, x1),
+               "phase 4's model again (eager)": latency_b1(served.forward_feature, x1)}
+    print("  forward_feature B=1 float32 latency, CUDA events around each synchronous call (50 calls): " +
+          "; ".join(f"{k} p50 {p:.3f} ms (min {lo:.3f}, max {hi:.3f})" for k, (p, lo, hi) in timings.items()) +
+          f" ({card})")
 
 
 def main() -> int:
@@ -860,14 +1167,16 @@ def main() -> int:
     backbone_name, _ = parse_model_name(MODEL)
     saved_cfg = vit.BACKBONE_CONFIGS[backbone_name]
 
-    def attention_model(impl: str, **kw):
-        """``build_theia`` with the backbone's ``attention_impl`` set to ``impl``."""
+    def attention_model(impl: str, build=build_theia, **kw):
+        """``build(MODEL, **kw)`` (``build_theia`` or ``from_pretrained``) with
+        the backbone's ``attention_impl`` set to ``impl``."""
         vit.BACKBONE_CONFIGS[backbone_name] = dataclasses.replace(saved_cfg, attention_impl=impl)
         try:
-            m = build_theia(MODEL, **kw)
+            m = build(MODEL, **kw)
         finally:
             vit.BACKBONE_CONFIGS[backbone_name] = saved_cfg
-        check(m.backbone.cfg.attention_impl == impl, f"the model does not use attention_impl={impl!r}")
+        check(getattr(m, "model", m).backbone.cfg.attention_impl == impl,
+              f"the model does not use attention_impl={impl!r}")
         return m
 
     plain_model = attention_model("einsum", dtype=torch.float32)
@@ -1177,28 +1486,29 @@ def main() -> int:
     del fused_m, unfused_m, a, b
     torch.cuda.empty_cache()
 
-    # phase 6b: the training runtime, this slice's main path
-    runtime_counts = training_runtime(card, teachers, reset_counts, read_counts,
-                                      expected_launches(RUNTIME_STEPS, forward_only(0)))
-    torch.cuda.empty_cache()
+    # phase 6b: the training runtime; 6c: the same with loader workers; 4b:
+    # serving the student it trained; 4c: exporting it
+    tmp = tempfile.mkdtemp(prefix="theia_runtime_")
+    try:
+        runtime_counts, resumed = training_runtime(card, tmp, teachers, reset_counts, read_counts,
+                                                   expected_launches(RUNTIME_STEPS, forward_only(0)))
+        torch.cuda.empty_cache()
+        worker_loading(card, tmp, reset_counts, read_counts, expected_launches(LOADER_STEPS, forward_only(0)))
+        torch.cuda.empty_cache()
+        loaded = serve_trained(card, tmp, resumed["ckpt_dir"], attention_model, reset_attention_counts,
+                               attention_counts, forward_only)
+        export_trained(card, tmp, loaded, model, reset_attention_counts, attention_counts, forward_only)
+        del loaded
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # phase 7: timings
     print(f"phase 7: timings on {card}:")
     x1 = torch.from_numpy(requests[0]).cuda()
-    with torch.inference_mode():
-        for _ in range(5):
-            model.forward_feature(x1)
-        samples = []
-        for _ in range(50):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            model.forward_feature(x1)
-            end.record()
-            torch.cuda.synchronize()
-            samples.append(start.elapsed_time(end))
-        print(f"  forward_feature B=1 latency p50 {statistics.median(samples):.3f} ms "
-              f"(min {min(samples):.3f}, max {max(samples):.3f}, 50 calls, CUDA events around each "
-              "synchronous call, so the host's kernel launches are included)")
+    p50, lo, hi = latency_b1(model.forward_feature, x1)
+    print(f"  forward_feature B=1 latency p50 {p50:.3f} ms (min {lo:.3f}, max {hi:.3f}, 50 calls, CUDA events around "
+          "each synchronous call, so the host's kernel launches are included)")
     wall = []
     for _ in range(30):
         t0 = time.perf_counter()

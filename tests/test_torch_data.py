@@ -232,8 +232,10 @@ def test_loader_is_reiterable_and_refuses_workers(root):
             next(it)
         got += 1
     assert got == 6
-    with pytest.raises(NotImplementedError, match="parallel loader"):
-        tds.get_frame_dataloader(ds, batch_size=4, num_workers=2)
+    # worker processes take a dataset that splits over them (tests/test_torch_parallel_loader.py), and refuse
+    # one that does not
+    with pytest.raises(TypeError, match="does not support worker splitting"):
+        tds.get_frame_dataloader(list(ds), batch_size=4, num_workers=2)
 
 
 def _packed_oxe(root, dataset="berkeley_cable_routing", vo_key="image"):

@@ -31,6 +31,7 @@ SLICE_MODULES = [
     "theia_tpu_torch.data.stats",
     "theia_tpu_torch.data.webdataset",
     "theia_tpu_torch.data.dataset",
+    "theia_tpu_torch.data.parallel_loader",
     "theia_tpu_torch.data.synthetic",
     "theia_tpu_torch.data.oxe",
     "theia_tpu_torch.train.checkpoint",
@@ -52,6 +53,8 @@ SLICE_MODULES = [
     "theia_tpu_torch.models.rvfm",
     "theia_tpu_torch.models.convert",
     "theia_tpu_torch.models.hub",
+    "theia_tpu_torch.models.pretrained",
+    "theia_tpu_torch.export",
     "theia_tpu_torch.models.losses",
     "theia_tpu_torch.serving",
     "theia_tpu_torch.train",
@@ -63,6 +66,7 @@ SLICE_MODULES = [
     "theia_tpu_torch.tools.sass_loops",
     "theia_tpu_torch.tools.time_ln_bwd",
     "theia_tpu_torch.tools.time_mha_bwd",
+    "theia_tpu_torch.tools.time_serving",
     "theia_tpu_torch.tools.timing",
 ]
 

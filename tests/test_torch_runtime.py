@@ -291,11 +291,37 @@ def test_cli_trains_on_the_cpu_only_when_asked(shards, tmp_path):
     assert summary["step"] == 3
 
 
+def test_cli_trains_with_two_workers_as_the_jax_loop_does(shards, tmp_path, monkeypatch):
+    """``dataset.num_workers=2`` through the CLI: 3 steps whose losses equal
+    the JAX loop's at 2 workers, exact mode. Both loaders fork their workers
+    (no ``__main__`` file: the packages' stdin rule)."""
+    monkeypatch.setattr(sys.modules["__main__"], "__file__", None, raising=False)
+    monkeypatch.setattr(jloop, "make_mesh", lambda n_model=1: jmesh.make_mesh(n_model=n_model,
+                                                                               devices=jax.devices()[:1]))
+    extra = [*EXACT, "dataset.num_workers=2"]
+    jcfg = jload_config("train_rvfm_imagenet", _overrides(shards, tmp_path / "jax", extra))
+    jsummary = jloop.train_from_config(jcfg, resume=False)
+    targs = _overrides(shards, tmp_path / "port", extra)
+    _write_port_step0(load_config("train_rvfm_imagenet", targs), *_jax_params(jcfg))
+    tsummary = train_rvfm.main(targs + ["--device", "cpu"])
+    assert tsummary["step"] == jsummary["step"] == 3
+    want, got = _losses(tmp_path / "jax" / "logs"), _losses(tmp_path / "port" / "logs")
+    assert sorted(got) == sorted(want) == [1, 2, 3]
+    np.testing.assert_allclose([got[s] for s in (1, 2, 3)], [want[s] for s in (1, 2, 3)], rtol=1e-5)
+
+
+def test_pretrained_flag_trains_and_names_the_run(shards, tmp_path):
+    """``model.backbone.pretrained=true`` is the JAX package's config-parity
+    flag: it trains and shows only in the run identifier."""
+    cfg = load_config("train_rvfm_imagenet", _overrides(shards, tmp_path, ["model.backbone.pretrained=true"]))
+    summary = tloop.train_from_config(cfg, resume=False, max_steps=1, device="cpu")
+    assert summary["step"] == 1
+    assert summary["run"].endswith("_pretrained") and summary["run"] == jloop.build_run_identifier(cfg)
+
+
 @pytest.mark.parametrize("override,err", [
-    ("dataset.num_workers=2", NotImplementedError),
     ("training.model_axis=2", NotImplementedError),
     ("training.grad_allreduce_dtype=bf9", ValueError),
-    ("model.backbone.pretrained=true", NotImplementedError),
     ("model/translator=mlp", NotImplementedError),
     ("env:WORLD_SIZE=2", NotImplementedError),
 ])

@@ -14,7 +14,9 @@ that the JAX package made and the port keeps:
 - Batches are dicts of CPU tensors {"image": uint8 [B,H,W,C], teacher:
   {"embedding": [B,H*W,C] bf16 | "embedding_chw": [B,C,H,W] bf16, "cls":
   [B,C]}}, pinned when asked so the copies to the card can be
-  asynchronous, made by a background prefetch thread.
+  asynchronous, made by a background prefetch thread; shards are decoded
+  in that thread or, with ``num_workers``, in worker processes
+  (``data/parallel_loader.py``).
 
 The random draws (numpy ``RandomState`` streams in the mix, the shard order
 and the shuffle buffer) are the JAX package's, so one seed gives the same
@@ -76,6 +78,21 @@ class RandomMix:
         self.probs = list(probs) if probs is not None else [1.0] * len(datasets)
         self.stopping_strategy = stopping_strategy
         self.seed = seed
+
+    def split(self, n: int) -> list["RandomMix"]:
+        """Disjoint sub-mixes for n loader workers (wds.split_by_worker
+        analogue): each member splits its shard list round-robin; worker w
+        mixes its sub-members with a derived seed."""
+        member_parts = [d.split(n) for d in self.datasets]
+        return [
+            RandomMix(
+                [parts[w] for parts in member_parts],
+                probs=self.probs,
+                stopping_strategy=self.stopping_strategy,
+                seed=self.seed * 1000003 + w,
+            )
+            for w in range(n)
+        ]
 
     def __iter__(self) -> Generator:
         sources = [iter(d) for d in self.datasets]
@@ -166,6 +183,20 @@ class _ZippedShardSet:
                     f"column {model} has {len(paths)} shards but images have "
                     f"{len(image_shards)} — columns must align 1:1"
                 )
+
+    def split(self, n: int) -> list["_ZippedShardSet"]:
+        """Round-robin the (aligned) shard lists over n workers; columns stay
+        aligned because every column is sliced with the same stride."""
+        return [
+            _ZippedShardSet(
+                self.image_shards[w::n],
+                {m: paths[w::n] for m, paths in self.feature_shards.items()},
+                self.stats,
+                self.image_transform,
+                self.raw_features,
+            )
+            for w in range(n)
+        ]
 
     def __iter__(self) -> Generator[dict[str, Any], None, None]:
         models = list(self.feature_shards)
@@ -471,19 +502,27 @@ def get_frame_dataloader(
     prefetch: int = 4,
     drop_last: bool = True,
     num_workers: int = 0,
+    worker_ordered: bool = True,
+    worker_transport: str = "shm",
     pin_memory: bool = False,
     **kwargs: Any,
 ) -> Iterable[dict[str, Any]]:
     """Batched loader with shuffle-after-mix buffer (data_utils.py:531-556).
 
-    Decodes in the calling process (one prefetch thread). ``pin_memory``
+    ``num_workers > 0`` decodes shards in worker processes
+    (``data/parallel_loader.py``; the analogue of
+    wds.WebLoader(num_workers=...)): ``worker_ordered=False`` merges worker
+    samples as they complete (no stall on a slow worker; order not fixed),
+    ``worker_transport`` is "shm" (a shared-memory ring a worker; "queue"
+    where /dev/shm is too small) or "queue". The shuffle buffer, batching
+    and the prefetch thread stay in the calling process. ``pin_memory``
     collates into page-locked memory for ``non_blocking`` copies to the card.
     """
     if num_workers > 0:
-        raise NotImplementedError(
-            f"num_workers={num_workers}: loader worker processes (theia_tpu/data/parallel_loader.py) are "
-            "not ported yet (ROADMAP Queue 1 #1b, the parallel loader); set dataset.num_workers: 0"
-        )
+        from theia_tpu_torch.data.parallel_loader import ParallelSampleSource
+
+        dataset = ParallelSampleSource(dataset, num_workers=num_workers, ordered=worker_ordered,
+                                       transport=worker_transport)
     source: Iterable = dataset
     if shuffle:
         source = _ShuffleBuffer(source, shuffle_buffer_size, seed)

@@ -30,11 +30,14 @@ class Theia(nn.Module):
     processor into the patch embed, ``fast_math`` runs the encoder's bf16
     softmax and tanh GELU path (the JAX fields of the same names; both are
     the training recipe's, ``theia_tpu/configs/training/frame_level.yaml``).
+    ``pretrained`` is kept for config parity, as in the JAX ``Theia``: it
+    loads no weights (``models/pretrained.py`` loads a checkpoint file).
     """
 
     def __init__(
         self,
         backbone: str = "facebook/deit-small-patch16-224",
+        pretrained: bool = False,
         translator: str = "lconv",
         target_feature_sizes: Optional[dict[str, tuple[int, ...]]] = None,
         translator_kwargs: Optional[dict[str, Any]] = None,
@@ -47,6 +50,7 @@ class Theia(nn.Module):
     ) -> None:
         super().__init__()
         self.dtype = dtype
+        self.pretrained = pretrained
         self.backbone = build_backbone(
             backbone,
             image_size=image_size,

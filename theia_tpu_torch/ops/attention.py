@@ -22,6 +22,11 @@ package's names:
     the rows' log-sum-exp;
   - "einsum": the plain forward on any device, differentiated by autograd.
 
+Importing this module registers K1's and K7's forwards as the operators
+``theia::mha_attention`` and ``theia::flash_attention`` (with shape
+functions for tracing): ``torch.export`` sees them in place of the ctypes
+launches, and a saved export (``export.py``) needs them registered to load.
+
 The plain forward has the numerics of the JAX ``_einsum_attention``: float32
 scores and softmax, probabilities cast to V's dtype, P·V, output in Q's
 dtype. The plain backward has those of ``_mha_bwd_kernel``. The flash plain
@@ -414,6 +419,29 @@ class FlashFunction(torch.autograd.Function):
         return flash_bwd(*_split_heads(qkv, heads), out.view(b, t, heads, hd), lse, do).view(b, t, c3), None
 
 
+@torch.library.custom_op("theia::mha_attention", mutates_args=())
+def _mha_attention_op(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """K1 over a packed QKV projection [B, T, 3*C] -> [B, T, C], as a graph
+    operator: ``torch.export`` cannot trace into the kernel's ctypes launch."""
+    b, t, c3 = qkv.shape
+    return mha_fwd(*_split_heads(qkv, heads)).reshape(b, t, c3 // 3)
+
+
+@torch.library.custom_op("theia::flash_attention", mutates_args=())
+def _flash_attention_op(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """K7 over a packed QKV projection [B, T, 3*C] -> [B, T, C] (the output
+    only), as a graph operator."""
+    b, t, c3 = qkv.shape
+    return flash_fwd(*_split_heads(qkv, heads))[0].reshape(b, t, c3 // 3)
+
+
+@_mha_attention_op.register_fake
+@_flash_attention_op.register_fake
+def _attention_op_fake(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    b, t, c3 = qkv.shape
+    return qkv.new_empty((b, t, c3 // 3))
+
+
 def _flash_route(implementation: str, t: int) -> bool:
     """Whether attention over T tokens runs the flash kernels: always for
     "flash"; for "pallas" past K1's and K2's ``MAX_T``."""
@@ -426,8 +454,15 @@ def packed_attention(qkv: torch.Tensor, heads: int, *, implementation: str = "pa
     "flash", and "pallas" past ``MAX_T`` tokens, go through
     ``FlashFunction``; "pallas" otherwise through ``MHAFunction`` (both
     differentiable, kernels on CUDA tensors); "einsum" through
-    ``multi_head_attention`` on views.
+    ``multi_head_attention`` on views. While ``torch.export`` traces (an
+    inference graph), the kernels' paths are the operators
+    ``theia::mha_attention`` and ``theia::flash_attention`` instead, which
+    launch the same kernels when the exported program runs; eager calls
+    never go through them.
     """
+    if implementation != "einsum" and torch.compiler.is_exporting():
+        flash = _flash_route(implementation, qkv.shape[1])
+        return (torch.ops.theia.flash_attention if flash else torch.ops.theia.mha_attention)(qkv, heads)
     if _flash_route(implementation, qkv.shape[1]):
         return FlashFunction.apply(qkv, heads)
     if implementation == "pallas":

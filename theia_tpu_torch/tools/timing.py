@@ -58,13 +58,20 @@ def interleaved_ms(fns: dict, iters: int = 20, hold: bool = True) -> dict:
 
 def _device_events(fn, iters: int) -> list:
     """torch.profiler's device events (kernels, memsets, copies) over
-    ``iters`` calls of ``fn`` after one warm call, summed by name."""
+    ``iters`` calls of ``fn`` after one warm call, summed by name.
+
+    The recorded calls follow a profiler warmup step of ``iters`` calls:
+    CUPTI can miss a kernel launched just after tracing is switched on,
+    which would count a call as less than its launches."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA], schedule=schedule) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     return [ev for ev in prof.key_averages() if ev.device_time_total > 0]
 
 

@@ -17,6 +17,9 @@ step, ``<ckpt_dir>/<step>.pt``, with orbax's guarantees:
     every step fails it raises the newest step's error;
   - the newest ``max_to_keep`` (5) steps are kept.
 
+``read_params`` reads a step's parameters alone, for serving
+(``models/pretrained.py``).
+
 A file holds ``step``, ``params``, ``sched_count``, ``count``, ``mu`` and
 ``nu`` as CPU tensors in their own dtypes (bf16 moments stay bf16) and is
 read with ``torch.load(weights_only=True)``. A restore copies into the
@@ -185,6 +188,23 @@ def _load_into(path: str, target: TrainState) -> None:
             dst.copy_(src)
 
 
+def _newest_readable(ckpt_dir: str, load) -> Optional[tuple[int, Any]]:
+    """``(step, load(path))`` of the newest committed step that ``load``
+    reads; None if the directory holds none. An unreadable step warns and
+    falls back to the previous one; if every step fails, the newest step's
+    error is raised."""
+    first_err: Optional[Exception] = None
+    for s in reversed(all_steps(ckpt_dir)):
+        try:
+            return s, load(_step_path(ckpt_dir, s))
+        except Exception as e:
+            first_err = first_err or e
+            warnings.warn(f"checkpoint step {s} in {ckpt_dir} unreadable ({e!r}); trying an older step")
+    if first_err is not None:
+        raise first_err
+    return None
+
+
 def restore_checkpoint(ckpt_dir: str, target_state: TrainState, step: Optional[int] = None) -> Optional[TrainState]:
     """Restore into ``target_state`` in place and return it; None if the
     directory holds no committed step.
@@ -196,14 +216,26 @@ def restore_checkpoint(ckpt_dir: str, target_state: TrainState, step: Optional[i
     if step is not None:
         _load_into(_step_path(ckpt_dir, step), target_state)
         return target_state
-    first_err: Optional[Exception] = None
-    for s in reversed(all_steps(ckpt_dir)):
-        try:
-            _load_into(_step_path(ckpt_dir, s), target_state)
-            return target_state
-        except Exception as e:
-            first_err = first_err or e
-            warnings.warn(f"checkpoint step {s} in {ckpt_dir} unreadable ({e!r}); trying an older step")
-    if first_err is not None:
-        raise first_err
-    return None
+    if _newest_readable(ckpt_dir, lambda path: _load_into(path, target_state)) is None:
+        return None
+    return target_state
+
+
+def _params_of(path: str) -> dict[str, torch.Tensor]:
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(saved, dict) or not isinstance(saved.get("params"), dict):
+        raise ValueError(f"{path} holds no train state (no 'params' entry)")
+    return saved["params"]
+
+
+def read_params(ckpt_dir: str, step: Optional[int] = None) -> tuple[int, dict[str, torch.Tensor]]:
+    """The ``params`` of a committed step as CPU tensors, with the step,
+    without building a ``TrainState`` (for serving a trained model). With
+    ``step=None``: the newest readable step, with ``restore_checkpoint``'s
+    fallback; raises ``FileNotFoundError`` if the directory holds none."""
+    if step is not None:
+        return step, _params_of(_step_path(ckpt_dir, step))
+    found = _newest_readable(ckpt_dir, _params_of)
+    if found is None:
+        raise FileNotFoundError(f"no committed checkpoint step under {ckpt_dir}")
+    return found

@@ -73,8 +73,8 @@ def resolve_num_workers(cfg: DotDict) -> int:
     """Loader-worker count: ``dataset.num_workers`` is the operative knob
     (0 = in-process decode). A reference config ported verbatim carries
     ``training.num_workers`` instead (reference data_utils.py:531-556) —
-    honored as an alias, capped at cpu_count-1. The port's loader decodes
-    in-process only, so any count above 0 raises when the loader is built."""
+    honored as an alias, capped at cpu_count-1. A count above 0 decodes the
+    train split in that many worker processes (``data/parallel_loader.py``)."""
     if "num_workers" in cfg.dataset:
         return int(cfg.dataset.get("num_workers", 0) or 0)
     legacy = int(cfg.training.get("num_workers", 0) or 0)
@@ -160,12 +160,15 @@ def build_model(cfg: DotDict, device: torch.device | str, generator: Optional[to
     """The student the config describes (loop.py:150-161 of the JAX package):
     created without storage, every parameter drawn on the CPU from
     ``generator`` (by default one seeded with ``cfg.seed``), then moved to
-    ``device`` in float32; ``training.compute_dtype`` is the compute dtype."""
+    ``device`` in float32; ``training.compute_dtype`` is the compute dtype.
+    ``model.backbone.pretrained`` is carried as the JAX package carries it:
+    it loads no weights and shows only in the run identifier."""
     _, _, target_sizes = select_target_models(cfg)
     dtype = torch.bfloat16 if cfg.training.get("compute_dtype", "bfloat16") == "bfloat16" else torch.float32
     with torch.device("meta"):
         model = Theia(
             backbone=cfg.model.backbone.backbone,
+            pretrained=bool(cfg.model.backbone.get("pretrained", False)),
             translator=cfg.model.translator.type,
             translator_kwargs=dict(cfg.model.translator.get("kwargs", {}) or {}),
             target_feature_sizes=target_sizes,
@@ -203,9 +206,6 @@ def _check_single_process(cfg: DotDict) -> None:
             f"WORLD_SIZE={world}: data parallelism over processes is not ported yet (ROADMAP Queue 1 #5, DDP)"
         )
     _parse_grad_allreduce_dtype(cfg.training.get("grad_allreduce_dtype", None))
-    if cfg.model.backbone.get("pretrained", False):
-        raise NotImplementedError("model.backbone.pretrained: loading published weights is not ported yet "
-                                  "(ROADMAP Queue 1 #3)")
 
 
 def train_from_config(
