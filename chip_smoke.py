@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Theia serving and training paths once on one CUDA GPU.
+"""Drive the PyTorch port's Theia serving, training and extraction paths once on one CUDA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, nvcc and nothing of JAX. Phases, each of which raises on
@@ -86,6 +86,22 @@ failure (the script then exits nonzero and prints no result):
    loaded; the artifact's graph calls K1's operator and its outputs at
    B = 1, 3, 16 equal the eager model's within atol 1e-5; B=1 latency of
    phase 4's model, the student and the artifact;
+8. the teachers and offline extraction (run after 4c): ViT-H, SAM-H,
+   CLIP-L, DINOv2-L, Depth-Anything-L and LLaVA's tower at full width and
+   depth on seeded random weights (built on the card), float32, on B=8
+   uint8 224² images: the reference's stored keys and shapes, finite
+   values, exact attention launches (ViT-H K7 = 32 a call at [8, 257, 16,
+   80], the others none), images/s and peak memory (SAM-H also at the
+   extraction's default batch of 32); ViT-H on its kernel path against
+   "einsum" (float32, atol 1e-3) and in bf16 against float32 (rel L2
+   5e-2); a DeiT teacher's K1 = 12 a call; K7 at [8, 257, 16, 80] against
+   its plain version; then ``python -m
+   theia_tpu_torch.scripts.feature_extraction``'s ``main`` for the five
+   cddsv teachers over 2 synthetic image shards of 16 in a temporary
+   directory (K7 = 64 in all), a rerun that skips every shard,
+   ``compute_feature_stats`` and the training loader's first batch of the
+   shards, and what ``check_shard`` returns (bit-exact regeneration at a
+   batch of 3) with its max|d|;
 7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
    also with the stream held, the device's time alone), and each kernel's
    bound and library call; K3's and K4's sums over a recipe step's 15
@@ -94,7 +110,9 @@ failure (the script then exits nonzero and prints no result):
 The last two lines of standard output are the kernels' JSON record (the
 bf16 figures; ``mha_fwd``, ``mha_bwd``, ``flash_fwd``, ``flash_dq`` and
 ``flash_dkv`` also carry their float32 ones under ``"float32"``, with the 3xTF32
-tensor-core floor, and ``flash_dkv``'s the pair K9 + K8's under ``"pair"``)
+tensor-core floor, and ``flash_dkv``'s the pair K9 + K8's under ``"pair"``;
+``flash_fwd_vit_h`` is K7 at phase 8's [8, 257, 16, 80] in float32, with
+its bf16 figures under ``"bfloat16"``)
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
 directory without the package beside it, the script exits nonzero.
 """
@@ -213,6 +231,13 @@ EXPORT_BATCHES = (1, 3, 16)
 RUNTIME_OVERRIDES = ("model/backbone=deit_base", "training/target_models=cddsv", "dataset.dataset_ratio=1.0",
                      f"training.batch_size={TRAIN_BATCH}", "logging.save_ckpt_interval=3",
                      "logging.log_interval=2")
+# phase 8: the teachers at full width and depth, float32, on B uint8 224²
+# images (the ImageNet shards' size); SAM-H also at the extraction's default
+# batch; feature_extraction.main over 2 synthetic image shards of 16
+TEACHER_BATCH, EXTRACTION_BATCH = 8, 32
+EXTRACT_SHARDS, EXTRACT_SHARD_SIZE = 2, 16
+VIT_H = "google/vit-huge-patch14-224-in21k"
+DEIT_TEACHER = "facebook/deit-base-patch16-224"
 # JAX's TPU flash attention library, whose three Pallas kernels K7-K9 replace
 FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # the H100 SXM's published peaks
@@ -1004,6 +1029,215 @@ def export_trained(card: str, tmp: str, loaded, served, reset_attention_counts, 
           f" ({card})")
 
 
+def reference_layout(name: str) -> dict:
+    """The reference's stored layout of one teacher's sample
+    (feature_extraction_core/models.py:55-97): {store name: {key: shape}}."""
+    from theia_tpu_torch.foundation.common import MODEL_FEATURE_SIZES
+
+    c, h, w = MODEL_FEATURE_SIZES[name]
+    legit = name.replace("/", "_")
+    if "google/vit" in name:
+        return {legit: {"cls_token": (c,), "embedding": (c, h, w)}}
+    if "facebook/sam" in name:
+        return {legit: {"embedding": (c, h, w)}, legit + "_32": {"embedding": (c, 32, 32)}}
+    if "openai/clip" in name or "facebook/dinov2" in name:
+        return {legit: {"embedding": (c, h, w), "cls_token": (1, c), "pooled_cls_token": (1, c)}}
+    return {legit: {"embedding": (c, h, w)}}
+
+
+def teachers_and_extraction(card: str, tmp: str, teachers: list[str], attention, reset_attention_counts,
+                            attention_counts, forward_only) -> dict:
+    """Phase 8: every teacher at full width and depth on seeded random
+    weights, float32 (TF32 off), at B = TEACHER_BATCH uint8 224² images: the
+    reference's key layout and shapes, finite values, the attention kernels'
+    exact launches (ViT-H K7 32 a call, a DeiT teacher K1 12), ViT-H on its
+    kernel path against "einsum" and in bf16 against float32, images/s and
+    peak memory (SAM also at the extraction's default batch); K7 at ViT-H's
+    [8, 257, 16, 80] against its plain version; then
+    ``feature_extraction.main`` for the cddsv teachers over synthetic image
+    shards under ``tmp``, its resume skip, the shards read back by the
+    training loader after ``compute_feature_stats``, and what ``check_shard``
+    returns. Returns the main path's launch counts and K7's errors."""
+    import contextlib
+    import io
+    import os
+
+    from theia_tpu_torch.data.dataset import get_frame_dataloader, get_image_video_dataset
+    from theia_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from theia_tpu_torch.foundation import vit as fvit
+    from theia_tpu_torch.foundation.common import MODELS, get_model_feature_size
+    from theia_tpu_torch.foundation.extraction import get_feature_outputs, get_model
+    from theia_tpu_torch.foundation.sam import SCORE_BLOCK_BYTES
+    from theia_tpu_torch.scripts import calc_feature_mean, check_feature, feature_extraction
+    from theia_tpu_torch.tools.timing import cuda_ms
+
+    device = "cuda"
+    print(f"phase 8, the teachers and offline extraction: {len(MODELS)} teachers at full width and depth, seeded "
+          f"random weights, float32 (TF32 off), B={TEACHER_BATCH} uint8 224² images ({card})")
+    rng = np.random.default_rng(8)
+    images = torch.from_numpy(rng.integers(0, 256, (EXTRACTION_BATCH, 224, 224, 3), dtype=np.uint8)).to(device)
+    x = images[:TEACHER_BATCH]
+    for name in MODELS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        module, feature_fn = get_model(name, device=device, generator=torch.Generator(device).manual_seed(0))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in module.parameters())
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_attention_counts()
+        feats = get_feature_outputs(name, module, x, feature_fn)
+        counts = attention_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(counts == forward_only(32 if name == VIT_H else 0), f"{name}: attention launches {counts}")
+        for store, keys in reference_layout(name).items():
+            check(sorted(feats.get(store, {})) == sorted(keys), f"{name}: {store} holds {sorted(feats.get(store, {}))}")
+            for key, shape in keys.items():
+                got = feats[store][key]
+                check(tuple(got.shape) == (TEACHER_BATCH, *shape) and got.dtype == torch.bfloat16
+                      and bool(torch.isfinite(got.float()).all()), f"{name}: {store}.{key} {tuple(got.shape)}")
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: feature_fn(module, x), 3)
+        line = (f"  {name}: {n_params / 1e6:.1f}M params built on the card in {build_s:.2f} s; "
+                f"{TEACHER_BATCH / ms * 1e3:.1f} images/s ({ms:.1f} ms a batch of {TEACHER_BATCH}, CUDA events, "
+                f"3 calls), peak {peak / 2 ** 30:.2f} GiB above the weights; layout "
+                + ", ".join(f"{s}: {sorted(k)}" for s, k in reference_layout(name).items()))
+        print(line)
+        if "facebook/sam" in name:
+            del feats
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: feature_fn(module, images), 1)
+            peak = torch.cuda.max_memory_allocated() - base
+            tokens = module.cfg.grid ** 2
+            rows = min(tokens, SCORE_BLOCK_BYTES // (EXTRACTION_BATCH * module.cfg.num_heads * tokens * 4))
+            print(f"  {name} at the extraction's default batch {EXTRACTION_BATCH}: peak {peak / 2 ** 30:.2f} GiB "
+                  f"above the weights ({torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f} GiB card), "
+                  f"{EXTRACTION_BATCH / ms * 1e3:.1f} images/s (one call); a global layer's float32 scores in "
+                  f"blocks of {rows} of its {tokens} query rows ({SCORE_BLOCK_BYTES / 2 ** 30:.0f} GiB a block)")
+        del module, feature_fn
+        torch.cuda.empty_cache()
+
+    # ViT-H: K7 32 a call at [B, 257, 16, 80], on the kernel path against
+    # "einsum" (float32) and in bf16 against float32; a DeiT teacher: K1 12 a call
+    vit_h, _ = get_model(VIT_H, device=device, generator=torch.Generator(device).manual_seed(0))
+    with torch.device(device):
+        einsum_h = fvit._ViTTeacher(dataclasses.replace(fvit.VIT_HUGE, attention_impl="einsum"), resample="linear")
+        bf16_h = fvit._ViTTeacher(fvit.VIT_HUGE, dtype=torch.bfloat16, resample="linear")
+    for m in (einsum_h, bf16_h):
+        m.load_state_dict(vit_h.state_dict())
+        m.eval().requires_grad_(False)
+    with torch.inference_mode():
+        reset_attention_counts()
+        tokens = vit_h(x)
+        k_counts = attention_counts()
+        want = einsum_h(x)
+        e_counts = attention_counts()
+        tokens_bf16 = bf16_h(x)
+        b_counts = attention_counts()
+    err = float((tokens - want).abs().max())
+    rel = rel_l2(tokens_bf16.float(), tokens)
+    print(f"  ViT-H tokens [{TEACHER_BATCH},257,1280]: kernel path (K7 {k_counts['flash_fwd']}) against \"einsum\" "
+          f"(K7 {e_counts['flash_fwd'] - k_counts['flash_fwd']}): max_abs_err {err:.3e} (atol {MODEL_F32_ATOL}); "
+          f"bf16 (K7 {b_counts['flash_fwd'] - e_counts['flash_fwd']}) against float32: rel_l2 {rel:.3e} "
+          f"(< {MODEL_BF16_REL_L2})")
+    check(k_counts == forward_only(32) and e_counts == k_counts and b_counts == forward_only(64),
+          f"ViT-H launches {k_counts}, {e_counts}, {b_counts}")
+    check(bool(torch.isfinite(tokens).all()) and err <= MODEL_F32_ATOL, "ViT-H's kernel path far from einsum")
+    check(bool(torch.isfinite(tokens_bf16.float()).all()) and rel < MODEL_BF16_REL_L2, "ViT-H bf16 far from float32")
+    del vit_h, einsum_h, bf16_h, tokens, want, tokens_bf16
+    deit = fvit.get_deit_model(DEIT_TEACHER, device=device, generator=torch.Generator(device).manual_seed(0))
+    with torch.inference_mode():
+        reset_attention_counts()
+        feature = fvit.get_deit_feature(deit, x)
+        d_counts = attention_counts()
+    print(f"  {DEIT_TEACHER}: feature {tuple(feature.shape)}, launches {d_counts}")
+    check(d_counts == {**forward_only(0), "mha_fwd": 12} and tuple(feature.shape) == (TEACHER_BATCH, 768, 14, 14)
+          and bool(torch.isfinite(feature).all()), f"{DEIT_TEACHER}: {d_counts}")
+    del deit, feature
+    torch.cuda.empty_cache()
+
+    # K7 at ViT-H's shape against its plain version, float32 and bf16
+    gen = torch.Generator(device=device).manual_seed(4)
+    errors = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        res = flash_case(attention, TEACHER_BATCH, 257, 16, 80, dtype, gen)
+        for out in ("flash_fwd", "lse"):
+            e, r, ok = flash_error(*res[out], dtype, out == "lse")
+            check(ok, f"K7 {out} {dtype} [{TEACHER_BATCH},257,16,80] disagrees with its plain version")
+            errors[(out, dtype)] = e
+        print(f"  K7 flash_fwd {str(dtype).split('.')[-1]} [{TEACHER_BATCH},257,16,80] against flash_fwd_plain: "
+              f"O max_abs_err {errors[('flash_fwd', dtype)]:.3e}, lse {errors[('lse', dtype)]:.3e}")
+
+    # feature_extraction.main for the cddsv teachers over EXTRACT_SHARDS image shards
+    usage = shutil.disk_usage(tmp)
+    per_sample = sum(2 * math.prod(s) for t in teachers for s in reference_layout(t)[t.replace("/", "_")].values())
+    need = EXTRACT_SHARDS * EXTRACT_SHARD_SIZE * (224 * 224 * 3 + per_sample) * 2
+    check(usage.free >= need, f"{tmp} has {usage.free} bytes free, the phase needs {need}")
+    generate_synthetic_dataset(tmp, feature_models={"x/y": (4, 4, 4)}, n_train=EXTRACT_SHARDS * EXTRACT_SHARD_SIZE,
+                               n_val=EXTRACT_SHARD_SIZE, samples_per_shard=EXTRACT_SHARD_SIZE, write_stats=False)
+    shutil.rmtree(os.path.join(tmp, "imagenet", "x_y"))
+    ddir = os.path.join(tmp, "imagenet")
+
+    def run_main(name):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            n = feature_extraction.main(["--dataset", "imagenet", "--split", "train", "--model", name,
+                                         "--dataset-root", tmp, "--device", device])
+            torch.cuda.synchronize()
+        return n, time.perf_counter() - t0, out.getvalue()
+
+    n_images = EXTRACT_SHARDS * EXTRACT_SHARD_SIZE
+    reset_attention_counts()
+    for name in teachers:
+        n, wall, out = run_main(name)
+        print(f"  feature_extraction.main --model {name}: {n} samples in {wall:.2f} s, {n / wall:.1f} images/s "
+              f"end to end (the build, shard reads and writes included; host clock); "
+              f"{out.count('using random init')} random-init warning")
+        check(n == n_images and out.count("done (") == EXTRACT_SHARDS, f"{name}: extraction wrote {n}: {out}")
+    counts = attention_counts()
+    want = forward_only(32 * EXTRACT_SHARDS)
+    print(f"  the extraction's launches: {counts}, expected {want} (ViT-H: one batch of {EXTRACT_SHARD_SIZE} a shard)")
+    check(counts == want, "the extraction's launch counts")
+    for name in teachers:
+        n, wall, out = run_main(name)
+        check(n == 0 and out.count("check pass, skipping") == EXTRACT_SHARDS, f"{name}: the rerun did not skip: {out}")
+    print(f"  rerun: every teacher skipped its {EXTRACT_SHARDS} complete shards")
+    for name in teachers:
+        legit = name.replace("/", "_")
+        mean, std = calc_feature_mean.compute_feature_stats(os.path.join(ddir, legit))
+        c = get_model_feature_size(name)[0]
+        check(mean.shape == std.shape == (c,) and bool(np.isfinite(mean).all()) and bool((std > 0).all()),
+              f"{name}: feature stats {mean.shape}")
+        np.save(os.path.join(tmp, f"imagenet_mean_{legit}.npy"), mean)
+        np.save(os.path.join(tmp, f"imagenet_var_{legit}.npy"), std)
+    ds, _ = get_image_video_dataset(dataset_root=tmp, feature_models=teachers, dataset_mix=["imagenet"],
+                                    split="train", feature_norm=True, stats_root=tmp, seed=0)
+    batch = next(iter(get_frame_dataloader(ds, batch_size=EXTRACT_SHARD_SIZE)))
+    for name in teachers:
+        c, hw = get_model_feature_size(name)
+        emb = batch[name]["embedding"]
+        check(tuple(emb.shape) == (EXTRACT_SHARD_SIZE, hw, c) and bool(torch.isfinite(emb.float()).all()),
+              f"{name}: loaded {tuple(emb.shape)}")
+    print(f"  compute_feature_stats over each teacher's shards, then the training loader's first batch of "
+          f"{EXTRACT_SHARD_SIZE}: " + ", ".join(f"{t} {tuple(batch[t]['embedding'].shape)}" for t in teachers))
+    for name in teachers:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            module, feature_fn = feature_extraction.build_teacher(name, device)
+            ok = check_feature.check_shard(ddir, name, 0, np.array([0, 3, 5]), "train", module, feature_fn)
+        line = [ln for ln in out.getvalue().splitlines() if "max|d|" in ln]
+        print(f"  check_shard {name}, samples 0, 3, 5 of shard 0 regenerated as one batch of 3 (written in one "
+              f"of {EXTRACT_SHARD_SIZE}): returns {ok}; {line[0] if line else out.getvalue()}")
+        del module, feature_fn
+        torch.cuda.empty_cache()
+    return {"launches": counts, "errors": errors}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1503,6 +1737,15 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # phase 8: the teachers and offline extraction
+    tmp = tempfile.mkdtemp(prefix="theia_extract_")
+    try:
+        teacher_run = teachers_and_extraction(card, tmp, teachers, attention, reset_attention_counts,
+                                              attention_counts, forward_only)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # phase 7: timings
     print(f"phase 7: timings on {card}:")
     x1 = torch.from_numpy(requests[0]).cuda()
@@ -1649,6 +1892,21 @@ def main() -> int:
                     flops = products * bh * t * t * HEAD_DIM
                     tf32_row(key, label, res, flops, shape, errs[key] if t == BIG_T else None)
     f32_records["flash_dkv"]["pair"] = f32_records.pop("pair")
+    # K7 at ViT-H's [8, 257, 16, 80] (phase 8's path, float32; bf16 for the log)
+    vit_h_records = {}
+    for dtype in (torch.float32, bf16):
+        b, t, h, hd = TEACHER_BATCH, 257, 16, 80
+        qkv = torch.randn(b, t, 3 * h * hd, device="cuda", generator=gen).to(dtype)
+        q, k, v = (y.view(b, t, h, hd) for y in qkv.split(h * hd, dim=-1))
+        flops = 4 * b * h * t * t * hd
+        res = kernel_row("K7 flash_fwd (ViT-H)", {
+            "plain": lambda: attention.flash_fwd_plain(q, k, v), "kernel": lambda: attention.flash_fwd(q, k, v),
+            "library": sdpa_forward(q, k, v)}, 4 * q.numel() * q.element_size() + b * h * t * 4, flops, dtype,
+            f"[{b},{t},{h},{hd}]")
+        vit_h_records[dtype] = res
+        if dtype == torch.float32:
+            tf32_row("flash_fwd_vit_h", "K7", res, flops, f"[{b},{t},{h},{hd}]",
+                     teacher_run["errors"][("flash_fwd", dtype)])
     ln_rows = {}
     for dtype, s in [(bf16, 16), (bf16, 31), (bf16, 64), (torch.float32, 64)]:
         x, g, w, mean, r = ln_inputs(TRAIN_BATCH, 768, s, dtype, gen)
@@ -1746,6 +2004,18 @@ def main() -> int:
             "bound_ms": bound, "bound_by": by, "library_ms": t.get("library"),
             **({"float32": f32_records[name]} if name in f32_records else {}),
         })
+    # K7 on phase 8's path: ViT-H's 32 layers a call, float32
+    (t, bound, by), tb = vit_h_records[torch.float32], vit_h_records[bf16]
+    rows.append({
+        "name": "flash_fwd_vit_h", "route": "cuda", "source": "theia_tpu_torch/csrc/flash_attn.cu",
+        "replaces": f"{FLASH_LIBRARY}:331", "launches": teacher_run["launches"]["flash_fwd"],
+        "max_abs_err": teacher_run["errors"][("flash_fwd", torch.float32)], "ms": t["kernel"],
+        "plain_ms": t["plain"], "bound_ms": bound, "bound_by": by, "library_ms": t.get("library"),
+        "shape": [TEACHER_BATCH, 257, 16, 80], "dtype": "float32",
+        "tf32x3_bound_ms": f32_records["flash_fwd_vit_h"]["tf32x3_bound_ms"],
+        "bfloat16": {"ms": tb[0]["kernel"], "plain_ms": tb[0]["plain"], "library_ms": tb[0].get("library"),
+                     "max_abs_err": teacher_run["errors"][("flash_fwd", bf16)], "bound_ms": tb[1], "bound_by": tb[2]},
+    })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))

@@ -13,10 +13,20 @@ import pytest
 import theia_tpu_torch as tpackage
 from theia_tpu.data import registries as jregistries
 from theia_tpu.foundation import common as jcommon
+from theia_tpu.foundation import depth_anything as jda
+from theia_tpu.foundation import llava as jllava
+from theia_tpu.foundation import sam as jsam
+from theia_tpu.foundation import towers as jtowers
+from theia_tpu.foundation import vit as jfvit
 from theia_tpu.models import hub as jhub
 from theia_tpu.models import vit as jvit
 from theia_tpu_torch.data import registries as tregistries
 from theia_tpu_torch.foundation import common as tcommon
+from theia_tpu_torch.foundation import depth_anything as tda
+from theia_tpu_torch.foundation import llava as tllava
+from theia_tpu_torch.foundation import sam as tsam
+from theia_tpu_torch.foundation import towers as ttowers
+from theia_tpu_torch.foundation import vit as tfvit
 from theia_tpu_torch.models import hub as thub
 from theia_tpu_torch.models import vit as tvit
 
@@ -38,7 +48,21 @@ SLICE_MODULES = [
     "theia_tpu_torch.train.loop",
     "theia_tpu_torch.scripts",
     "theia_tpu_torch.scripts.train_rvfm",
+    "theia_tpu_torch.foundation",
     "theia_tpu_torch.foundation.common",
+    "theia_tpu_torch.foundation.towers",
+    "theia_tpu_torch.foundation.clip",
+    "theia_tpu_torch.foundation.dinov2",
+    "theia_tpu_torch.foundation.llava",
+    "theia_tpu_torch.foundation.vit",
+    "theia_tpu_torch.foundation.sam",
+    "theia_tpu_torch.foundation.depth_anything",
+    "theia_tpu_torch.foundation.extraction",
+    "theia_tpu_torch.scripts.feature_extraction",
+    "theia_tpu_torch.scripts.calc_feature_mean",
+    "theia_tpu_torch.scripts.check_feature",
+    "theia_tpu_torch.scripts.organize_imagenet_webdataset",
+    "theia_tpu_torch.scripts.split_dataset",
     "theia_tpu_torch.ops.image",
     "theia_tpu_torch.ops.init",
     "theia_tpu_torch.ops.attention",
@@ -110,6 +134,26 @@ def test_copied_tables_equal_the_jax_package():
             **dataclasses.asdict(jcfg)
         ), name
         assert tcfg.attention_impl == "pallas"
+
+
+def test_copied_teacher_constants_equal_the_jax_package():
+    """The processors' means and stds, the towers' configs, SAM-H's,
+    Depth-Anything-L's, ViT-H's and the DeiT teachers' equal the JAX
+    package's (the ViT configs but for the attention default, as above)."""
+    for name in ("CLIP_MEAN", "CLIP_STD", "IMAGENET_MEAN", "IMAGENET_STD"):
+        assert getattr(ttowers, name) == getattr(jtowers, name), name
+    for t, j in ((ttowers.CLIP_VIT_LARGE, jtowers.CLIP_VIT_LARGE), (ttowers.DINOV2_LARGE, jtowers.DINOV2_LARGE),
+                 (tllava.LLAVA_VISION, jllava.LLAVA_VISION), (tsam.SAM_VIT_HUGE, jsam.SAM_VIT_HUGE),
+                 (tda.DEPTH_ANYTHING_LARGE.backbone, jda.DEPTH_ANYTHING_LARGE.backbone)):
+        assert dataclasses.asdict(t) == dataclasses.asdict(j), t
+    tda_fields = {k: v for k, v in dataclasses.asdict(tda.DEPTH_ANYTHING_LARGE).items() if k != "backbone"}
+    assert tda_fields == {k: v for k, v in dataclasses.asdict(jda.DEPTH_ANYTHING_LARGE).items() if k != "backbone"}
+    assert set(tfvit.DEIT_TEACHERS) == set(jfvit.DEIT_TEACHERS)
+    for t, j in [(tfvit.VIT_HUGE, jfvit.VIT_HUGE)] + [(tfvit.DEIT_TEACHERS[n], jfvit.DEIT_TEACHERS[n])
+                                                     for n in jfvit.DEIT_TEACHERS]:
+        assert dataclasses.replace(t, attention_impl=j.attention_impl) == tvit.ViTBackboneConfig(**dataclasses.asdict(j))
+        assert t.attention_impl == "pallas"
+    assert (tcommon.get_max_model_spatial_size(True) == jcommon.get_max_model_spatial_size(True))
 
 
 @pytest.mark.parametrize(

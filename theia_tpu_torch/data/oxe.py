@@ -31,6 +31,13 @@ OXE_NAMED_MIXES: dict[str, list[tuple[str, float]]] = {
 }
 
 
+def oxe_dsname2path(dataset_name: str, version: Optional[str] = None) -> str:
+    """Dataset name -> GCS tfds path (reference oxe_common.py:418-430)."""
+    if version is None:
+        version = ALL_OXE_DATASETS[dataset_name]["versions"][-1]
+    return f"gs://gresearch/robotics/{dataset_name}/{version}"
+
+
 def get_vo_keys(dataset_name: str, image_views: Optional[list | str | dict] = None) -> list[str]:
     """Visual-observation key selection (reference data_utils.py:52-82)."""
     default_keys = ALL_OXE_DATASETS[dataset_name]["visual_observation_keys"][:1]

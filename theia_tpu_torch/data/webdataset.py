@@ -225,6 +225,26 @@ def iter_samples(
         yield current_key, fields
 
 
+def check_existing_shard(path: str, keys: list[str]) -> tuple[int, dict[str, int]]:
+    """Shard-integrity probe of resumable extraction (the JAX function's copy;
+    reference: preprocessing/feature_extraction_core/webdataset_utils.py:12-35).
+
+    Returns (ok, per-key member counts); ok=0 if the tar is missing/corrupt.
+    """
+    count_per_key = {k: 0 for k in keys}
+    if not os.path.exists(path):
+        return 0, count_per_key
+    try:
+        with tarfile.open(path, "r") as tar:
+            for member in tar.getmembers():
+                for k in keys:
+                    if k in member.name:
+                        count_per_key[k] += 1
+        return 1, count_per_key
+    except tarfile.TarError:
+        return 0, count_per_key
+
+
 def read_splits(dataset_dir: str) -> dict[str, int]:
     with open(os.path.join(dataset_dir, "splits.json")) as f:
         return json.load(f)

@@ -1,4 +1,4 @@
-"""Teacher-model registry (copy of theia_tpu/foundation/common.py:11-34).
+"""Teacher-model registry (copy of theia_tpu/foundation/common.py:11-40).
 
 Kept free of both frameworks so the port never imports the JAX package.
 Feature sizes are (latent_dim, height, width) and drive translator head
@@ -34,3 +34,9 @@ def get_model_feature_size(model_name: str, keep_spatial: bool = False) -> tuple
     if not keep_spatial:
         size = (size[0], math.prod(size[1:]))
     return size
+
+
+def get_max_model_spatial_size(return_model_name: bool = False):
+    best = max(MODEL_FEATURE_SIZES.items(), key=lambda kv: math.prod(kv[1][1:]))
+    name, size = best
+    return (size[1:], name) if return_model_name else size[1:]
