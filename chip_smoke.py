@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Theia serving, training and extraction paths once on one CUDA GPU.
+"""Drive the PyTorch port's Theia serving, training, extraction and decoding paths once on one CUDA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, nvcc and nothing of JAX. Phases, each of which raises on
@@ -102,17 +102,43 @@ failure (the script then exits nonzero and prints no result):
    ``compute_feature_stats`` and the training loader's first batch of the
    shards, and what ``check_shard`` returns (bit-exact regeneration at a
    batch of 3) with its max|d|;
+9. the other translators (run after 4c, on phase 6b's shards): Theia-Base
+   cddsv with the mlp, conv and transformer translators at the configs'
+   widths (``configs/model/translator/``): each served at B=16 in float32
+   and bf16 (shapes [16, H·W, C], finite, bf16 within rel L2 5e-2 of
+   float32), trained 3 steps of ``train_from_config`` at the recipe
+   (finite losses; exact launches: K5 = K6 = 5 a step, K3 = K4 = 15 a step
+   for conv and 0 for the others), its saved step loaded by
+   ``load_theia_checkpoint`` into a fresh model (every tensor equal to the
+   file's, predictions bit-equal to the same weights copied in under
+   cuDNN's deterministic algorithms); one exact-mode step of the conv
+   translator (K1 = K2 = 12); K3 and K4 at the conv heads' [16, 1024, 16,
+   16], [16, 2048, 16, 16], [16, 2048, 31, 31] and [16, 2048, 64, 64] in
+   bf16 and float32 against their plain versions, timed beside
+   ``native_layer_norm_backward`` and the bound; step ms, images/s and peak
+   memory of each translator;
+10. decoding: a Theia-Base cddsv student, the full ``SamDecoderConfig``
+   mask decoder (seeded) and Depth-Anything-L's head tail, on B=2 uint8
+   224² images, ``decode_everything(gt=True)`` through the full-width
+   DINOv2-L, SAM-H and Depth-Anything-L (both rows [224, 896, 3], finite,
+   in [0, 1] but where masks overlap); the card's mask decoder against the
+   same decoder on the CPU (masks atol 1e-3, IoU 1e-4, float32); AMG at
+   32² points at the defaults and with both thresholds at their minimum
+   (masks through ``filter_masks``, ``box_nms`` and the RLE round trip);
+   the time of each decoder and of ``decode_everything``;
 7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
    also with the stream held, the device's time alone), and each kernel's
    bound and library call; K3's and K4's sums over a recipe step's 15
    LayerNormSpatial sites against their bounds.
 
-The last two lines of standard output are the kernels' JSON record (the
+Each phase ends with a line ``[phase N done at T s]``, the script's elapsed
+host time. The last two lines of standard output are the kernels' JSON record (the
 bf16 figures; ``mha_fwd``, ``mha_bwd``, ``flash_fwd``, ``flash_dq`` and
 ``flash_dkv`` also carry their float32 ones under ``"float32"``, with the 3xTF32
 tensor-core floor, and ``flash_dkv``'s the pair K9 + K8's under ``"pair"``;
 ``flash_fwd_vit_h`` is K7 at phase 8's [8, 257, 16, 80] in float32, with
-its bf16 figures under ``"bfloat16"``)
+its bf16 figures under ``"bfloat16"``; ``ln_bwd_stats`` and ``ln_bwd_dx``
+carry phase 9's conv-translator shapes under ``"conv_translator"``)
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
 directory without the package beside it, the script exits nonzero.
 """
@@ -238,6 +264,17 @@ TEACHER_BATCH, EXTRACTION_BATCH = 8, 32
 EXTRACT_SHARDS, EXTRACT_SHARD_SIZE = 2, 16
 VIT_H = "google/vit-huge-patch14-224-in21k"
 DEIT_TEACHER = "facebook/deit-base-patch16-224"
+# phase 9: the other translators at the configs' widths (configs/model/translator/),
+# served at B=16 and trained TRANSLATOR_STEPS steps of train_from_config on
+# phase 6b's shards; the conv translator's new LayerNormSpatial shapes
+# (C, side) under K3/K4 at the batch of 16
+TRANSLATORS = ("mlp", "conv", "transformer")
+TRANSLATOR_STEPS = 3
+CONV_LN_SHAPES = ((1024, 16), (2048, 16), (2048, 31), (2048, 64))
+# phase 10: decoding on B uint8 224² images; the card's mask decoder against
+# the same decoder on the CPU (float32, TF32 off), at AMG's point batch
+DECODE_BATCH, AMG_POINTS_PER_SIDE = 2, 32
+DECODER_MASK_ATOL, DECODER_IOU_ATOL = 1e-3, 1e-4
 # JAX's TPU flash attention library, whose three Pallas kernels K7-K9 replace
 FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # the H100 SXM's published peaks
@@ -1237,8 +1274,326 @@ def teachers_and_extraction(card: str, tmp: str, teachers: list[str], attention,
         torch.cuda.empty_cache()
     return {"launches": counts, "errors": errors}
 
+def translators_phase(card: str, tmp: str, teachers: list[str], reset_counts, read_counts, ln_pallas) -> dict:
+    """Phase 9: the mlp, conv and transformer translators on Theia-Base
+    cddsv at the configs' widths: served at B=16 in float32 and bf16 (shapes,
+    finite values, bf16 within rel L2 MODEL_BF16_REL_L2 of float32), trained
+    TRANSLATOR_STEPS steps of ``train_from_config`` at the recipe on phase
+    6b's shards (finite losses, exact launch counts), the saved step loaded
+    by ``load_theia_checkpoint`` into a fresh model whose predictions equal
+    the same weights copied in; one exact-mode step of the conv translator
+    (K1 = K2 = 12); and K3/K4 at the conv heads' LayerNormSpatial shapes
+    against their plain versions, timed beside ``native_layer_norm_backward``
+    and the bound. Returns those timings, keyed by (kernel, dtype, C, side)."""
+    import os
+
+    from theia_tpu_torch.models.hub import build_theia
+    from theia_tpu_torch.models.pretrained import load_theia_checkpoint
+    from theia_tpu_torch.train import loop
+    from theia_tpu_torch.train.checkpoint import read_params
+    from theia_tpu_torch.train.step import make_train_step
+    from theia_tpu_torch.train.optim import make_optimizer
+    from theia_tpu_torch.train.state import TrainState
+    from theia_tpu_torch.foundation.common import get_model_feature_size
+    from theia_tpu_torch.tools.timing import cuda_ms, interleaved_ms
+
+    rng = np.random.default_rng(9)
+    x16 = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+    sizes = {t: get_model_feature_size(t, keep_spatial=True) for t in teachers}
+    n_teachers = len(teachers)
+    print(f"phase 9, the other translators: {MODEL}'s backbone with the mlp, conv and transformer translators at the "
+          f"configs' widths ({card})")
+    for name in TRANSLATORS:
+        cfg = runtime_config(tmp, 1, (f"model/translator={name}",))
+        kwargs = dict(cfg.model.translator.kwargs)
+        gen = torch.Generator().manual_seed(9)
+        f32 = build_theia(MODEL, translator=name, translator_kwargs=kwargs, generator=gen)
+        n_params = sum(p.numel() for p in f32.translator.parameters())
+        bf16 = build_theia(MODEL, translator=name, translator_kwargs=kwargs, dtype=torch.bfloat16,
+                           param_dtype=torch.bfloat16)
+        bf16.load_state_dict(f32.state_dict())
+        with torch.inference_mode():
+            p32, p16 = f32(x16), bf16(x16)
+            ms32, ms16 = cuda_ms(lambda: f32(x16), 3), cuda_ms(lambda: bf16(x16), 3)
+        rels = {}
+        for t, (c, h, w) in sizes.items():
+            for dn, p in (("float32", p32[t]), ("bf16", p16[t])):
+                check(tuple(p.shape) == (TRAIN_BATCH, h * w, c) and bool(torch.isfinite(p.float()).all()),
+                      f"{name} {dn} prediction of {t}: shape {tuple(p.shape)} or values")
+            rels[t] = rel_l2(p16[t].float(), p32[t])
+        print(f"  {name} {kwargs}: {n_params / 1e6:.1f}M translator parameters; serving B={TRAIN_BATCH}: float32 "
+              f"{ms32:.2f} ms, bf16 {ms16:.2f} ms (CUDA events, 3 calls); predictions [16, H·W, C] finite; bf16 "
+              f"against float32 rel_l2 " + ", ".join(f"{t.split('/')[-1]} {r:.2e}" for t, r in rels.items()) +
+              f" (< {MODEL_BF16_REL_L2})")
+        check(max(rels.values()) < MODEL_BF16_REL_L2, f"{name}: bf16 predictions far from float32")
+        del f32, bf16, p32, p16
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        summary, counts, _ = run_quietly(lambda: loop.train_from_config(cfg, max_steps=TRANSLATOR_STEPS),
+                                         reset_counts, read_counts)
+        peak = torch.cuda.max_memory_allocated()
+        ln_sites = 3 * n_teachers if name == "conv" else 0
+        want = {"mha_fwd": 0, "mha_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                "ln_bwd_stats": ln_sites * TRANSLATOR_STEPS, "ln_bwd_dx": ln_sites * TRANSLATOR_STEPS,
+                "loss_sums_fwd": n_teachers * (TRANSLATOR_STEPS + 1), "loss_sums_bwd": n_teachers * TRANSLATOR_STEPS,
+                "loss_input_copies": 0}
+        tm = summary["timing"]
+        losses = [summary["train"]["loss"], *summary["eval"].values()]
+        blocked = sum(b for _, b, _ in tm["saves"])
+        print(f"  {name}, train_from_config at the recipe, {TRANSLATOR_STEPS} steps of {TRAIN_BATCH} + 1 eval + a "
+              f"save: train loss {summary['train']['loss']:.6f}, eval cos {summary['eval']['avg_eval_cos_loss']:.6f}; "
+              f"loop wall {tm['wall_s']:.3f} s, {(tm['wall_s'] - blocked) / tm['steps'] * 1e3:.1f} ms a step less "
+              f"the {blocked:.3f} s save() blocked, {tm['images'] / (tm['wall_s'] - blocked):.1f} images/s; peak "
+              f"memory allocated {peak / 1e9:.2f} GB; launches {counts}, expected {want} ({card})")
+        check(all(math.isfinite(v) for v in losses), f"{name}: a loss is not finite")
+        check(summary["step"] == TRANSLATOR_STEPS and counts == want, f"{name}: steps or launch counts are off")
+
+        ckpt_dir = summary["ckpt_dir"]
+        _, params = read_params(ckpt_dir)
+        copied = build_theia(MODEL, translator=name, translator_kwargs=kwargs)
+        copied.load_state_dict(params)
+        t0 = time.perf_counter()
+        loaded = load_theia_checkpoint(ckpt_dir, build_theia(MODEL, translator=name, translator_kwargs=kwargs,
+                                                             generator=torch.Generator().manual_seed(10)))
+        load_s = time.perf_counter() - t0
+        tensors_equal = all(torch.equal(v, params[k].to(v.device)) for k, v in loaded.state_dict().items())
+        # cuDNN's default algorithms for the heads' transposed convolutions
+        # need not give the same bits twice; its deterministic ones do
+        torch.backends.cudnn.deterministic = True
+        try:
+            with torch.inference_mode():
+                a, b = copied(x16), loaded(x16)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        same = all(torch.equal(a[t], b[t]) for t in sizes)
+        print(f"  {name}: load_theia_checkpoint of step {TRANSLATOR_STEPS} into a fresh model in {load_s:.3f} s; every "
+              f"tensor equal to the file's: {tensors_equal}; its predictions (cuDNN deterministic) equal the same "
+              f"weights copied in: {same}")
+        check(tensors_equal and same, f"{name}: the loaded checkpoint differs from its weights")
+        del copied, loaded, a, b, params
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    # one exact-mode step of the conv translator: K1 and K2 in the backbone
+    cfg = runtime_config(tmp, 1, ("model/translator=conv",))
+    model = build_theia(MODEL, translator="conv", translator_kwargs=dict(cfg.model.translator.kwargs),
+                        dtype=torch.bfloat16, generator=torch.Generator().manual_seed(11))
+    tx = make_optimizer(1e-4, moment_dtype=torch.bfloat16)
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model.train(), tx)
+    targets = {t: torch.randn(TRAIN_BATCH, *sizes[t], device="cuda").to(torch.bfloat16) for t in teachers}
+    reset_counts()
+    state, metrics = step(state, x16, targets)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_layers = model.backbone.cfg.num_layers
+    want = {"mha_fwd": n_layers, "mha_bwd": n_layers, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "ln_bwd_stats": 3 * n_teachers, "ln_bwd_dx": 3 * n_teachers, "loss_sums_fwd": n_teachers,
+            "loss_sums_bwd": n_teachers, "loss_input_copies": 0}
+    print(f"  conv, one exact-mode step (bf16 compute, attention \"pallas\"): loss {float(metrics['loss']):.6f}; "
+          f"launches {counts}, expected {want}")
+    check(math.isfinite(float(metrics["loss"])) and counts == want, "conv exact-mode step: loss or launch counts")
+    del model, tx, state, step, targets, metrics
+    torch.cuda.empty_cache()
+
+    # K3/K4 at the conv heads' LayerNormSpatial shapes against their plain versions, then timed
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for c, side in CONV_LN_SHAPES:
+            x, g, w, mean, r = ln_inputs(TRAIN_BATCH, c, side, dtype, gen)
+            got = ln_pallas.ln_bwd_stats(x, w, mean, r, g)
+            want = ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)
+            shape = f"[{TRAIN_BATCH},{c},{side},{side}]"
+            err3 = max(compare(f"K3 ln_bwd_stats {dn} {shape} {n}", a, bb, torch.float32)
+                       for n, a, bb in zip(("s1", "s2", "dw", "db"), got, want))
+            dx = ln_pallas.ln_bwd_dx(x, w, mean, r, g, want[0], want[1])
+            err4 = compare(f"K4 ln_bwd_dx {dn} {shape}", dx, ln_pallas.ln_bwd_dx_plain(x, w, mean, r, g, *want[:2]),
+                           dtype)
+            s1, s2 = want[:2]
+            xl, gl, wl = x.contiguous(), g.contiguous(), w.to(dtype)
+            _, lmean, lrstd = torch.native_layer_norm(xl, wl.shape, wl, torch.zeros_like(wl), 1e-5)
+            library = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa: E731
+                gl, xl, list(wl.shape), lmean, lrstd, wl, torch.zeros_like(wl), [True, True, True])
+            maps, per_sample = x.numel() * x.element_size(), x[0].numel()
+            for key, fns, nbytes, err in (
+                    ("ln_bwd_stats", {"plain": lambda: ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g),
+                                      "kernel": lambda: ln_pallas.ln_bwd_stats(x, w, mean, r, g), "library": library},
+                     2 * maps + per_sample * 4 * 3, err3),
+                    ("ln_bwd_dx", {"plain": lambda: ln_pallas.ln_bwd_dx_plain(x, w, mean, r, g, s1, s2),
+                                   "kernel": lambda: ln_pallas.ln_bwd_dx(x, w, mean, r, g, s1, s2),
+                                   "library": library}, 3 * maps + per_sample * 4, err4)):
+                t = interleaved_ms(fns, iters=10)
+                bound, by = bound_ms(nbytes, 8 * x.numel(), dtype)
+                rows[(key, dn, c, side)] = {"shape": [TRAIN_BATCH, c, side, side], "dtype": dn, "ms": t["kernel"],
+                                            "plain_ms": t["plain"], "library_ms": t["library"], "bound_ms": bound,
+                                            "bound_by": by, "max_abs_err": err}
+                print(f"    {'K3' if key == 'ln_bwd_stats' else 'K4'} {key} {dn} {shape}: kernel {t['kernel']:.4f} ms, "
+                      f"plain {t['plain']:.4f} ms, native_layer_norm_backward {t['library']:.4f} ms, bound "
+                      f"{bound * 1e3:.1f} us ({by}, {nbytes / 1e6:.1f} MB), bound / kernel "
+                      f"{100 * bound / t['kernel']:.1f}% ({card})")
+            del x, g, w, mean, r, got, want, dx, xl, gl, wl, lmean, lrstd
+            torch.cuda.empty_cache()
+    return rows
+
+
+def decoding_phase(card: str) -> None:
+    """Phase 10: decoding a student's predictions. A Theia-Base cddsv lconv
+    student (seeded random weights), the full ``SamDecoderConfig`` mask
+    decoder and the Depth-Anything-L head tail, and the full-width DINOv2-L,
+    SAM-H and Depth-Anything-L teachers for the ground-truth row, on B =
+    DECODE_BATCH uint8 224² images: both rows' panels; the card's mask
+    decoder against the same decoder on the CPU; AMG at
+    AMG_POINTS_PER_SIDE at the defaults and with both thresholds at their
+    minimum (every mask through filter_masks, box_nms and the RLE round
+    trip); the time of each decoder and of ``decode_everything``."""
+    import copy
+
+    from theia_tpu_torch.decoding import (decode_depth_anything, decode_dinov2, decode_everything, decode_sam,
+                                          prepare_depth_decoder, prepare_mask_generator, run_gt_teachers)
+    from theia_tpu_torch.decoding import sam as sam_decoding
+    from theia_tpu_torch.decoding.amg import box_nms, build_point_grid, mask_to_rle
+    from theia_tpu_torch.decoding.decode import DEPTH, DINO, SAM
+    from theia_tpu_torch.decoding.dinov2 import PCA, _minmax_columns
+    from theia_tpu_torch.foundation.extraction import get_model
+    from theia_tpu_torch.models.hub import build_theia
+    from theia_tpu_torch.tools.timing import cuda_ms
+
+    t0 = time.perf_counter()
+    student = build_theia(MODEL, generator=torch.Generator().manual_seed(12))
+    teachers = {name: get_model(name, device="cuda", generator=torch.Generator("cuda").manual_seed(0))[0]
+                for name in (DINO, SAM, DEPTH)}
+    mask_generator, decoder = prepare_mask_generator(generator=torch.Generator("cuda").manual_seed(13),
+                                                     points_per_side=AMG_POINTS_PER_SIDE)
+    depth_decoder, _ = prepare_depth_decoder(module=teachers[DEPTH])
+    torch.cuda.synchronize()
+    print(f"phase 10, decoding: {MODEL} student, the full SAM mask decoder (seeded, "
+          f"{sum(p.numel() for p in decoder.parameters()) / 1e6:.2f}M parameters), Depth-Anything-L's head tail, "
+          f"DINOv2-L, SAM-H and Depth-Anything-L for the ground truth, built in {time.perf_counter() - t0:.1f} s; "
+          f"B={DECODE_BATCH} uint8 224² images ({card})")
+    images = np.random.default_rng(10).integers(0, 256, (DECODE_BATCH, 224, 224, 3), dtype=np.uint8)
+    sizes = student.translator.target_feature_sizes
+    means = {t: np.zeros(c, np.float32) for t, (c, _, _) in sizes.items()}
+    stds = {t: np.ones(c, np.float32) for t, (c, _, _) in sizes.items()}
+
+    @torch.inference_mode()
+    def theia_forward(x):
+        return student(x)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, gt_rows = decode_everything(theia_forward, means, stds, images, mask_generator, depth_decoder, gt=True,
+                                      gt_teacher_modules=teachers, rng=np.random.RandomState(0))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    for label, panels in (("predicted", rows), ("ground truth", gt_rows)):
+        check(len(panels) == DECODE_BATCH, f"{label}: {len(panels)} panels")
+        for p in panels:
+            sam_part = p[:, 448:672]
+            rest = np.concatenate([p[:, :448], p[:, 672:]], axis=1)
+            check(p.shape == (224, 896, 3) and bool(np.isfinite(p).all()), f"{label} panel {p.shape}")
+            check(float(rest.min()) >= 0.0 and float(rest.max()) <= 1.0 and float(sam_part.min()) >= 0.0,
+                  f"{label} panel out of [0, 1]: " + ", ".join(
+                      f"{part} [{float(p[:, i:i + 224].min())!r}, {float(p[:, i:i + 224].max())!r}]"
+                      for part, i in (("image", 0), ("dinov2", 224), ("sam", 448), ("depth", 672))))
+    over = sum(int((p[:, 448:672] > 1.0).sum()) for p in rows + gt_rows)
+    print(f"  decode_everything(gt=True): {total_s:.2f} s end to end (host clock) for {DECODE_BATCH} images, both "
+          f"rows [224, 896, 3] finite in [0, 1] (the mask panels' values above 1, where masks overlap: {over})")
+
+    with torch.inference_mode():
+        gt = run_gt_teachers(images, modules=teachers)
+        feats = {k: v.float() for k, v in theia_forward(images).items()}
+        again = theia_forward(images)[DINO].float()
+    # the predicted row's min-max: its tokens projected onto the ground truth's PCA, beside sklearn's
+    # x * scale - min * scale, which can round above 1
+    proj = PCA(3).fit(gt[DINO].flatten(0, 1)).transform(feats[DINO].flatten(0, 1))
+    proj = proj[proj[:, 0] >= -100]
+    lo, hi = proj.amin(dim=0), proj.amax(dim=0)
+    scale = 1.0 / (hi - lo)
+    sk_formula = proj * scale + (0.0 - lo * scale)
+    print(f"  decode_dinov2 on the predicted row: columns' |min| / (max - min) "
+          f"{[round(float(v), 2) for v in lo.abs() / (hi - lo)]}; sklearn's formula's range "
+          f"[{float(sk_formula.min())!r}, {float(sk_formula.max())!r}], the port's "
+          f"[{float(_minmax_columns(proj).min())!r}, {float(_minmax_columns(proj).max())!r}]; two student "
+          f"forwards' DINOv2 predictions max_abs {float((again - feats[DINO]).abs().max()):.3e} ({card})")
+    ms = {}
+    ms["decode_dinov2"] = _host_ms(lambda: decode_dinov2(feats[DINO]))
+    ms["decode_depth_anything"] = _host_ms(lambda: decode_depth_anything(feats[DEPTH], depth_decoder))
+    ms["decode_sam (defaults of decode_everything, one image)"] = _host_ms(
+        lambda: decode_sam(feats[SAM][:1], [None], mask_generator, pred_iou_thresh=0.9, stability_score_thresh=0.9))
+
+    # the card's decoder against the same decoder on the CPU, float32, at one point batch
+    emb = gt[SAM][:1].transpose(1, 2).reshape(1, 256, 64, 64).permute(0, 2, 3, 1).contiguous()
+    pts = torch.from_numpy((build_point_grid(8) * 1024).astype(np.float32))[None, :, None, :].cuda()
+    lbl = torch.ones(pts.shape[:3], dtype=torch.int32, device="cuda")
+    cpu_decoder = copy.deepcopy(decoder).cpu()
+    with torch.inference_mode():
+        masks, iou = decoder(emb, pts, lbl)
+        cmasks, ciou = cpu_decoder(emb.cpu(), pts.cpu(), lbl.cpu())
+        decoder(emb, pts, lbl)
+        dec_ms = cuda_ms(lambda: decoder(emb, pts, lbl), 5)
+    merr, ierr = float((masks.cpu() - cmasks).abs().max()), float((iou.cpu() - ciou).abs().max())
+    print(f"  SamMaskDecoder [1, {pts.shape[1]}, 1, 2] points: the card against the CPU, low-res masks "
+          f"{tuple(masks.shape)} max_abs {merr:.3e} (atol {DECODER_MASK_ATOL}), IoU max_abs {ierr:.3e} (atol "
+          f"{DECODER_IOU_ATOL}); {dec_ms:.3f} ms a call on the card (CUDA events, 5 calls) ({card})")
+    check(merr <= DECODER_MASK_ATOL and ierr <= DECODER_IOU_ATOL, "the card's mask decoder disagrees with the CPU's")
+    del cpu_decoder
+
+    # AMG on the ground-truth SAM embedding at the defaults, then with both
+    # thresholds off; the masks box_nms sees are counted on the way in
+    emb_bchw = gt[SAM][:1].transpose(1, 2).reshape(1, 256, 64, 64)
+    seen = []
+
+    def counting_nms(boxes, scores, thresh):
+        seen.append(len(boxes))
+        return box_nms(boxes, scores, thresh)
+
+    sam_decoding.box_nms = counting_nms
+    for label, kw in (("defaults (0.88, 0.95)", {}),
+                      ("thresholds at their minimum (0, 0)", dict(pred_iou_thresh=0.0, stability_score_thresh=0.0))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mask_generator(emb_bchw, output_rle_mask=True, output_bboxes_mask=True, **kw)
+        amg_s = time.perf_counter() - t0
+        n = len(out["masks"])
+        ok = all(m.shape == (224, 224) and m.dtype == bool for m in out["masks"])
+        if n:
+            again = mask_to_rle(torch.from_numpy(np.stack(out["masks"])).cuda())
+            ok = ok and again == out["rle_mask"]
+        into = seen.pop() if seen else 0
+        print(f"  AMG at {AMG_POINTS_PER_SIDE}² points, {label}: {into} masks passed filter_masks, {n} kept by "
+              f"box_nms, in {amg_s:.2f} s (host clock); masks [224, 224] bool, their RLEs round-trip: {ok}")
+        check(ok, f"AMG {label}: masks or their RLE round trip")
+        if kw:
+            check(n > 0 and into > n, "AMG with the thresholds off: no mask set for box_nms")
+    sam_decoding.box_nms = box_nms
+    print("  decoders, host clock around each synchronous call (mean of 3): " +
+          "; ".join(f"{k} {v:.1f} ms" for k, v in ms.items()) + f" ({card})")
+    del student, teachers, mask_generator, decoder, depth_decoder, gt, feats
+    torch.cuda.empty_cache()
+
+
+def _host_ms(fn, iters: int = 3) -> float:
+    """Mean host milliseconds of a synchronous call after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
 
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        """The script's elapsed time at the end of a phase (host clock), so
+        that its growth against the time limit shows phase by phase."""
+        print(f"[{phase} done at {time.perf_counter() - t_start:.1f} s]")
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1348,6 +1703,7 @@ def main() -> int:
               f"{grid.value}")
         check(k3 in usage and blocks > 0, f"K3's ptxas line or occupancy query is missing ({blocks})")
 
+    stamp("phases 1-2")
     # phase 3: kernel vs plain; float32 phases run with TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1358,6 +1714,7 @@ def main() -> int:
     teacher_dims = [math.prod(get_model_feature_size(t, keep_spatial=True)) for t in teachers]
     kernel_errors.update(compare_loss_kernels(fused_loss, teacher_dims))
 
+    stamp("phase 3")
     # phase 4: serving
     t0 = time.perf_counter()
     model = build_theia(MODEL, dtype=torch.float32, generator=torch.Generator().manual_seed(0))
@@ -1516,6 +1873,7 @@ def main() -> int:
           ", ".join(f"{impl} {dn} {ms:.3f} ms" for (impl, dn), ms in big_ms.items()) + f" ({card})")
     del plain_model, plain_bf16, flash_model, flash_bf16, want_f32, want_bf16, got, big
 
+    stamp("phase 4")
     # phase 5: training in exact mode, bf16 compute over float32 params, the recipe's optimizer
     trng = np.random.default_rng(1)
     images = torch.from_numpy(trng.integers(0, 256, (TRAIN_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
@@ -1699,6 +2057,7 @@ def main() -> int:
     del tok, ptok, bgrads, pgrads, bx, gtok
     torch.cuda.empty_cache()
 
+    stamp("phase 5")
     # phase 6: the production recipe at full width and depth
     recipe = dict(fast_math=True, fuse_preprocessing=True)
     recipe_counts, _ = train("phase 6, training (the production recipe)", **recipe)
@@ -1720,6 +2079,7 @@ def main() -> int:
     del fused_m, unfused_m, a, b
     torch.cuda.empty_cache()
 
+    stamp("phase 6")
     # phase 6b: the training runtime; 6c: the same with loader workers; 4b:
     # serving the student it trained; 4c: exporting it
     tmp = tempfile.mkdtemp(prefix="theia_runtime_")
@@ -1727,13 +2087,20 @@ def main() -> int:
         runtime_counts, resumed = training_runtime(card, tmp, teachers, reset_counts, read_counts,
                                                    expected_launches(RUNTIME_STEPS, forward_only(0)))
         torch.cuda.empty_cache()
+        stamp("phase 6b")
         worker_loading(card, tmp, reset_counts, read_counts, expected_launches(LOADER_STEPS, forward_only(0)))
         torch.cuda.empty_cache()
+        stamp("phase 6c")
         loaded = serve_trained(card, tmp, resumed["ckpt_dir"], attention_model, reset_attention_counts,
                                attention_counts, forward_only)
+        stamp("phase 4b")
         export_trained(card, tmp, loaded, model, reset_attention_counts, attention_counts, forward_only)
         del loaded
         torch.cuda.empty_cache()
+        stamp("phase 4c")
+        # phase 9: the other translators, trained on phase 6b's shards
+        conv_ln_rows = translators_phase(card, tmp, teachers, reset_counts, read_counts, ln_pallas)
+        stamp("phase 9")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1745,6 +2112,12 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    stamp("phase 8")
+
+    # phase 10: decoding a student's predictions
+    decoding_phase(card)
+    torch.cuda.empty_cache()
+    stamp("phase 10")
 
     # phase 7: timings
     print(f"phase 7: timings on {card}:")
@@ -2003,6 +2376,9 @@ def main() -> int:
             "launches": launches, "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
             "bound_ms": bound, "bound_by": by, "library_ms": t.get("library"),
             **({"float32": f32_records[name]} if name in f32_records else {}),
+            # K3/K4 at the conv translator's LayerNormSpatial shapes (phase 9)
+            **({"conv_translator": [v for k, v in conv_ln_rows.items() if k[0] == name]}
+               if name in ("ln_bwd_stats", "ln_bwd_dx") else {}),
         })
     # K7 on phase 8's path: ViT-H's 32 layers a call, float32
     (t, bound, by), tb = vit_h_records[torch.float32], vit_h_records[bf16]
@@ -2016,6 +2392,7 @@ def main() -> int:
         "bfloat16": {"ms": tb[0]["kernel"], "plain_ms": tb[0]["plain"], "library_ms": tb[0].get("library"),
                      "max_abs_err": teacher_run["errors"][("flash_fwd", bf16)], "bound_ms": tb[1], "bound_by": tb[2]},
     })
+    stamp("phase 7")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))

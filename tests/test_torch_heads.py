@@ -147,5 +147,9 @@ def test_linear_head_requires_cls():
 
 
 def test_other_translators_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrans.build_feature_translator("mlp", backbone_feature_size=(16, 14, 14), target_feature_sizes={})
+    """Every translator of the JAX factory is ported; a type it does not know raises."""
+    kw = dict(backbone_feature_size=(16, 14, 14), target_feature_sizes={})
+    for t in ("mlp", "conv", "transformer", "trans", "lconv"):
+        ttrans.build_feature_translator(t, **kw)
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        ttrans.build_feature_translator("rnn", **kw)

@@ -58,6 +58,14 @@ SLICE_MODULES = [
     "theia_tpu_torch.foundation.sam",
     "theia_tpu_torch.foundation.depth_anything",
     "theia_tpu_torch.foundation.extraction",
+    "theia_tpu_torch.foundation.sam_decoder",
+    "theia_tpu_torch.decoding",
+    "theia_tpu_torch.decoding.amg",
+    "theia_tpu_torch.decoding.sam",
+    "theia_tpu_torch.decoding.dinov2",
+    "theia_tpu_torch.decoding.depth_anything",
+    "theia_tpu_torch.decoding.decode",
+    "theia_tpu_torch.scripts.decoding_example",
     "theia_tpu_torch.scripts.feature_extraction",
     "theia_tpu_torch.scripts.calc_feature_mean",
     "theia_tpu_torch.scripts.check_feature",
@@ -71,6 +79,7 @@ SLICE_MODULES = [
     "theia_tpu_torch.kernels.build",
     "theia_tpu_torch.models.vit",
     "theia_tpu_torch.models.utils",
+    "theia_tpu_torch.models.activations",
     "theia_tpu_torch.models.layers",
     "theia_tpu_torch.models.adapter_heads",
     "theia_tpu_torch.models.translators",

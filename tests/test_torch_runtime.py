@@ -322,7 +322,6 @@ def test_pretrained_flag_trains_and_names_the_run(shards, tmp_path):
 @pytest.mark.parametrize("override,err", [
     ("training.model_axis=2", NotImplementedError),
     ("training.grad_allreduce_dtype=bf9", ValueError),
-    ("model/translator=mlp", NotImplementedError),
     ("env:WORLD_SIZE=2", NotImplementedError),
 ])
 def test_unported_options_raise(shards, tmp_path, monkeypatch, override, err):

@@ -1,7 +1,8 @@
 """JAX Theia and teacher parameters -> the port's state dicts.
 
 Port of theia_tpu/models/hf_convert.py:211-295 (``export_vit_backbone`` and
-``export_theia_checkpoint``), written without JAX: the input is the JAX
+``export_theia_checkpoint``, here for every translator type: the inverse of
+``convert_translator``, :161-208), written without JAX: the input is the JAX
 param tree with numpy (or array-like) leaves. The output names and layouts
 are the reference ``RobotVisionFM`` state dict, which is also the port's
 ``Theia.state_dict()``, so ``Theia.load_state_dict(sd, strict=True)`` loads it.
@@ -64,36 +65,66 @@ def _backbone(params: Mapping[str, Any], variant: str, prefix: str) -> dict[str,
     return sd
 
 
+def _stem(params: Mapping[str, Any], target_feature_sizes: Mapping[str, tuple[int, ...]]) -> dict[str, np.ndarray]:
+    """The transformer translator's free parameters and decoder layers."""
+    sd: dict[str, np.ndarray] = {"translator.decode_tokens": np.asarray(params["decode_tokens"])}
+    for t in target_feature_sizes:
+        sd[f"translator.target_model_emb.{head_key(t)}"] = np.asarray(params[f"target_model_emb_{legit_name(t)}"])
+    i = 0
+    while f"stem_layer_{i}" in params:
+        layer, lp = params[f"stem_layer_{i}"], f"translator.translator_stem.layers.{i}."
+        for attn in ("self_attn", "multihead_attn"):
+            sd[lp + attn + ".in_proj_weight"] = np.asarray(layer[attn]["in_proj_weight"])
+            sd[lp + attn + ".in_proj_bias"] = np.asarray(layer[attn]["in_proj_bias"])
+            _linear(sd, lp + attn + ".out_proj", layer[attn]["out_proj"])
+        for m in ("norm1", "norm2", "norm3"):
+            _norm(sd, lp + m, layer[m])
+        for m in ("linear1", "linear2"):
+            _linear(sd, lp + m, layer[m])
+        i += 1
+    return sd
+
+
 def _translator(
-    params: Mapping[str, Any], target_feature_sizes: Mapping[str, tuple[int, ...]], backbone_spatial: int
+    params: Mapping[str, Any], target_feature_sizes: Mapping[str, tuple[int, ...]], backbone_spatial: int,
+    translator: str = "lconv",
 ) -> dict[str, np.ndarray]:
+    """Inverts ``hf_convert.convert_translator`` for each translator type: a
+    Conv2d's HWIO kernel to (O,I,kh,kw), a ConvTranspose2d's (kh,kw,I,O) to
+    (I,O,kh,kw), a Linear's kernel transposed, LayerNorms verbatim."""
     sd: dict[str, np.ndarray] = {}
+    if "backbone_adapter" in params:
+        _norm(sd, "translator.backbone_adapter.0", params["backbone_adapter"]["adapter_0"])
+        _linear(sd, "translator.backbone_adapter.1", params["backbone_adapter"]["adapter_1"])
+    if translator in ("transformer", "trans"):
+        sd.update(_stem(params, target_feature_sizes))
     for t, size in target_feature_sizes.items():
         head = params[f"head_{legit_name(t)}"]
         hp = f"translator.translator_heads.{head_key(t)}."
-        if "_cls" in t:
-            sd[hp + "adapter.0.weight"] = np.asarray(head["adapter_0"]["kernel"]).T
-            sd[hp + "adapter.0.bias"] = np.asarray(head["adapter_0"]["bias"])
+        if "_cls" in t or translator in ("mlp", "transformer", "trans"):  # Linears only
+            for sub in head:
+                _linear(sd, hp + sub.replace("_", "."), head[sub])
             continue
         s_eff = backbone_spatial
         if "pad" in head:
             sd[hp + "pad.1.weight"] = np.asarray(head["pad"]["pad_1"]["kernel"]).transpose(2, 3, 0, 1)
             sd[hp + "pad.1.bias"] = np.asarray(head["pad"]["pad_1"]["bias"])
             s_eff = 16
-        deconv_ladder = s_eff == 16 and size[1] == 64
+        # the conv head's ladder up (16 -> 64) is ConvTranspose at 1, 4 and 7;
+        # the lconv head's at 1 and 4, its 8 (or 5) a Linear
+        deconv_ladder = s_eff < size[1] if translator == "conv" else (s_eff == 16 and size[1] == 64)
         for idx in (0, 3, 6):  # LayerNormSpatial: (C,H,W) kept verbatim
             if f"adapter_{idx}" in head:
                 sd[hp + f"adapter.{idx}.weight"] = np.asarray(head[f"adapter_{idx}"]["weight"])
                 sd[hp + f"adapter.{idx}.bias"] = np.asarray(head[f"adapter_{idx}"]["bias"])
-        for idx in (1, 4):  # HWIO -> ConvTranspose2d (I,O,kh,kw) or Conv2d (O,I,kh,kw)
+        for idx in (1, 4, 7):  # HWIO -> ConvTranspose2d (I,O,kh,kw) or Conv2d (O,I,kh,kw)
             if f"adapter_{idx}" in head:
                 k = np.asarray(head[f"adapter_{idx}"]["kernel"])
                 sd[hp + f"adapter.{idx}.weight"] = k.transpose(2, 3, 0, 1) if deconv_ladder else k.transpose(3, 2, 0, 1)
                 sd[hp + f"adapter.{idx}.bias"] = np.asarray(head[f"adapter_{idx}"]["bias"])
-        for idx in (5, 8):  # final Linear
+        for idx in (5, 8):  # the lconv head's final Linear
             if f"adapter_{idx}" in head:
-                sd[hp + f"adapter.{idx}.weight"] = np.asarray(head[f"adapter_{idx}"]["kernel"]).T
-                sd[hp + f"adapter.{idx}.bias"] = np.asarray(head[f"adapter_{idx}"]["bias"])
+                _linear(sd, hp + f"adapter.{idx}", head[f"adapter_{idx}"])
     return sd
 
 
@@ -249,12 +280,69 @@ def state_dict_from_jax(
     target_feature_sizes: Mapping[str, tuple[int, ...]],
     variant: str = "cls",
     backbone_spatial: int = 14,
+    translator: str = "lconv",
 ) -> dict[str, torch.Tensor]:
     """JAX ``Theia`` params ({"backbone_module", "translator_module"}) -> state dict.
 
-    ``backbone_spatial`` is the backbone's token grid side (14 at 224 px).
+    ``backbone_spatial`` is the backbone's token grid side (14 at 224 px);
+    ``translator`` the translator type ("lconv", "mlp", "conv", "transformer").
     """
     sd = _backbone(params["backbone_module"], variant, prefix="backbone.model.")
     if target_feature_sizes:
-        sd.update(_translator(params["translator_module"], target_feature_sizes, backbone_spatial))
+        sd.update(_translator(params["translator_module"], target_feature_sizes, backbone_spatial, translator))
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def sam_decoder_state_dict(params: Mapping[str, Any], cfg: Any = None) -> dict[str, torch.Tensor]:
+    """JAX ``SamMaskDecoder`` params -> the port's (HF ``SamModel``, less its
+    vision encoder) state dict: the inverse of the JAX package's
+    ``convert_sam_decoder`` (``theia_tpu/foundation/sam_decoder.py:258-306``).
+    The prompt encoder's mask embedding, which the JAX module does not have
+    (the no-mask path never runs it), gets zero weights and unit norms.
+    ``cfg`` is the decoder's ``SamDecoderConfig`` (the full SAM's by default)."""
+    from theia_tpu_torch.foundation.sam_decoder import SAM_DECODER
+
+    cfg = cfg or SAM_DECODER
+    c, m = cfg.hidden_size, cfg.mask_input_channels
+    pe = np.asarray(params["positional_embedding"])
+    point = np.asarray(params["point_embed"])
+    sd: dict[str, np.ndarray] = {
+        "shared_image_embedding.positional_embedding": pe,
+        "prompt_encoder.shared_embedding.positional_embedding": pe,
+        **{f"prompt_encoder.point_embed.{i}.weight": point[i: i + 1] for i in range(4)},
+        "prompt_encoder.not_a_point_embed.weight": np.asarray(params["not_a_point_embed"]),
+        "prompt_encoder.no_mask_embed.weight": np.asarray(params["no_mask_embed"]),
+        "mask_decoder.iou_token.weight": np.asarray(params["iou_token"]),
+        "mask_decoder.mask_tokens.weight": np.asarray(params["mask_tokens"]),
+        # a transposed conv's (kh, kw, in, out) -> ConvTranspose2d (in, out, kh, kw)
+        "mask_decoder.upscale_conv1.weight": np.asarray(params["upscale_conv1"]).transpose(2, 3, 0, 1),
+        "mask_decoder.upscale_conv1.bias": np.asarray(params["upscale_conv1_bias"]),
+        "mask_decoder.upscale_conv2.weight": np.asarray(params["upscale_conv2"]).transpose(2, 3, 0, 1),
+        "mask_decoder.upscale_conv2.bias": np.asarray(params["upscale_conv2_bias"]),
+        "mask_decoder.upscale_layer_norm.weight": np.asarray(params["upscale_ln"]),
+        "mask_decoder.upscale_layer_norm.bias": np.asarray(params["upscale_ln_bias"]),
+    }
+    me = "prompt_encoder.mask_embed."
+    for name, shape in (("conv1", (m // 4, 1, 2, 2)), ("conv2", (m, m // 4, 2, 2)), ("conv3", (c, m, 1, 1))):
+        sd[me + name + ".weight"] = np.zeros(shape, np.float32)
+        sd[me + name + ".bias"] = np.zeros(shape[0], np.float32)
+    for name, n in (("layer_norm1", m // 4), ("layer_norm2", m)):
+        sd[me + name + ".weight"], sd[me + name + ".bias"] = np.ones(n, np.float32), np.zeros(n, np.float32)
+    tp = "mask_decoder.transformer."
+    for k in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _linear(sd, f"{tp}final_attn_token_to_image.{k}", params["final_attn_token_to_image"][k])
+    _norm(sd, tp + "layer_norm_final_attn", params["layer_norm_final_attn"])
+    for dst, src in (("proj_in", "in"), ("layers.0", "mid"), ("proj_out", "out")):
+        _linear(sd, f"mask_decoder.iou_prediction_head.{dst}", params[f"iou_{src}"])
+        for i in range(cfg.num_mask_tokens):
+            _linear(sd, f"mask_decoder.output_hypernetworks_mlps.{i}.{dst}", params[f"hyper_{i}_{src}"])
+    for i in range(cfg.num_layers):
+        layer, lp = params[f"layer_{i}"], f"{tp}layers.{i}."
+        for attn in ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token"):
+            for k in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                _linear(sd, f"{lp}{attn}.{k}", layer[attn][k])
+        for j in range(1, 5):
+            _norm(sd, f"{lp}layer_norm{j}", layer[f"layer_norm{j}"])
+        _linear(sd, lp + "mlp.lin1", layer["mlp_lin1"])
+        _linear(sd, lp + "mlp.lin2", layer["mlp_lin2"])
+    return _tensors(sd)

@@ -68,9 +68,11 @@ def build_theia(
     device: torch.device | str = "cuda",
     generator: Optional[torch.Generator] = None,
     feature_reduce_method: Optional[str] = None,
+    translator: str = "lconv",
     **kwargs: Any,
 ) -> Theia:
-    """Build a published Theia architecture (lconv translator) in eval mode.
+    """Build a published Theia architecture in eval mode: its lconv
+    translator, or another ``translator`` (with ``translator_kwargs``).
 
     ``dtype`` is the compute dtype, as the JAX ``build_theia(dtype=)``;
     ``param_dtype`` the dtype the parameters are stored in: float32, as in
@@ -89,7 +91,7 @@ def build_theia(
     with torch.device("meta"):
         model = Theia(
             backbone=backbone,
-            translator="lconv",
+            translator=translator,
             target_feature_sizes=sizes,
             feature_reduce_method=feature_reduce_method,
             dtype=dtype,

@@ -108,15 +108,22 @@ class ConvTranspose2dTorch(nn.ConvTranspose2d):
 
 
 class LayerNormTorch(nn.LayerNorm):
-    """nn.LayerNorm over the trailing channel dim (eps 1e-5)."""
+    """nn.LayerNorm over the trailing channel dim (eps 1e-5): stats,
+    normalise and affine in float32, output in the compute dtype (the JAX
+    ``LayerNormTorch``)."""
 
-    def __init__(self, features: int, eps: float = 1e-5) -> None:
+    def __init__(self, features: int, eps: float = 1e-5, *, compute_dtype: torch.dtype = torch.float32) -> None:
         super().__init__(features, eps=eps)
+        self.compute_dtype = compute_dtype
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.weight.fill_(1.0)
         self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps)
+        return y.to(self.compute_dtype)
 
 
 class LayerNormSpatial(nn.Module):

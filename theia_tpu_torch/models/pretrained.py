@@ -16,10 +16,14 @@ The port's ``Theia`` uses the reference names, so a state dict needs no
 conversion; its semantics are the JAX loader's, whose converter
 (``convert_theia_checkpoint``) reads the backbone and every teacher head of
 the model: a name of the model that the file lacks raises ``KeyError``
-(except the lconv heads' optional ``pad`` layer, which the converter reads
-only where the file has it), a file's extra names (other teachers) are
+(except the conv and lconv heads' optional ``pad`` layer, which the
+converter reads only where the file has it), a file's extra names (other teachers) are
 ignored, a tensor whose shape differs from the model's keeps the model's
 value (``_merge_loose``), and values are cast to the parameter's dtype.
+One divergence: a conv head without its ``pad`` has every other tensor
+loaded as the file holds it, where the JAX converter reads such a head as
+one on the unpadded grid and takes its 16x16 ladder for transposed
+convolutions.
 A train state's ``params`` load as they are, as the JAX restore takes its
 params. Every load goes through ``load_state_dict(strict=True)``.
 """
@@ -40,7 +44,8 @@ _TRAIN_STATE_KEYS = {"step", "params"}
 
 def _optional(name: str) -> bool:
     """Whether the JAX converter reads ``name`` only where the file has it:
-    the lconv heads' pad ConvTranspose (hf_convert.py convert_light_conv_head)."""
+    a conv or lconv head's pad ConvTranspose (hf_convert.py:107,136,
+    convert_light_conv_head and convert_conv_head)."""
     return name.startswith("translator.translator_heads.") and ".pad.1." in name
 
 
