@@ -27,7 +27,10 @@ failure (the script then exits nonzero and prints no result):
    calls, over 50 calls back to back and on two streams at once, one launch
    a call (torch.profiler),
    K5 and K6 (the fused loss's sums and d pred) at the five
-   cddsv teachers' [16, D] and over a sweep of B and D;
+   cddsv teachers' [16, D] and over a sweep of B and D, and K3 and K4 at
+   the CortexBench policy heads' LayerNormSpatial shapes, [32, 256, 7|3|1,
+   ·] and [32, 60, 7|3, ·] (C = 60: the kernels' one-element path), bf16
+   and float32, timed beside ``native_layer_norm_backward`` and the bound;
 4. serving: Theia-Base cddsv (seeded random weights) behind
    ``serving.Predictor``, answering requests through ``forward_feature``,
    ``predict`` and ``predict_stream`` in float32, then ``forward_feature``
@@ -126,6 +129,25 @@ failure (the script then exits nonzero and prints no result):
    32² points at the defaults and with both thresholds at their minimum
    (masks through ``filter_masks``, ``box_nms`` and the RLE round trip);
    the time of each decoder and of ``decode_everything``;
+11. data parallelism (run after 9, on phase 6b's shards): ``torchrun
+   --nproc_per_node=1 -m theia_tpu_torch.scripts.train_rvfm`` at the recipe,
+   batch 32 (3 steps and the save; one process makes no process group);
+   the step's collectives on a one-rank NCCL group (the bf16 gradient
+   bucket, the metrics' all-reduce, the barrier, the broadcast); two gloo
+   ranks on this one card (NCCL refuses two ranks on one device;
+   ``tools/two_rank_step.py``), 8 rows each, 3 recipe steps with the bf16
+   wire and 3 with float32: the ranks' parameters and Adam moments
+   bit-equal, exact launch counts a rank, losses within rtol 2e-2 of one
+   process on the whole batch, each rank's step and all-reduce times
+   (CUDA events), and in exact mode the all-reduced gradient against one
+   process's (the mean of its two half-batch passes within rel L2 1e-5 on
+   the float32 wire and 2^-8 on bf16; its one whole-batch pass within 5e-3);
+12. the downstream modules (run after 10): ``load_model`` on phase 4's
+   model ((768, 14, 14), B=1 p50), ``ConvBatchNormMLP`` and
+   ``ConvPolicyHead`` over 3 frames of its features at B=32, forward and
+   backward through K3/K4 (3 + 3 and 2 + 2 launches) against the plain
+   backward (float32, atol 1e-3), a ``VFMEncoder`` over DINOv2-L and a
+   ``ConcatVFMEncoder`` over DINOv2-L and CLIP-L at B=8 (seeded weights);
 7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
    also with the stream held, the device's time alone), and each kernel's
    bound and library call; K3's and K4's sums over a recipe step's 15
@@ -138,7 +160,8 @@ bf16 figures; ``mha_fwd``, ``mha_bwd``, ``flash_fwd``, ``flash_dq`` and
 tensor-core floor, and ``flash_dkv``'s the pair K9 + K8's under ``"pair"``;
 ``flash_fwd_vit_h`` is K7 at phase 8's [8, 257, 16, 80] in float32, with
 its bf16 figures under ``"bfloat16"``; ``ln_bwd_stats`` and ``ln_bwd_dx``
-carry phase 9's conv-translator shapes under ``"conv_translator"``)
+carry phase 9's conv-translator shapes under ``"conv_translator"`` and
+phase 3's policy-head shapes under ``"policy_heads"``)
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
 directory without the package beside it, the script exits nonzero.
 """
@@ -275,6 +298,30 @@ CONV_LN_SHAPES = ((1024, 16), (2048, 16), (2048, 31), (2048, 64))
 # the same decoder on the CPU (float32, TF32 off), at AMG's point batch
 DECODE_BATCH, AMG_POINTS_PER_SIDE = 2, 32
 DECODER_MASK_ATOL, DECODER_IOU_ATOL = 1e-3, 1e-4
+# phase 3: K3/K4 at the CortexBench policy heads' LayerNormSpatial shapes
+# (utils/cortexbench/policy_heads.py): ConvBatchNormMLP's 256 channels at
+# 7², 3² and 1², ConvPolicyHead's 60 (not a multiple of 8) at 7² and 3²,
+# at a batch of 32
+POLICY_LN_SHAPES = ((256, 7), (256, 3), (256, 1), (60, 7), (60, 3))
+POLICY_BATCH = 32
+# phase 11: data parallelism. (a) the CLI under torchrun at one process on
+# phase 6b's shards, batch 32: 3 steps and the save; (b) two gloo ranks on
+# the card, DP_ROWS rows each, DP_STEPS recipe steps a wire dtype, against
+# one process on the whole batch: losses (bf16 compute) within rtol 2e-2;
+# in exact mode, the all-reduced gradient bit-equal to the wire dtype's sum
+# of the ranks' local gradients each halved and cast, and within
+# TRAIN_GRAD_REL_L2 of one process's gradient on the whole batch (the
+# float32 forward is not bitwise repeatable on the card, and the heads'
+# ReLUs flip where a pre-activation is within rounding of 0)
+DP_CLI_BATCH, DP_ROWS, DP_STEPS = 32, 8, 3
+DP_LOSS_RTOL = 2e-2
+# phase 12: the policy heads at B = 32 over Theia-Base's (768, 14, 14)
+# features, 3 frames and 9 proprioceptive values, 7 actions; kernel path
+# against the plain backward (LN_STATS_IMPL="vpu"), float32; the VFM
+# encoders at B = 8
+HEAD_BATCH, HEAD_HISTORY, HEAD_PROPRIO, HEAD_ACTIONS = 32, 3, 9, 7
+HEAD_F32_ATOL = 1e-3
+VFM_BATCH = 8
 # JAX's TPU flash attention library, whose three Pallas kernels K7-K9 replace
 FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # the H100 SXM's published peaks
@@ -1295,7 +1342,7 @@ def translators_phase(card: str, tmp: str, teachers: list[str], reset_counts, re
     from theia_tpu_torch.train.optim import make_optimizer
     from theia_tpu_torch.train.state import TrainState
     from theia_tpu_torch.foundation.common import get_model_feature_size
-    from theia_tpu_torch.tools.timing import cuda_ms, interleaved_ms
+    from theia_tpu_torch.tools.timing import cuda_ms
 
     rng = np.random.default_rng(9)
     x16 = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
@@ -1398,15 +1445,25 @@ def translators_phase(card: str, tmp: str, teachers: list[str], reset_counts, re
     torch.cuda.empty_cache()
 
     # K3/K4 at the conv heads' LayerNormSpatial shapes against their plain versions, then timed
-    gen = torch.Generator(device="cuda").manual_seed(12)
+    return ln_shape_rows(ln_pallas, TRAIN_BATCH, CONV_LN_SHAPES, card, torch.Generator(device="cuda").manual_seed(12))
+
+
+def ln_shape_rows(ln_pallas, batch: int, shapes: tuple, card: str, gen: torch.Generator) -> dict:
+    """K3 and K4 at [batch, C, side, side] for each (C, side) of ``shapes``,
+    bf16 and float32, against their plain versions, then timed beside the
+    plain versions, ``native_layer_norm_backward`` and the bound (the maps
+    read once, the weight and the outputs once). Returns the rows, keyed by
+    (kernel, dtype, C, side)."""
+    from theia_tpu_torch.tools.timing import interleaved_ms
+
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
-        for c, side in CONV_LN_SHAPES:
-            x, g, w, mean, r = ln_inputs(TRAIN_BATCH, c, side, dtype, gen)
+        for c, side in shapes:
+            x, g, w, mean, r = ln_inputs(batch, c, side, dtype, gen)
             got = ln_pallas.ln_bwd_stats(x, w, mean, r, g)
             want = ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)
-            shape = f"[{TRAIN_BATCH},{c},{side},{side}]"
+            shape = f"[{batch},{c},{side},{side}]"
             err3 = max(compare(f"K3 ln_bwd_stats {dn} {shape} {n}", a, bb, torch.float32)
                        for n, a, bb in zip(("s1", "s2", "dw", "db"), got, want))
             dx = ln_pallas.ln_bwd_dx(x, w, mean, r, g, want[0], want[1])
@@ -1427,7 +1484,7 @@ def translators_phase(card: str, tmp: str, teachers: list[str], reset_counts, re
                                    "library": library}, 3 * maps + per_sample * 4, err4)):
                 t = interleaved_ms(fns, iters=10)
                 bound, by = bound_ms(nbytes, 8 * x.numel(), dtype)
-                rows[(key, dn, c, side)] = {"shape": [TRAIN_BATCH, c, side, side], "dtype": dn, "ms": t["kernel"],
+                rows[(key, dn, c, side)] = {"shape": [batch, c, side, side], "dtype": dn, "ms": t["kernel"],
                                             "plain_ms": t["plain"], "library_ms": t["library"], "bound_ms": bound,
                                             "bound_by": by, "max_abs_err": err}
                 print(f"    {'K3' if key == 'ln_bwd_stats' else 'K4'} {key} {dn} {shape}: kernel {t['kernel']:.4f} ms, "
@@ -1575,6 +1632,217 @@ def decoding_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def data_parallel_phase(card: str, tmp: str, teachers: list[str]) -> dict:
+    """Phase 11: data parallelism. (a) ``torchrun -m
+    theia_tpu_torch.scripts.train_rvfm`` at one process on phase 6b's
+    shards: 3 steps and the save (one process makes no process group); then
+    the NCCL branch of the step's collectives on a one-rank NCCL group: the
+    bf16 gradient bucket, the metrics' all-reduce, the barrier and the
+    broadcast. (b) Two gloo ranks on this one card
+    (``tools/two_rank_step.py``): the ranks' parameters and moments
+    bit-equal after each wire's steps, the losses against one process on
+    the whole batch, exact mode's all-reduced gradient against the whole
+    batch's, each rank's step and all-reduce times and launches. Returns
+    (b)'s records."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from theia_tpu_torch.parallel.distributed import barrier, broadcast_module
+    from theia_tpu_torch.train import step as tstep
+    from theia_tpu_torch.train.checkpoint import all_steps
+    from theia_tpu_torch.tools import two_rank_step
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    # (a) the CLI under torchrun, one process
+    run = "torchrun1"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m",
+           "theia_tpu_torch.scripts.train_rvfm", *RUNTIME_OVERRIDES, f"dataset.dataset_root={tmp}",
+           f"training.batch_size={DP_CLI_BATCH}", "training.epochs=1", f"logging.model_path={tmp}/ckpt",
+           f"logging.log_path={tmp}/logs", f"logging.run_identifier_prefix={run}"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
+    cli_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"torchrun train_rvfm failed ({out.returncode}):\n{out.stdout[-3000:]}\n"
+                               f"{out.stderr[-3000:]}")
+    steps = RUNTIME_TRAIN // DP_CLI_BATCH
+    saved = all_steps(os.path.join(tmp, "ckpt", run))
+    stepped = f"'step': {steps}," in out.stdout
+    print(f"phase 11, data parallelism: (a) torchrun --nproc_per_node=1 -m theia_tpu_torch.scripts.train_rvfm, "
+          f"{MODEL} at the recipe, batch {DP_CLI_BATCH} on phase 6b's shards: {cli_s:.1f} s for the whole command "
+          f"(the process's start included); committed steps {saved}; the printed summary ends at step {steps}: "
+          f"{stepped}")
+    check(saved == [steps] and stepped, "the torchrun run did not save its last step")
+
+    # the NCCL branch on a one-rank group (NCCL refuses two ranks on one card)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        grads = {"a": torch.randn(1000, 7, device="cuda", generator=gen), "b": torch.randn(33, device="cuda",
+                                                                                          generator=gen)}
+        wire = tstep.all_reduce_grads(grads, 1, torch.bfloat16)
+        metrics = tstep.mean_over_ranks({"loss": grads["b"][0], "per": {"t": grads["b"][1]}}, 2)
+        module = torch.nn.Linear(3, 2).cuda()
+        before = [p.clone() for p in module.parameters()]
+        barrier()
+        broadcast_module(module)
+        torch.cuda.synchronize()
+        ok = (all(torch.equal(wire[k], g.bfloat16().float()) for k, g in grads.items())
+              and float(metrics["loss"]) == float(grads["b"][0]) / 2
+              and all(torch.equal(a, b) for a, b in zip(before, module.parameters())))
+        print(f"  the NCCL branch at one rank ({dist.get_backend()}): the bf16 bucket of 7033 elements comes back as "
+              f"each gradient rounded to bf16, the metrics' all-reduce sums then divides, barrier and broadcast "
+              f"run: {ok}")
+        check(ok, "the collectives on a one-rank NCCL group")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two gloo ranks on this card
+    out_dir = Path(tmp) / "two_ranks"
+    port = free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen([sys.executable, "-m", "theia_tpu_torch.tools.two_rank_step", "--out",
+                                       str(out_dir), "--rows", str(DP_ROWS), "--steps", str(DP_STEPS)], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    two_s = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"two_rank_step rank {rank} failed ({p.returncode}):\n{log[-4000:]}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+
+    # one process on the whole batch: the same steps from the same start
+    images, targets = two_rank_step.global_batch(2 * DP_ROWS)
+    model, tx, state = two_rank_step.build_model(two_rank_step.RECIPE)
+    step = tstep.make_train_step(model, tx)
+    one = []
+    for _ in range(DP_STEPS):
+        state, m = step(state, images, targets)
+        one.append(float(m["loss"]))
+    del model, tx, state, step
+    torch.cuda.empty_cache()
+
+    n_ln, n_teachers = 15, len(teachers)
+    want = {"mha_fwd": 0, "mha_bwd": 0, "ln_bwd_stats": n_ln * DP_STEPS, "ln_bwd_dx": n_ln * DP_STEPS,
+            "loss_sums_fwd": n_teachers * DP_STEPS, "loss_sums_bwd": n_teachers * DP_STEPS}
+    print(f"  (b) two gloo ranks on one card (both cuda:0), {DP_ROWS} rows each of a global batch of {2 * DP_ROWS}, "
+          f"{MODEL} at the recipe, {DP_STEPS} steps a wire dtype; {two_s:.1f} s for both processes ({card})")
+    print(f"  one process on the whole batch: losses {' '.join(f'{x:.6f}' for x in one)}")
+    for wire in ("bfloat16", "float32"):
+        r0, r1 = ranks[0][wire], ranks[1][wire]
+        share = [sum(r[wire]["allreduce_ms"][1:]) / sum(r[wire]["step_ms"][1:]) for r in ranks]
+        print(f"  {wire} wire: losses {' '.join(f'{x:.6f}' for x in r0['losses'])}; one all_reduce of "
+              f"{r0['n_params']} {wire} elements a step; parameters bit-equal on both ranks: {r0['params_equal']}, "
+              f"Adam moments: {r0['moments_equal']}; launches a rank {r0['launches']} (expected {want})")
+        for rank, r in enumerate((r0, r1)):
+            print(f"    rank {rank}: step ms {' '.join(f'{x:.1f}' for x in r['step_ms'])}, gradient all-reduce ms "
+                  f"{' '.join(f'{x:.1f}' for x in r['allreduce_ms'])} (gloo, host-staged), its share of steps 2-"
+                  f"{DP_STEPS} {100 * share[rank]:.1f}% (CUDA events)")
+        check(r0["params_equal"] and r0["moments_equal"] and r0["losses"] == r1["losses"],
+              f"{wire} wire: the ranks' parameters, moments or losses differ")
+        check(r0["launches"] == want == r1["launches"], f"{wire} wire: launch counts are off")
+        check(np.allclose(r0["losses"], one, rtol=DP_LOSS_RTOL), f"{wire} wire: losses far from one process's")
+        ex = ranks[0][f"exact_{wire}"]
+        print(f"  exact mode (float32 compute), one step, {wire} wire: the all-reduced gradient bit-equal to the "
+              f"{wire} sum of the ranks' local gradients each halved and cast: {ex['wire_bit_equal']} (max abs "
+              f"{ex['wire_max_abs']:.3e}); against one process's on the whole batch rel_l2 "
+              f"{ex['grad_rel_l2_whole']:.3e} (< {TRAIN_GRAD_REL_L2}); loss {ex['loss']:.6f}")
+        check(ex["wire_bit_equal"] and ex["grad_rel_l2_whole"] < TRAIN_GRAD_REL_L2,
+              f"{wire} wire: the all-reduced gradient is not the ranks' or far from one process's")
+    return {"ranks": ranks, "one_process": one, "cli_s": cli_s}
+
+
+def downstream_phase(card: str, model, reset_counts, read_counts) -> dict:
+    """Phase 12, the downstream modules: ``load_model`` on phase 4's
+    full-width Theia-Base cddsv ((768, 14, 14), its B=1 p50); the two
+    CortexBench heads' forward and backward at B=32 through K3/K4 (exact
+    launch counts) against their plain backward; a VFMEncoder over DINOv2-L
+    and a ConcatVFMEncoder over DINOv2-L and CLIP-L at B=8 (seeded weights)."""
+    from theia_tpu_torch.models import layers
+    from theia_tpu_torch.models.vfm import ConcatVFMEncoder, VFMEncoder
+    from theia_tpu_torch.tools.timing import cuda_ms
+    from theia_tpu_torch.utils.cortexbench import ConvBatchNormMLP, ConvPolicyHead, load_model, rvfm_image_transforms
+
+    forward_feature, dim, transform, _ = load_model(model, rvfm_image_transforms())
+    rng = np.random.default_rng(12)
+    img = rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)
+    x1 = torch.from_numpy(transform(img)[None]).cuda()
+    p50, lo, hi = latency_b1(forward_feature, x1)
+    feats = forward_feature(x1)
+    print(f"phase 12, downstream: load_model on {MODEL} (float32): embedding {dim}, a 300x400 image through "
+          f"rvfm_image_transforms -> {tuple(x1.shape)} -> features {tuple(feats.shape)}; B=1 forward p50 {p50:.3f} ms "
+          f"(min {lo:.3f}, max {hi:.3f}, 50 calls) ({card})")
+    check(dim == (768, 14, 14) and tuple(feats.shape) == (1, 196, 768) and bool(torch.isfinite(feats).all()),
+          "load_model: embedding dim or features")
+
+    records = {}
+    c, h, w = dim
+    for cls, n_ln in ((ConvBatchNormMLP, 3), (ConvPolicyHead, 2)):
+        head = cls(embedding_dim=dim, proprio_dim=HEAD_PROPRIO, history_window=HEAD_HISTORY,
+                   action_dim=HEAD_ACTIONS).cuda()
+        obs = torch.randn(HEAD_BATCH, HEAD_HISTORY * h * w * c + HEAD_PROPRIO, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(14))
+        grads = {}
+        for impl in ("pallas", "vpu"):
+            layers.LN_STATS_IMPL = impl
+            try:
+                x = obs.clone().requires_grad_(True)
+                head.zero_grad()
+                reset_counts()
+                action = head(x)
+                action.square().sum().backward()
+                torch.cuda.synchronize()
+                counts = read_counts()
+            finally:
+                layers.LN_STATS_IMPL = "pallas"
+            lns = [m for m in head.modules() if isinstance(m, layers.LayerNormSpatial)]
+            grads[impl] = dict(dx=x.grad, action=action.detach(),
+                               **{f"dw{i}": m.weight.grad for i, m in enumerate(lns)},
+                               **{f"db{i}": m.bias.grad for i, m in enumerate(lns)})
+            if impl == "pallas":
+                launched = (counts["ln_bwd_stats"], counts["ln_bwd_dx"])
+        errs = {k: float((grads["pallas"][k] - v).abs().max()) for k, v in grads["vpu"].items()}
+        ms = cuda_ms(lambda: head(obs.requires_grad_(False)).square().sum().backward(), 5)
+        print(f"  {cls.__name__} (history {HEAD_HISTORY}, proprio {HEAD_PROPRIO}, B={HEAD_BATCH}, float32): forward "
+              f"and backward, K3/K4 launches {launched} (expected ({n_ln}, {n_ln})); kernel path against the plain "
+              f"backward, max abs: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) +
+              f" (atol {HEAD_F32_ATOL}); forward + backward {ms:.3f} ms (CUDA events, 5 calls)")
+        check(launched == (n_ln, n_ln), f"{cls.__name__}: K3/K4 launch counts")
+        check(max(errs.values()) < HEAD_F32_ATOL and bool(torch.isfinite(grads["pallas"]["dx"]).all()),
+              f"{cls.__name__}: the kernel path's gradients differ from the plain backward")
+        records[cls.__name__] = dict(launches=launched, max_abs_err=max(errs.values()), ms=ms)
+        del head, obs, grads
+        torch.cuda.empty_cache()
+
+    images = torch.from_numpy(rng.integers(0, 256, (VFM_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+    dino = VFMEncoder("facebook/dinov2-large", generator=torch.Generator(device="cuda").manual_seed(15))
+    both = ConcatVFMEncoder(["facebook/dinov2-large", "openai/clip-vit-large-patch14"],
+                            generator=torch.Generator(device="cuda").manual_seed(16))
+    for name, enc, want in (("VFMEncoder(dinov2-large)", dino, (VFM_BATCH, 256, 1024)),
+                            ("ConcatVFMEncoder(dinov2-large, clip-vit-large)", both, (VFM_BATCH, 256, 2048))):
+        out = enc.forward_feature(images)
+        ms = cuda_ms(lambda: enc.forward_feature(images), 3)
+        print(f"  {name} forward_feature at B={VFM_BATCH} uint8 224²: {tuple(out.shape)}, finite "
+              f"{bool(torch.isfinite(out).all())}; {ms:.2f} ms (CUDA events, 3 calls), {VFM_BATCH / ms * 1e3:.1f} "
+              f"images/s ({card})")
+        check(tuple(out.shape) == want and bool(torch.isfinite(out).all()), f"{name}: shape or values")
+        records[name] = ms
+    del dino, both
+    torch.cuda.empty_cache()
+    records["load_model_b1_p50_ms"] = p50
+    return records
+
+
 def _host_ms(fn, iters: int = 3) -> float:
     """Mean host milliseconds of a synchronous call after one warm call."""
     fn()
@@ -1713,6 +1981,10 @@ def main() -> int:
     _, teachers = parse_model_name(MODEL)
     teacher_dims = [math.prod(get_model_feature_size(t, keep_spatial=True)) for t in teachers]
     kernel_errors.update(compare_loss_kernels(fused_loss, teacher_dims))
+    # K3/K4 at the policy heads' shapes: C = 60 (one element a thread) and 1x1 maps
+    print(f"  K3/K4 at the CortexBench policy heads' LayerNormSpatial shapes, B={POLICY_BATCH}:")
+    policy_ln_rows = ln_shape_rows(ln_pallas, POLICY_BATCH, POLICY_LN_SHAPES, card,
+                                   torch.Generator(device="cuda").manual_seed(17))
 
     stamp("phase 3")
     # phase 4: serving
@@ -2101,6 +2373,10 @@ def main() -> int:
         # phase 9: the other translators, trained on phase 6b's shards
         conv_ln_rows = translators_phase(card, tmp, teachers, reset_counts, read_counts, ln_pallas)
         stamp("phase 9")
+        # phase 11: data parallelism, the CLI under torchrun on phase 6b's shards and two ranks on the card
+        data_parallel_phase(card, tmp, teachers)
+        torch.cuda.empty_cache()
+        stamp("phase 11")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2118,6 +2394,10 @@ def main() -> int:
     decoding_phase(card)
     torch.cuda.empty_cache()
     stamp("phase 10")
+    # phase 12: the downstream modules
+    downstream_phase(card, model, reset_counts, read_counts)
+    torch.cuda.empty_cache()
+    stamp("phase 12")
 
     # phase 7: timings
     print(f"phase 7: timings on {card}:")
@@ -2377,7 +2657,9 @@ def main() -> int:
             "bound_ms": bound, "bound_by": by, "library_ms": t.get("library"),
             **({"float32": f32_records[name]} if name in f32_records else {}),
             # K3/K4 at the conv translator's LayerNormSpatial shapes (phase 9)
-            **({"conv_translator": [v for k, v in conv_ln_rows.items() if k[0] == name]}
+            # and at the policy heads' (phase 3)
+            **({"conv_translator": [v for k, v in conv_ln_rows.items() if k[0] == name],
+                "policy_heads": [v for k, v in policy_ln_rows.items() if k[0] == name]}
                if name in ("ln_bwd_stats", "ln_bwd_dx") else {}),
         })
     # K7 on phase 8's path: ViT-H's 32 layers a call, float32

@@ -46,6 +46,15 @@ SLICE_MODULES = [
     "theia_tpu_torch.data.oxe",
     "theia_tpu_torch.train.checkpoint",
     "theia_tpu_torch.train.loop",
+    "theia_tpu_torch.parallel",
+    "theia_tpu_torch.parallel.distributed",
+    "theia_tpu_torch.utils.cortexbench",
+    "theia_tpu_torch.utils.cortexbench.load_model",
+    "theia_tpu_torch.utils.cortexbench.transforms",
+    "theia_tpu_torch.utils.cortexbench.policy_heads",
+    "theia_tpu_torch.utils.cortexbench.trifinger",
+    "theia_tpu_torch.utils.cortexbench.trifinger.policy",
+    "theia_tpu_torch.models.vfm",
     "theia_tpu_torch.scripts",
     "theia_tpu_torch.scripts.train_rvfm",
     "theia_tpu_torch.foundation",
@@ -101,6 +110,7 @@ SLICE_MODULES = [
     "theia_tpu_torch.tools.time_mha_bwd",
     "theia_tpu_torch.tools.time_serving",
     "theia_tpu_torch.tools.timing",
+    "theia_tpu_torch.tools.two_rank_step",
 ]
 
 

@@ -228,14 +228,30 @@ def test_layer_norm_spatial_matches_jax_pallas_module():
     "shape, dtype, memory_format, err",
     [
         ((2, 8, 4, 4), torch.float16, torch.channels_last, TypeError),
-        ((2, 12, 4, 4), torch.float32, torch.channels_last, ValueError),  # C % 8
+        ((2, 16, 4, 4), torch.float32, "misaligned", ValueError),  # the 16-byte path (C % 8 == 0)
         ((2, 8, 4, 4), torch.float32, torch.contiguous_format, ValueError),  # not channels_last
     ],
 )
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(shape, dtype, memory_format, err):
-    x = torch.zeros(shape, dtype=dtype).contiguous(memory_format=memory_format)
+    x = _misaligned(shape, dtype) if memory_format == "misaligned" else \
+        torch.zeros(shape, dtype=dtype).contiguous(memory_format=memory_format)
     with pytest.raises(err):
         tln._check_kernel_inputs(x, x, torch.zeros(shape[1:]), torch.zeros(shape[0]))
+
+
+def _misaligned(shape, dtype):
+    """A channels_last [B, C, H, W] view one element past a 16-byte boundary."""
+    b, c, h, w = shape
+    return torch.zeros(b * c * h * w + 1, dtype=dtype)[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("c", (12, 60, 13))
+def test_kernel_wrappers_take_any_channel_count(c):
+    """C that is not a multiple of 8 takes the kernels' one-element path,
+    at any alignment."""
+    for x in (torch.zeros(2, c, 3, 3).contiguous(memory_format=torch.channels_last), _misaligned((2, c, 3, 3),
+                                                                                               torch.float32)):
+        tln._check_kernel_inputs(x, x, torch.zeros(c, 3, 3), torch.zeros(2))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -362,3 +378,24 @@ def test_cuda_stats_is_one_kernel_launch(cuda):
     x, w, mean, r, g = _k3_inputs(cuda, 16, 768, 16, torch.bfloat16)
     ops = device_ops(lambda: tln.ln_bwd_stats(x, w, mean, r, g))
     assert len(ops) == 1 and next(iter(ops)).startswith("ln_bwd_stats_sm90") and list(ops.values()) == [1.0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 60, 7, 7), (32, 60, 3, 3), (32, 256, 1, 1), (3, 13, 5, 5)])
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_cuda_kernels_take_any_channel_count_and_one_position(cuda, shape, dtype):
+    """K3 and K4 where C is not a multiple of 8 (one element a thread; the
+    policy heads' C = 60) and at S = H*W = 1, against the plain version in
+    float64: s1, s2, dw, db within relative L2 1e-5, dx 1e-6 in float32
+    and 1e-2 in bf16 (its rounding)."""
+    b, c, side = shape[0], shape[1], shape[2]
+    x, w, mean, r, g = _k3_inputs(cuda, b, c, side, dtype)
+    before = (tln.LN_BWD_STATS_LAUNCHES, tln.LN_BWD_DX_LAUNCHES)
+    got = tln.ln_bwd_stats(x, w, mean, r, g)
+    want = tln.ln_bwd_stats_plain(*(t.double() for t in (x, w, mean, r, g)))
+    for a, bb in zip(got, want):
+        assert _rel_l2(a, bb) < 1e-5
+    dx = tln.ln_bwd_dx(x, w, mean, r, g, want[0].float(), want[1].float())
+    want_dx = tln.ln_bwd_dx_plain(*(t.double() for t in (x, w, mean, r, g)), want[0], want[1])
+    assert _rel_l2(dx, want_dx) < (1e-6 if dtype == torch.float32 else 1e-2)
+    assert (tln.LN_BWD_STATS_LAUNCHES, tln.LN_BWD_DX_LAUNCHES) == (before[0] + 1, before[1] + 1)

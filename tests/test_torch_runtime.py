@@ -322,9 +322,11 @@ def test_pretrained_flag_trains_and_names_the_run(shards, tmp_path):
 @pytest.mark.parametrize("override,err", [
     ("training.model_axis=2", NotImplementedError),
     ("training.grad_allreduce_dtype=bf9", ValueError),
-    ("env:WORLD_SIZE=2", NotImplementedError),
+    ("env:WORLD_SIZE=2", ValueError),  # without RANK, MASTER_ADDR, ...: not a torchrun launch
 ])
 def test_unported_options_raise(shards, tmp_path, monkeypatch, override, err):
+    for k in ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     if override.startswith("env:"):
         key, _, value = override[4:].partition("=")
         monkeypatch.setenv(key, value)

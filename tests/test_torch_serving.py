@@ -147,3 +147,41 @@ def test_matches_jax_predictor(models, method):
         got, want = got["facebook/dinov2-large"], want["facebook/dinov2-large"]
     assert got.shape == want.shape
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-3, rtol=0)
+
+
+def test_replicas_match_jax_mesh_predictor(models):
+    """``devices=["cpu", "cpu"]`` against the JAX Predictor over a mesh of
+    two CPU devices: the same buckets (each rounded up to a multiple of 2),
+    outputs within the JAX tolerance above and within 1e-5 of one replica."""
+    from theia_tpu.parallel.mesh import make_mesh
+
+    model, jmodel, params = models
+    jpred = JPredictor(jmodel, params, buckets=(1, 3, 4), mesh=make_mesh(n_data=2, devices=jax.devices()[:2]))
+    pred = Predictor(model, buckets=(1, 3, 4), devices=["cpu", "cpu"])
+    assert pred._buckets == jpred._buckets == (2, 4)
+    imgs = _images(5, seed=9)  # 4 + 1 (padded to 2)
+    got = pred(imgs)
+    np.testing.assert_allclose(got, np.asarray(jpred(imgs)), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got, Predictor(model, buckets=(2, 4))(imgs), atol=1e-5)
+
+
+def test_replicas_split_each_padded_batch_in_order(model):
+    pred = Predictor(model, buckets=(4,), method="predict", devices=["cpu", "cpu"])
+    assert pred._fn is model and pred._replica_fns[0] is not model  # the second replica is a copy
+    seen = []
+    fns = [pred._fn, *pred._replica_fns]
+
+    def spy(i):
+        def fn(x):
+            seen.append((i, x[:, 0, 0, 0].tolist()))
+            return fns[i](x)
+        return fn
+
+    pred._fn, pred._replica_fns = spy(0), [spy(1)]
+    imgs = _images(3, seed=11)
+    out = pred(imgs)
+    assert seen == [(0, imgs[:2, 0, 0, 0].tolist()), (1, [int(imgs[2, 0, 0, 0]), 0])]
+    want = Predictor(model, buckets=(4,), method="predict")(imgs)
+    np.testing.assert_allclose(out["facebook/dinov2-large"], want["facebook/dinov2-large"], atol=1e-5)
+    streamed = list(Predictor(model, buckets=(2,), devices=["cpu", "cpu"]).predict_stream(iter([imgs, imgs[:1]])))
+    assert [s.shape[0] for s in streamed] == [3, 1]

@@ -20,7 +20,12 @@
 // w and writes dw, db in the parameter's own (C, H, W) layout (position
 // fastest); K4 takes w as [S, C] float32. The kernels read the maps in
 // place; they never form the [S, B, C] view the TPU kernel used for XLA's
-// batch-minor layout. Any B and S, and any C that is a multiple of 8.
+// batch-minor layout. Any B, S and C: where C is a multiple of 8 a thread
+// moves 8-element vectors (16 bytes of bf16, 32 of float32; the maps must
+// then be 16-byte aligned), else one element (C = 60, 120 bytes a bf16 row,
+// as the policy heads' LayerNorms have), with the same tiling and the same
+// order of every sum. K4 takes 8-element vectors wherever a sample's N is a
+// multiple of 8 and its pointers are 16-byte aligned, else one element.
 //
 // What bounds them: device memory. At [16, 64, 64, 768] bf16, K3 must read
 // g and x (201 MB) and w (12.6 MB) and write dw and db in float32 (25 MB),
@@ -32,7 +37,7 @@
 // position chunks with all samples in a block and carries s1, s2 in VMEM
 // scratch. Here a tile is P whole positions x up to 128 channels (P = 16
 // at C = 768, 6 channel tiles): each of a block's 256 threads owns one
-// 8-channel vector of it, and every tile is a block (96 at 16x16, 1,536 at
+// vector of V channels of it (V = 8, or 1 where C is not a multiple of 8), and every tile is a block (96 at 16x16, 1,536 at
 // 64x64), so the blocks' phases overlap on each SM.
 //   - w's tile is staged through shared memory by 4-byte cp.async,
 //     transposed to the maps' position-major order (pitch + 4 floats: no
@@ -59,7 +64,7 @@
 // THEIA_K3_SLOTS and THEIA_K3_TILE_C build the ablations that
 // tools/time_ln_bwd.py times.
 //
-// K4 (ln_bwd_dx) streams g, x and w once more, one 8-element vector a
+// K4 (ln_bwd_dx) streams g, x and w once more, one vector of V elements a
 // thread, grid-stride.
 
 #include <cuda_bf16.h>
@@ -80,7 +85,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kVec = 8;  // elements a thread
+constexpr int kVec = 8;  // elements a thread on the vector path (the other path takes 1)
 
 constexpr int kMinBlocks = THEIA_K3_BLOCKS_PER_SM;
 constexpr int kBatchChunk = 32;  // samples whose s1, s2 partials a block holds between two flushes
@@ -115,17 +120,32 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&out)[kVec]
   unpack8(*reinterpret_cast<const uint4*>(p), out);
 }
 
-// 8 elements of a map as they arrive from memory, held until used
-template <typename T>
-struct Raw8;
+// one element: the path for shapes whose rows are not whole 16-byte vectors
+__device__ __forceinline__ void load1(const float* p, float (&out)[1]) { out[0] = *p; }
+__device__ __forceinline__ void load1(const __nv_bfloat16* p, float (&out)[1]) { out[0] = __bfloat162float(*p); }
+
+// V elements from p (V = 8: a 16-byte aligned vector)
+template <int V, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[V]) {
+  if constexpr (V == kVec) {
+    load8(p, out);
+  } else {
+    static_assert(V == 1, "a thread takes 8 elements or 1");
+    load1(p, out);
+  }
+}
+
+// V elements of a map as they arrive from memory, held until used
+template <typename T, int V>
+struct Raw;
 template <>
-struct Raw8<__nv_bfloat16> {
+struct Raw<__nv_bfloat16, kVec> {
   uint4 u;
   __device__ __forceinline__ void load(const __nv_bfloat16* p) { u = __ldg(reinterpret_cast<const uint4*>(p)); }
   __device__ __forceinline__ void unpack(float (&out)[kVec]) const { unpack8(u, out); }
 };
 template <>
-struct Raw8<float> {
+struct Raw<float, kVec> {
   float4 a, b;
   __device__ __forceinline__ void load(const float* p) {
     a = __ldg(reinterpret_cast<const float4*>(p));
@@ -135,6 +155,18 @@ struct Raw8<float> {
     out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
     out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
   }
+};
+template <>
+struct Raw<__nv_bfloat16, 1> {
+  unsigned short u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) { u = __ldg(reinterpret_cast<const unsigned short*>(p)); }
+  __device__ __forceinline__ void unpack(float (&out)[1]) const { out[0] = __bfloat162float(__ushort_as_bfloat16(u)); }
+};
+template <>
+struct Raw<float, 1> {
+  float a;
+  __device__ __forceinline__ void load(const float* p) { a = __ldg(p); }
+  __device__ __forceinline__ void unpack(float (&out)[1]) const { out[0] = a; }
 };
 
 __device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
@@ -153,6 +185,11 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[kVec])
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[kVec]) { store8(p, v); }
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[kVec]) { store8(p, v); }
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[1]) { *p = v[0]; }
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[1]) { *p = __float2bfloat16_rn(v[0]); }
+
 // 4 bytes from device memory into shared memory, in flight until
 // cp_async_wait_all (no register holds it)
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -168,31 +205,47 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// K3's tiling of s positions x c channels
+// K3's tiling of s positions x c channels, v channels a thread
 struct StatsTiles {
-  int cvecs;   // 8-channel vectors of a tile's position
+  int cvecs;   // v-channel vectors of a tile's position
   int p;       // positions a tile
   int ctiles;  // tiles across the channels
   int tiles;
 };
 
-__host__ __device__ inline StatsTiles stats_tiles(int s, int c) {
+// the channels a thread takes: 8 where a position's channels are whole 8-vectors, else 1
+__host__ __device__ inline int stats_vec(int c) { return c % kVec == 0 ? kVec : 1; }
+
+// the channels of a tile at v channels a thread: one element a thread
+// leaves at most kThreads
+__host__ __device__ constexpr int tile_channels(int v) { return v == kVec || kTileC <= kThreads ? kTileC : kThreads; }
+
+// the tiling at V channels a thread (V a compile-time constant in the
+// kernels, so the vector path's arithmetic is that of a kernel for V = 8 alone)
+template <int V>
+__host__ __device__ inline StatsTiles stats_tiles_for(int s, int c) {
+  constexpr int tc = tile_channels(V);
   StatsTiles t;
-  t.cvecs = (c < kTileC ? c : kTileC) / kVec;
+  t.cvecs = (c < tc ? c : tc) / V;
   t.p = kThreads / t.cvecs;
-  t.ctiles = (c + kTileC - 1) / kTileC;
+  t.ctiles = (c + tc - 1) / tc;
   t.tiles = ((s + t.p - 1) / t.p) * t.ctiles;
   return t;
 }
 
-// K3's dynamic shared memory for tiles of cvecs vectors: w's tile and the
-// dw, db sums ([p] rows of the tile's width + 4 floats each) and the
-// per-sample s1, s2 partials of each warp ([2][kBatchChunk][kWarps]).
-__host__ __device__ constexpr size_t stats_smem(int cvecs) {
-  return (3 * static_cast<size_t>(kThreads / cvecs) * (cvecs * kVec + 4) + 2 * kBatchChunk * kWarps) * sizeof(float);
+__host__ __device__ inline StatsTiles stats_tiles(int s, int c) {
+  return stats_vec(c) == kVec ? stats_tiles_for<kVec>(s, c) : stats_tiles_for<1>(s, c);
+}
+
+// K3's dynamic shared memory for tiles of cvecs vectors of v channels: w's
+// tile and the dw, db sums ([p] rows of the tile's width + 4 floats each)
+// and the per-sample s1, s2 partials of each warp ([2][kBatchChunk][kWarps]).
+__host__ __device__ constexpr size_t stats_smem(int cvecs, int v) {
+  return (3 * static_cast<size_t>(kThreads / cvecs) * (cvecs * v + 4) + 2 * kBatchChunk * kWarps) * sizeof(float);
 }
 // largest at one vector a position (256 positions a tile)
-static_assert(stats_smem(1) <= 48 * 1024, "K3 launches within the default dynamic shared memory");
+static_assert(stats_smem(1, kVec) <= 48 * 1024 && stats_smem(1, 1) <= 48 * 1024,
+              "K3 launches within the default dynamic shared memory");
 
 // dst[row * dst_pitch] = the sum of src[row * pitch + col0 + k] over k <
 // ncols, for every row < rows: tpr threads a row (a power of 2 within a
@@ -234,18 +287,20 @@ __device__ __forceinline__ void store_tile(const float* sdw, const float* sdb, f
 // K3. g, x: [batch, s, c] (c fastest); w, dw, db: [c, s] float32; mean,
 // rstd: [batch]; part: [2, batch, tiles + groups] scratch (the blocks' s1,
 // s2 partials, then their groups'); counter: kCounterWords words, 0
-// between launches; sums: [2, batch] (s1, then s2). One block a tile.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    ln_bwd_stats_sm90(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ mean, const float* __restrict__ rstd, float* __restrict__ part,
-                      unsigned int* __restrict__ counter, float* __restrict__ sums, float* __restrict__ dw,
-                      float* __restrict__ db, int batch, int s, int c) {
+// between launches; sums: [2, batch] (s1, then s2). One block a tile, V
+// channels a thread (V = stats_vec(c)): the kernel ln_bwd_stats_sm90 takes
+// 8, ln_bwd_stats_scalar 1.
+template <typename T, int V>
+__device__ __forceinline__ void stats_tile(const T* __restrict__ g, const T* __restrict__ x,
+                                           const float* __restrict__ w, const float* __restrict__ mean,
+                                           const float* __restrict__ rstd, float* __restrict__ part,
+                                           unsigned int* __restrict__ counter, float* __restrict__ sums,
+                                           float* __restrict__ dw, float* __restrict__ db, int batch, int s, int c) {
   extern __shared__ float4 smem4[];
   __shared__ bool last_block;
   float* smem = reinterpret_cast<float*>(smem4);
-  const StatsTiles tiling = stats_tiles(s, c);
-  const int pitch = tiling.cvecs * kVec + 4;
+  const StatsTiles tiling = stats_tiles_for<V>(s, c);
+  const int pitch = tiling.cvecs * V + 4;
   float* ws = smem;  // [p][pitch]: w of the tile, position-major
   float* sdw = ws + tiling.p * pitch;  // the tile's dw, db sums
   float* sdb = sdw + tiling.p * pitch;
@@ -256,15 +311,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int lane = t & 31;
   const int tile = blockIdx.x;
   const int s0 = (tile / tiling.ctiles) * tiling.p;
-  const int c0 = (tile % tiling.ctiles) * kTileC;
-  const int pv = min(tiling.p, s - s0);  // positions of this tile
-  const int cv = min(kTileC, c - c0);    // channels of this tile
+  const int c0 = (tile % tiling.ctiles) * tile_channels(V);
+  const int pv = min(tiling.p, s - s0);          // positions of this tile
+  const int cv = min(tile_channels(V), c - c0);  // channels of this tile
   const int tp = t / tiling.cvecs;       // this thread's position and vector in the tile
   const int tq = t - tp * tiling.cvecs;
-  const bool valid = tp < pv && tq * kVec < cv;
-  const int soff = tp * pitch + tq * kVec;
+  const bool valid = tp < pv && tq * V < cv;
+  const int soff = tp * pitch + tq * V;
   const int64_t step = static_cast<int64_t>(s) * c;  // a sample
-  const T* gt = g + (s0 + tp) * c + c0 + tq * kVec;
+  const T* gt = g + (s0 + tp) * c + c0 + tq * V;
   const T* xt = x + (gt - g);
   const int groups = (gridDim.x + kGroup - 1) / kGroup;
   const int part_pitch = gridDim.x + groups;
@@ -276,10 +331,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int p = e - ch * pv;
     cp_async4(ws + p * pitch + ch, w + static_cast<int64_t>(c0 + ch) * s + s0 + p);
   }
-  float wv[kVec], dwa[kVec], dba[kVec];
+  float wv[V], dwa[V], dba[V];
 #pragma unroll
-  for (int e = 0; e < kVec; ++e) wv[e] = dwa[e] = dba[e] = 0.f;
-  Raw8<T> gr[kSlots], xr[kSlots];  // the loads of samples j, j + 1, ... in flight
+  for (int e = 0; e < V; ++e) wv[e] = dwa[e] = dba[e] = 0.f;
+  Raw<T, V> gr[kSlots], xr[kSlots];  // the loads of samples j, j + 1, ... in flight
 #pragma unroll
   for (int d = 0; d < kSlots; ++d) {
     if (valid && d < batch) {
@@ -289,7 +344,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
   cp_async_wait_all();
   __syncthreads();
-  if (valid) load8(ws + soff, wv);
+  if (valid) load_vec<V>(ws + soff, wv);
 
   for (int j0 = 0; j0 < batch; j0 += kBatchChunk) {
     const int nj = min(kBatchChunk, batch - j0);
@@ -303,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         const float r = __ldg(rstd + j);
         float p1 = 0.f, p2 = 0.f;
         if (valid) {
-          float gv[kVec], xv[kVec];
+          float gv[V], xv[V];
           gr[d].unpack(gv);
           xr[d].unpack(xv);
           if (j + kSlots < batch) {
@@ -311,7 +366,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
             xr[d].load(xt + (j + kSlots) * step);
           }
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) {
+          for (int e = 0; e < V; ++e) {
             const float xh = (xv[e] - m) * r;
             const float gw = gv[e] * wv[e];
             p1 += gw;
@@ -352,8 +407,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   // dw, db through shared memory, stored position fastest
   if (valid) {
-    store8(sdw + soff, dwa);
-    store8(sdb + soff, dba);
+    store_vec(sdw + soff, dwa);
+    store_vec(sdb + soff, dba);
   }
   __syncthreads();
   store_tile(sdw, sdb, dw, db, cv, pitch, pv, s, s0, c0);
@@ -387,64 +442,126 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-// K4. dx = r * (g*w - (s1 + xhat*s2) / count), one 8-element vector a
-// thread, grid-stride over [batch, n]; w: [n] (= [S, C]) float32.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ln_bwd_dx(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ mean, const float* __restrict__ rstd, const float* __restrict__ s1,
-              const float* __restrict__ s2, T* __restrict__ dx, int batch, int64_t n, float count) {
-  const int64_t per_sample = n / kVec;
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    ln_bwd_stats_sm90(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ mean, const float* __restrict__ rstd, float* __restrict__ part,
+                      unsigned int* __restrict__ counter, float* __restrict__ sums, float* __restrict__ dw,
+                      float* __restrict__ db, int batch, int s, int c) {
+  stats_tile<T, kVec>(g, x, w, mean, rstd, part, counter, sums, dw, db, batch, s, c);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    ln_bwd_stats_scalar(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
+                        const float* __restrict__ mean, const float* __restrict__ rstd, float* __restrict__ part,
+                        unsigned int* __restrict__ counter, float* __restrict__ sums, float* __restrict__ dw,
+                        float* __restrict__ db, int batch, int s, int c) {
+  stats_tile<T, 1>(g, x, w, mean, rstd, part, counter, sums, dw, db, batch, s, c);
+}
+
+// K4. dx = r * (g*w - (s1 + xhat*s2) / count), one V-element vector a
+// thread, grid-stride over [batch, n]; w: [n] (= [S, C]) float32. The
+// kernel ln_bwd_dx takes V = 8, ln_bwd_dx_scalar 1.
+template <typename T, int V>
+__device__ __forceinline__ void dx_rows(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
+                                        const float* __restrict__ mean, const float* __restrict__ rstd,
+                                        const float* __restrict__ s1, const float* __restrict__ s2, T* __restrict__ dx,
+                                        int batch, int64_t n, float count) {
+  const int64_t per_sample = n / V;
   const int64_t total = static_cast<int64_t>(batch) * per_sample;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < total;
        i += static_cast<int64_t>(gridDim.x) * kThreads) {
     const int b = static_cast<int>(i / per_sample);
-    const int64_t e = (i - b * per_sample) * kVec;
+    const int64_t e = (i - b * per_sample) * V;
     const int64_t at = static_cast<int64_t>(b) * n + e;
-    float gv[kVec], xv[kVec], wv[kVec], out[kVec];
-    load8(g + at, gv);
-    load8(x + at, xv);
-    load8(w + e, wv);
+    float gv[V], xv[V], wv[V], out[V];
+    load_vec<V>(g + at, gv);
+    load_vec<V>(x + at, xv);
+    load_vec<V>(w + e, wv);
     const float m = mean[b];
     const float r = rstd[b];
     const float a = s1[b];
     const float c = s2[b];
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) {
+    for (int k = 0; k < V; ++k) {
       const float xh = (xv[k] - m) * r;
       out[k] = r * (gv[k] * wv[k] - (a + xh * c) / count);
     }
-    store8(dx + at, out);
+    store_vec(dx + at, out);
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ln_bwd_dx(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ mean, const float* __restrict__ rstd, const float* __restrict__ s1,
+              const float* __restrict__ s2, T* __restrict__ dx, int batch, int64_t n, float count) {
+  dx_rows<T, kVec>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ln_bwd_dx_scalar(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ mean, const float* __restrict__ rstd, const float* __restrict__ s1,
+                     const float* __restrict__ s2, T* __restrict__ dx, int batch, int64_t n, float count) {
+  dx_rows<T, 1>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count);
+}
+
+template <typename T, int V>
+int launch_stats_v(const void* g, const void* x, const float* w, const float* mean, const float* rstd, float* part,
+                   unsigned int* counter, float* sums, float* dw, float* db, int batch, int s, int c,
+                   cudaStream_t stream) {
+  const StatsTiles t = stats_tiles(s, c);
+  auto kernel = V == kVec ? ln_bwd_stats_sm90<T> : ln_bwd_stats_scalar<T>;
+  kernel<<<t.tiles, kThreads, stats_smem(t.cvecs, V), stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), w, mean, rstd, part, counter, sums, dw, db, batch, s, c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_stats(const void* g, const void* x, const float* w, const float* mean, const float* rstd, float* part,
                  unsigned int* counter, float* sums, float* dw, float* db, int batch, int s, int c,
                  cudaStream_t stream) {
-  const StatsTiles t = stats_tiles(s, c);
-  ln_bwd_stats_sm90<T><<<t.tiles, kThreads, stats_smem(t.cvecs), stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), w, mean, rstd, part, counter, sums, dw, db, batch, s, c);
+  if (stats_vec(c) == kVec)
+    return launch_stats_v<T, kVec>(g, x, w, mean, rstd, part, counter, sums, dw, db, batch, s, c, stream);
+  return launch_stats_v<T, 1>(g, x, w, mean, rstd, part, counter, sums, dw, db, batch, s, c, stream);
+}
+
+template <typename T, int V>
+int launch_dx_v(const void* g, const void* x, const float* w, const float* mean, const float* rstd, const float* s1,
+                const float* s2, void* dx, int batch, int64_t n, cudaStream_t stream) {
+  const int64_t vecs = static_cast<int64_t>(batch) * (n / V);
+  const int64_t want = (vecs + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < (int64_t{1} << 30) ? want : (int64_t{1} << 30));
+  auto kernel = V == kVec ? ln_bwd_dx<T> : ln_bwd_dx_scalar<T>;
+  kernel<<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(g), static_cast<const T*>(x), w, mean, rstd, s1, s2,
+                                          static_cast<T*>(dx), batch, n, static_cast<float>(n));
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// K4 takes 8-element vectors where a sample is whole vectors and every
+// pointer is 16-byte aligned, else one element a thread
 template <typename T>
 int launch_dx(const void* g, const void* x, const float* w, const float* mean, const float* rstd, const float* s1,
               const float* s2, void* dx, int batch, int64_t n, cudaStream_t stream) {
-  const int64_t vecs = static_cast<int64_t>(batch) * (n / kVec);
-  const int64_t want = (vecs + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < (int64_t{1} << 30) ? want : (int64_t{1} << 30));
-  ln_bwd_dx<T><<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(g), static_cast<const T*>(x),
-                                                w, mean, rstd, s1, s2, static_cast<T*>(dx),
-                                                batch, n, static_cast<float>(n));
-  return static_cast<int>(cudaGetLastError());
+  if (n % kVec == 0 && aligned16(g) && aligned16(x) && aligned16(w) && aligned16(dx))
+    return launch_dx_v<T, kVec>(g, x, w, mean, rstd, s1, s2, dx, batch, n, stream);
+  return launch_dx_v<T, 1>(g, x, w, mean, rstd, s1, s2, dx, batch, n, stream);
 }
 
-bool bad_args(int batch, int64_t n, int dtype) { return batch < 1 || n < kVec || n % kVec != 0 || (dtype != 0 && dtype != 1); }
+bool bad_args(int batch, int64_t n, int dtype) { return batch < 1 || n < 1 || (dtype != 0 && dtype != 1); }
 
 bool bad_stats_args(int batch, int s, int c, int dtype) {
-  return batch < 1 || s < 1 || c < kVec || c % kVec != 0 || (dtype != 0 && dtype != 1) ||
+  return batch < 1 || s < 1 || c < 1 || (dtype != 0 && dtype != 1) ||
          static_cast<int64_t>(s) * c > 0x7fffffff || stats_tiles(s, c).tiles > kMaxTiles;
+}
+
+// the vector path of K3 reads g and x by 16-byte loads
+bool misaligned_stats(const void* g, const void* x, int c) {
+  return stats_vec(c) == kVec && !(aligned16(g) && aligned16(x));
 }
 
 }  // namespace
@@ -462,18 +579,19 @@ int theia_ln_bwd_stats_parts(int batch, int s, int c) {
 // The words of K3's counter.
 int theia_ln_bwd_stats_counter_words() { return kCounterWords; }
 
-// K3, one launch. g, x: [batch, s, c] (16-byte aligned) of dtype (0 =
-// float32, 1 = bfloat16); w, dw, db: (c, s) float32; mean, rstd: [batch]
+// K3, one launch. g, x: [batch, s, c] of dtype (0 = float32, 1 =
+// bfloat16), 16-byte aligned where c is a multiple of 8; w, dw, db: (c, s) float32; mean, rstd: [batch]
 // float32; part: [2, batch, theia_ln_bwd_stats_parts] float32 scratch;
 // counter: theia_ln_bwd_stats_counter_words unsigned words, 0 before the
 // first launch (each launch leaves them 0); sums: [2, batch] float32, s1
-// then s2; c a multiple of 8. Launches that share a counter
+// then s2. Launches that share a counter
 // must share a stream. Returns the launch's cudaError_t on `stream` (0 on
 // success).
 int theia_ln_bwd_stats(const void* g, const void* x, const float* w, const float* mean, const float* rstd,
                        float* part, unsigned int* counter, float* sums, float* dw, float* db, int batch, int s, int c,
                        int dtype, void* stream) {
   if (bad_stats_args(batch, s, c, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned_stats(g, x, c)) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_stats<float>(g, x, w, mean, rstd, part, counter, sums, dw, db, batch, s, c, st);
   return launch_stats<__nv_bfloat16>(g, x, w, mean, rstd, part, counter, sums, dw, db, batch, s, c, st);
@@ -485,12 +603,16 @@ int theia_ln_bwd_stats(const void* g, const void* x, const float* w, const float
 int theia_ln_bwd_stats_blocks_per_sm(int s, int c, int dtype, int* threads, int* blocks) {
   if (bad_stats_args(1, s, c, dtype)) return -static_cast<int>(cudaErrorInvalidValue);
   const StatsTiles t = stats_tiles(s, c);
-  const size_t smem = stats_smem(t.cvecs);
+  const bool vec = stats_vec(c) == kVec;
+  const size_t smem = stats_smem(t.cvecs, stats_vec(c));
   int resident = 0;
-  const cudaError_t err =
-      dtype == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, ln_bwd_stats_sm90<float>, kThreads, smem)
-                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, ln_bwd_stats_sm90<__nv_bfloat16>,
-                                                                 kThreads, smem);
+  cudaError_t err;
+  if (dtype == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, vec ? ln_bwd_stats_sm90<float> : ln_bwd_stats_scalar<float>, kThreads, smem);
+  else
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, vec ? ln_bwd_stats_sm90<__nv_bfloat16> : ln_bwd_stats_scalar<__nv_bfloat16>, kThreads, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   *threads = kThreads;
   *blocks = t.tiles;
@@ -498,7 +620,8 @@ int theia_ln_bwd_stats_blocks_per_sm(int s, int c, int dtype, int* threads, int*
 }
 
 // K4: dx [batch, n] in the dtype of g and x, from K3's s1 and s2; w: [n]
-// (= [S, C]) float32.
+// (= [S, C]) float32. Any n; 16-byte loads where n is a multiple of 8 and
+// the pointers are 16-byte aligned.
 int theia_ln_bwd_dx(const void* g, const void* x, const float* w, const float* mean, const float* rstd,
                     const float* s1, const float* s2, void* dx, int batch, int64_t n, int dtype, void* stream) {
   if (bad_args(batch, n, dtype)) return static_cast<int>(cudaErrorInvalidValue);

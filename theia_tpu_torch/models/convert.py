@@ -346,3 +346,28 @@ def sam_decoder_state_dict(params: Mapping[str, Any], cfg: Any = None) -> dict[s
         _linear(sd, lp + "mlp.lin1", layer["mlp_lin1"])
         _linear(sd, lp + "mlp.lin2", layer["mlp_lin2"])
     return _tensors(sd)
+
+
+def policy_state_dict(params: Mapping[str, Any], log_std: Any = None) -> dict[str, torch.Tensor]:
+    """JAX CortexBench head params (``ConvBatchNormMLP``, ``ConvPolicyHead``,
+    the TriFinger ``ConvBatchNormMLPDeterministicPolicy``; with or without
+    the ``{"params": ...}`` wrapper) -> the port module's state dict: the
+    submodules carry the flax names, a conv's HWIO kernel becomes
+    (O, I, kh, kw), a dense kernel is transposed, LayerNorm affines are
+    kept. ``ConvBatchNormMLP``'s ``log_std`` (a flax param made only when
+    its ``log_std`` method runs) becomes ``log_std_param``; where the params
+    lack it, ``log_std`` gives it (the JAX init fills ``init_log_std``)."""
+    params = params.get("params", params)
+    sd: dict[str, np.ndarray] = {}
+    for name, leaf in params.items():
+        if name == "log_std":
+            sd["log_std_param"] = np.asarray(leaf)
+        elif "kernel" in leaf:
+            k = np.asarray(leaf["kernel"])
+            sd[f"{name}.weight"] = _hwio_to_oihw(k) if k.ndim == 4 else k.T
+            sd[f"{name}.bias"] = np.asarray(leaf["bias"])
+        else:
+            _norm(sd, name, leaf)
+    if "log_std_param" not in sd and log_std is not None:
+        sd["log_std_param"] = np.asarray(log_std, np.float32)
+    return _tensors(sd)

@@ -14,7 +14,9 @@ The kernels read the maps in channels_last memory, [B, S = H*W, C] with C
 contiguous, as the head ladders hold them; a gradient that arrives in
 another memory format is copied into channels_last first. K3 is one launch:
 it reads the weight in its own (C, H, W) layout and writes dw and db
-there, so autograd receives them in the parameter's layout.
+there, so autograd receives them in the parameter's layout. Any C: where
+C is a multiple of 8 the kernels move 16-byte vectors (the maps must then
+be 16-byte aligned), else one element a thread (the policy heads' C = 60).
 """
 
 from __future__ import annotations
@@ -92,20 +94,25 @@ def ln_spatial_bwd_plain(
     return ln_bwd_dx_plain(x, weight, mean, r, g, s1, s2), dw.to(weight.dtype), db.to(weight.dtype)
 
 
+def _vector_path(x: torch.Tensor) -> bool:
+    """True where K3 reads the maps by 16-byte vectors: C a multiple of 8."""
+    return x.shape[1] % 8 == 0
+
+
 def _check_kernel_inputs(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor) -> None:
     """Raise on anything the kernels do not take: float32 or bf16 NCHW maps
-    in channels_last memory, 16-byte aligned, C a multiple of 8."""
+    in channels_last memory, 16-byte aligned where C is a multiple of 8."""
     if x.dim() != 4 or g.shape != x.shape or tuple(weight.shape) != tuple(x.shape[1:]):
         raise ValueError(f"ln_bwd takes x, g [B,C,H,W] and weight (C,H,W), got {x.shape}, {g.shape}, {weight.shape}")
     if x.dtype not in _DTYPE_CODES or g.dtype != x.dtype:
         raise TypeError(f"ln_bwd takes float32 or bfloat16 maps, got {x.dtype}, {g.dtype}")
     if any(t.device != x.device for t in (g, weight, mean)):
         raise ValueError("ln_bwd inputs on different devices")
-    if x.shape[1] % 8:
-        raise ValueError(f"ln_bwd needs C a multiple of 8, got C={x.shape[1]}")
     for name, t in (("x", x), ("g", g)):
-        if not t.is_contiguous(memory_format=torch.channels_last) or t.data_ptr() % 16:
-            raise ValueError(f"ln_bwd needs {name} in 16-byte aligned channels_last memory")
+        if not t.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError(f"ln_bwd needs {name} in channels_last memory")
+        if _vector_path(x) and t.data_ptr() % 16:
+            raise ValueError(f"ln_bwd needs {name} 16-byte aligned where C is a multiple of 8 (C={x.shape[1]})")
 
 
 def _rows_sc(w: torch.Tensor) -> torch.Tensor:

@@ -6,10 +6,12 @@ GPU against its plain version, one PyTorch call and other builds of its source.
 Builds the kernels (``kernels/build.py``) and prints ptxas's registers and
 spills of ``ln_bwd_stats_sm90`` in bf16 and float32 and, at each timed
 shape, its resident blocks a SM and its grid. ``--parent DIR`` also builds
-``csrc/ln_bwd.cu`` of an unpacked earlier tree in DIR whose K3 took the
-weight as [S, C] and finished s1, s2 in a second kernel
-(``theia_ln_bwd_partials``); its launcher does what that tree's wrapper
-did, the weight's permuted copy included. ``--ablations`` builds the
+``csrc/ln_bwd.cu`` of an unpacked earlier tree in DIR: one whose K3 is one
+launch (``theia_ln_bwd_stats_parts``) is called through this tree's
+launcher, and its K4 is timed beside this tree's too; one whose K3 took
+the weight as [S, C] and finished s1, s2 in a second kernel
+(``theia_ln_bwd_partials``) through a launcher that does what that tree's
+wrapper did, the weight's permuted copy included. ``--ablations`` builds the
 source once for each entry of ``TARGET.ablations``, each changing one
 constant of the kernel through the ``-D`` switches the source reads. The extra libraries build in parallel. Every build is held to
 ``ln_bwd_stats_plain`` (relative L2 within 1e-5 on each of s1, s2, dw and
@@ -19,7 +21,8 @@ calls back to back. Then all are timed at ``TIMED`` with the plain version
 and ``native_layer_norm_backward``, in the order a, b, ..., b, a (device
 time, the stream held while the host enqueues), twice after a round that
 warms the card, with each one's share of its bound and the step's sum over
-the recipe's 15 sites (11 at 16x16, 2 at 31x31, 2 at 64x64); then each
+the recipe's 15 sites (11 at 16x16, 2 at 31x31, 2 at 64x64), and at the
+conv translator's widest shapes (``TIMED_WIDE``); then each
 build's device time by kernel (torch.profiler). Exits nonzero without a
 card or on a disagreement.
 """
@@ -76,9 +79,11 @@ PARENT_PASSES = ("ln_bwd_stats<bf16>", "ln_bwd_stats<f32>", "ln_bwd_finish")
 CHECKS = tuple((b, side, c) for b in (1, 3, 9, 16) for side in (7, 16, 31) for c in (8, 768))
 # the recipe's sites, and 7x7 (a 7x7 target's ladder), whose few bytes show a launch's fixed cost
 TIMED = ((torch.bfloat16, 7), (torch.bfloat16, 16), (torch.bfloat16, 31), (torch.bfloat16, 64), (torch.float32, 64))
+# the conv translator's LayerNormSpatial shapes (C, side) at the same batch
+TIMED_WIDE = ((torch.bfloat16, 2048, 64), (torch.float32, 2048, 64), (torch.bfloat16, 1024, 16))
 
 NEW_SIGNATURES = {"theia_ln_bwd_stats": [PTR] * 10 + [I32] * 4 + [PTR], "theia_ln_bwd_stats_parts": [I32] * 3,
-                  "theia_ln_bwd_stats_counter_words": []}
+                  "theia_ln_bwd_stats_counter_words": [], "theia_ln_bwd_dx": [PTR] * 8 + [I32, I64, I32, PTR]}
 PARENT_SIGNATURES = {"theia_ln_bwd_stats": [PTR] * 11 + [I32, I64, I32, PTR], "theia_ln_bwd_partials": [I64]}
 
 
@@ -110,6 +115,20 @@ def new_launcher(lib: ctypes.CDLL) -> Callable:
         if err:
             raise RuntimeError(f"launch failed ({err})")
         return sums[0], sums[1], dw, db
+    return run
+
+
+def dx_launcher(lib: ctypes.CDLL) -> Callable:
+    """K4 through another build's ``theia_ln_bwd_dx`` (no checks)."""
+    def run(x, w, mean, r, g, s1, s2):
+        w_sc = ln_pallas._rows_sc(w)
+        dx = torch.empty_like(x, memory_format=torch.channels_last)
+        err = lib.theia_ln_bwd_dx(g.data_ptr(), x.data_ptr(), w_sc.data_ptr(), mean.data_ptr(), r.data_ptr(),
+                                  s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), x.shape[0], x[0].numel(),
+                                  ln_pallas._DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed ({err})")
+        return dx
     return run
 
 
@@ -194,14 +213,21 @@ def main() -> int:
               f"per SM of {threads.value} threads, a grid of {grid.value} blocks")
     csrc = build.PACKAGE_DIR / "csrc" / TARGET.source
     sources = {}
+    one_launch_parent = False
     if args.parent:
-        sources["parent"] = (args.parent / "theia_tpu_torch" / "csrc" / TARGET.source, (), PARENT_SIGNATURES)
+        parent_src = args.parent / "theia_tpu_torch" / "csrc" / TARGET.source
+        one_launch_parent = "theia_ln_bwd_stats_parts" in parent_src.read_text()
+        sources["parent"] = (parent_src, (), NEW_SIGNATURES if one_launch_parent else PARENT_SIGNATURES)
     if args.ablations:
         sources.update({name: (csrc, d, NEW_SIGNATURES) for name, d in TARGET.ablations.items()})
     fns = {"kernel": ln_pallas.ln_bwd_stats}
+    dx_fns = {"kernel": ln_pallas.ln_bwd_dx}
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
         for name, other in build_libraries(sources, Path(work), print_ptxas).items():
-            fns[name] = parent_launcher(other) if name == "parent" else new_launcher(other)
+            old = name == "parent" and not one_launch_parent
+            fns[name] = parent_launcher(other) if old else new_launcher(other)
+            if name == "parent" and one_launch_parent:
+                dx_fns[name] = dx_launcher(other)
         gen = torch.Generator(device="cuda").manual_seed(0)
         worst = {}
         shapes = [(dtype, b, side, c) for dtype in (torch.bfloat16, torch.float32) for b, side, c in CHECKS]
@@ -230,8 +256,9 @@ def main() -> int:
             return 1
         print("  the kernel: bit-identical on two calls at every check shape and over 50 calls back to back")
         step = {}
-        for dtype, side in TIMED:
-            x, w, mean, r, g = ln_inputs(BATCH, CHANNELS, side, dtype, gen)
+        for dtype, c, side in [(dtype, CHANNELS, side) for dtype, side in TIMED] + list(TIMED_WIDE):
+            x, w, mean, r, g = ln_inputs(BATCH, c, side, dtype, gen)
+            s1, s2 = ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)[:2]
             dn = str(dtype).split(".")[-1]
             timed = {name: (lambda fn=fn: fn(x, w, mean, r, g)) for name, fn in fns.items()}
             timed["plain"] = lambda: ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)
@@ -240,14 +267,30 @@ def main() -> int:
             for rep in range(3):  # the first round warms the card and is not printed
                 ms = interleaved_ms(timed)
                 if rep:
-                    print(f"  [{BATCH},{CHANNELS},{side},{side}] {dn}, device ms (order a..b..a, {card}; bound "
+                    print(f"  K3 [{BATCH},{c},{side},{side}] {dn}, device ms (order a..b..a, {card}; bound "
                           f"{bound:.4f}): " + ", ".join(f"{n} {v:.4f} ({100 * bound / v:.0f}%)" for n, v in ms.items()))
-                    if dtype == torch.bfloat16 and side in SITES:
+                    if dtype == torch.bfloat16 and side in SITES and c == CHANNELS:
                         for name in fns:
                             step.setdefault((rep, name), []).append((SITES[side] * ms[name], SITES[side] * bound))
+            if len(dx_fns) > 1:
+                want = ln_pallas.ln_bwd_dx_plain(x, w, mean, r, g, s1, s2)
+                for name, fn in dx_fns.items():
+                    err = rel_l2(fn(x, w, mean, r, g, s1, s2), want)
+                    if err > (REL_L2 if dtype == torch.float32 else 1e-2):
+                        print(f"time_ln_bwd: K4 {name} disagrees with the plain version at [{BATCH},{c},{side},{side}] "
+                              f"{dn} (relative L2 {err:.2e})", file=sys.stderr)
+                        return 1
+                timed_dx = {name: (lambda fn=fn: fn(x, w, mean, r, g, s1, s2)) for name, fn in dx_fns.items()}
+                dx_bound = (3 * x.numel() * x.element_size() + x[0].numel() * 4) / HBM_BYTES_PER_S * 1e3
+                for rep in range(3):
+                    ms = interleaved_ms(timed_dx)
+                    if rep:
+                        print(f"  K4 [{BATCH},{c},{side},{side}] {dn}, device ms (order a..b..a, {card}; bound "
+                              f"{dx_bound:.4f}): " + ", ".join(f"{n} {v:.4f} ({100 * dx_bound / v:.0f}%)"
+                                                              for n, v in ms.items()))
             for name in fns:
                 split = kernel_ms(timed[name])
-                print(f"  [{BATCH},{CHANNELS},{side},{side}] {dn} {name}, device ms a call by kernel (torch.profiler, "
+                print(f"  K3 [{BATCH},{c},{side},{side}] {dn} {name}, device ms a call by kernel (torch.profiler, "
                       "50 calls): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
         for (rep, name), sites in sorted(step.items()):
             total, bound = (sum(v) for v in zip(*sites))

@@ -15,7 +15,12 @@ step, ``<ckpt_dir>/<step>.pt``, with orbax's guarantees:
   - **robust restore**: ``restore_checkpoint`` tries committed steps
     newest-first and falls back, with a warning, if one is unreadable; if
     every step fails it raises the newest step's error;
-  - the newest ``max_to_keep`` (5) steps are kept.
+  - the newest ``max_to_keep`` (5) steps are kept;
+  - **data parallelism** (a process group of more than one rank): rank 0
+    alone writes, and every rank meets a barrier at each save (after a
+    blocking save's write), so no rank restores or exits ahead of the file;
+    every rank restores the step rank 0 restored (the newest it could
+    read). Rank 0's writer thread takes part in no collective.
 
 ``read_params`` reads a step's parameters alone, for serving
 (``models/pretrained.py``).
@@ -37,7 +42,9 @@ import warnings
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
+from theia_tpu_torch.parallel.distributed import barrier, is_main_process, world_size
 from theia_tpu_torch.train.state import TrainState
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
@@ -106,7 +113,8 @@ class CheckpointSession:
     as a context manager) to wait for the last write. ``timings`` lists
     ``[step, seconds save() blocked, seconds the write took]`` per save (the
     write's time is filled in when it ends; a blocking save's blocked time
-    includes its write)."""
+    includes its write). In a process group, only rank 0 copies and
+    writes, and ``save`` ends at a barrier of every rank."""
 
     def __init__(self, ckpt_dir: str, max_to_keep: int = 5) -> None:
         self.ckpt_dir = ckpt_dir
@@ -125,6 +133,11 @@ class CheckpointSession:
             raise err
 
     def save(self, state: TrainState, step: int, block: bool = False) -> None:
+        if is_main_process():
+            self._save(state, step, block)
+        barrier()
+
+    def _save(self, state: TrainState, step: int, block: bool) -> None:
         t0 = time.perf_counter()
         self.wait()
         host = _to_host(_flat(state))
@@ -160,8 +173,11 @@ class CheckpointSession:
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: int, max_to_keep: int = 5) -> None:
     """One-shot blocking save (scripts and tests; the train loop uses
-    ``CheckpointSession`` for async saves)."""
-    _write(ckpt_dir, _to_host(_flat(state)), step, max_to_keep)
+    ``CheckpointSession`` for async saves); rank 0 writes, then every rank
+    meets a barrier."""
+    if is_main_process():
+        _write(ckpt_dir, _to_host(_flat(state)), step, max_to_keep)
+    barrier()
 
 
 def _load_into(path: str, target: TrainState) -> None:
@@ -212,9 +228,30 @@ def restore_checkpoint(ckpt_dir: str, target_state: TrainState, step: Optional[i
     With ``step=None``, committed steps are tried newest-first: if the
     newest is unreadable (a truncated or corrupt file), restore warns and
     falls back to the previous one; if every step fails — a mismatch of
-    structure rather than corruption — the newest step's error is raised."""
+    structure rather than corruption — the newest step's error is raised.
+    In a process group, rank 0 picks the step so and every other rank
+    restores the step it picked (None on every rank if it found none)."""
     if step is not None:
         _load_into(_step_path(ckpt_dir, step), target_state)
+        return target_state
+    if world_size() > 1:
+        picked: list[Any] = [None]
+        err: Optional[Exception] = None
+        if is_main_process():
+            try:
+                found = _newest_readable(ckpt_dir, lambda path: _load_into(path, target_state))
+                picked[0] = None if found is None else found[0]
+            except Exception as e:  # every rank learns of it, then raises
+                err, picked[0] = e, "failed"
+        dist.broadcast_object_list(picked, src=0)
+        if err is not None:
+            raise err
+        if picked[0] == "failed":
+            raise RuntimeError(f"rank 0 could not restore any step of {ckpt_dir}")
+        if picked[0] is None:
+            return None
+        if not is_main_process():
+            _load_into(_step_path(ckpt_dir, picked[0]), target_state)
         return target_state
     if _newest_readable(ckpt_dir, lambda path: _load_into(path, target_state)) is None:
         return None

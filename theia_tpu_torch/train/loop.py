@@ -1,13 +1,17 @@
 """Training orchestration: epochs, eval, checkpoints, metrics (port of theia_tpu/train/loop.py).
 
-One process drives the train step (``train/step.py``) on one device; the
+Each process drives the train step (``train/step.py``) on one device; the
 host loop streams batches from pinned memory, rolls teacher subsets,
 throttles metric readback and saves checkpoints with true resume (the
 reference saves weights only: src/theia/scripts/train/train_rvfm.py:38-345).
-The epoch, step, eval and fast-forward arithmetic is the JAX loop's at one
-process. Left out with the JAX package's mesh: ``model_axis > 1`` (tensor
-parallelism) and more than one process (``WORLD_SIZE > 1``; data parallelism
-is ROADMAP Queue 1 #5) raise; ``donate_state`` has no meaning here.
+Under torchrun (``WORLD_SIZE > 1``) every process trains on its own card,
+``cuda:LOCAL_RANK``, and its own shards of the data, and the step averages
+the gradients over the ranks (``parallel/distributed.py``): the epoch,
+step, eval, learning-rate and fast-forward arithmetic is the JAX loop's at
+that many processes of one chip each (theia_tpu/train/loop.py:142-145,
+205-254,396,480-507). Rank 0 alone prints, logs and writes checkpoints.
+Left out with the JAX package's mesh: ``model_axis > 1`` (tensor
+parallelism) raises; ``donate_state`` has no meaning here.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from theia_tpu_torch.data.dataset import get_frame_dataloader, get_image_video_d
 from theia_tpu_torch.data.stats import load_feature_stats
 from theia_tpu_torch.foundation.common import MODEL_FEATURE_SIZES, get_model_feature_size
 from theia_tpu_torch.models.rvfm import Theia
+from theia_tpu_torch.parallel.distributed import broadcast_module, init_distributed
 from theia_tpu_torch.train.checkpoint import CheckpointSession, restore_checkpoint
 from theia_tpu_torch.train.optim import (
     constant_with_warmup,
@@ -39,8 +44,8 @@ from theia_tpu_torch.utils.seed import seed_everything
 
 
 def _parse_grad_allreduce_dtype(value: Any) -> Optional[torch.dtype]:
-    """training.grad_allreduce_dtype -> dtype or None, rejecting typos loudly.
-    One process has no gradient all-reduce, so the value is only validated."""
+    """training.grad_allreduce_dtype -> dtype or None (float32), rejecting
+    typos loudly (a silently ignored "bf16" would invalidate any comm A/B)."""
     if value in (None, "float32", "f32"):
         return None
     if value in ("bfloat16", "bf16"):
@@ -194,18 +199,12 @@ def build_optimizer(cfg: DotDict, learning_rate: float | Callable):
     )
 
 
-def _check_single_process(cfg: DotDict) -> None:
+def _check_data_parallel_only(cfg: DotDict) -> None:
     if int(cfg.training.get("model_axis", 1) or 1) > 1:
         raise NotImplementedError(
             f"training.model_axis={cfg.training.model_axis}: tensor parallelism (theia_tpu/parallel/tp.py) is not "
-            "ported; the port trains on one device"
+            "ported; the port trains data-parallel only"
         )
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if world > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={world}: data parallelism over processes is not ported yet (ROADMAP Queue 1 #5, DDP)"
-        )
-    _parse_grad_allreduce_dtype(cfg.training.get("grad_allreduce_dtype", None))
 
 
 def train_from_config(
@@ -213,9 +212,13 @@ def train_from_config(
 ) -> dict:
     """Full training entry (reference ddp_main + train; train_rvfm.py:221-345).
 
-    Trains on ``device``: the GPU unless the caller asks for the CPU.
-    Returns a summary dict (final step, last losses; the JAX loop's keys)
-    with, under "timing", the host's view of this call: the epoch loop's
+    Trains on ``device``: the GPU unless the caller asks for the CPU. Under
+    torchrun (``WORLD_SIZE > 1``) the process joins the group
+    (``parallel.distributed.init_distributed``; NCCL on CUDA, gloo on the
+    CPU) and trains on ``cuda:LOCAL_RANK``; a group made before the call is
+    used as it is. Returns a summary dict (final step, last losses; the JAX
+    loop's keys) with, on rank 0, under "timing", the host's view of this
+    call: the epoch loop's
     wall time (train steps, evals and saves, ending after the final blocking
     save, which waits for the device), the steps and images it trained, the
     time blocked in the loaders' ``next()``, each save's (step, seconds
@@ -224,7 +227,10 @@ def train_from_config(
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_from_config: no CUDA device; pass device='cpu' to train on the CPU")
-    _check_single_process(cfg)
+    _check_data_parallel_only(cfg)
+    grad_allreduce_dtype = _parse_grad_allreduce_dtype(cfg.training.get("grad_allreduce_dtype", None))
+    rank, world, device = init_distributed(device)
+    is_main = rank == 0
     if not cfg.logging.get("run_identifier_prefix"):
         cfg.logging.run_identifier_prefix = build_run_identifier(cfg)
     _, generator = seed_everything(cfg.seed)
@@ -251,31 +257,38 @@ def train_from_config(
         from theia_tpu_torch.data.oxe import get_oxe_frame_dataset
 
         ds_kwargs = dict(dataset_root=cfg.dataset.dataset_root, dataset_mix=mix, feature_models=names_wocls,
-                         image_views=cfg.dataset.get("image_views"), seed=cfg.seed)
+                         image_views=cfg.dataset.get("image_views"), rank=rank, world_size=world, seed=cfg.seed)
         train_ds, train_len = get_oxe_frame_dataset(
             split="train", dataset_ratio=cfg.dataset.dataset_ratio, shuffle=cfg.dataset.shuffle, **ds_kwargs
         )
         eval_ds, eval_len = get_oxe_frame_dataset(split="val", dataset_ratio=0.1, shuffle=False, **ds_kwargs)
     else:
         ds_kwargs = dict(dataset_root=cfg.dataset.dataset_root, dataset_mix=mix, feature_models=names_wocls,
-                         feature_norm=feature_norm, stats_root=cfg.dataset.get("stats_root"), seed=cfg.seed)
+                         feature_norm=feature_norm, stats_root=cfg.dataset.get("stats_root"), rank=rank,
+                         world_size=world, seed=cfg.seed)
         train_ds, train_len = get_image_video_dataset(
             split="train", dataset_ratio=cfg.dataset.dataset_ratio, shuffle=cfg.dataset.shuffle, **ds_kwargs
         )
         eval_ds, eval_len = get_image_video_dataset(split="val", dataset_ratio=0.1, shuffle=False, **ds_kwargs)
 
-    # one process on one device: the JAX loop's step arithmetic (train_rvfm.py:294-301)
-    # with one data shard; eval keeps its partial tail batch
+    # the JAX loop's step arithmetic (train_rvfm.py:294-301) with one chip a
+    # process: ``batch_size`` rows a rank, ``world`` ranks. One process keeps
+    # eval's partial tail batch (an eval set smaller than one batch must
+    # still evaluate); more take the floor, at least one step, so that every
+    # rank runs the same number of eval steps and their all-reduces pair up
     batch_size = int(cfg.training.batch_size)
-    train_epoch_steps = math.ceil(train_len / batch_size)
-    eval_epoch_steps = math.ceil(eval_len / batch_size)
+    train_epoch_steps = math.ceil(train_len / batch_size / world)
+    if world > 1:
+        eval_epoch_steps = max(eval_len // (batch_size * world), 1)
+    else:
+        eval_epoch_steps = math.ceil(eval_len / batch_size)
     if max_steps is not None:
         train_epoch_steps = min(train_epoch_steps, max_steps)
         eval_epoch_steps = min(eval_epoch_steps, max(max_steps // 4, 1))
     total_train_steps = train_epoch_steps * cfg.training.epochs
     warmup_steps = int(cfg.training.warm_up_steps_ratio * total_train_steps)
 
-    lr = scaled_lr(float(cfg.training.base_lr), batch_size, 1,
+    lr = scaled_lr(float(cfg.training.base_lr), batch_size, world,
                    int(cfg.training.base_batch_size), int(cfg.training.base_world_size))
     schedule = build_lr_schedule(cfg, lr, total_train_steps, warmup_steps)
     loss_dtype = torch.bfloat16 if cfg.training.get("loss_dtype", "float32") == "bfloat16" else torch.float32
@@ -288,6 +301,8 @@ def train_from_config(
         t0 = time.perf_counter()
         if restore_checkpoint(ckpt_dir, state) is not None:
             restore_s = time.perf_counter() - t0
+    # every rank starts from rank 0's parameters (the JAX loop's replicated placement)
+    broadcast_module(model)
 
     train_step = make_train_step(
         model, tx,
@@ -301,6 +316,7 @@ def train_from_config(
         freeze_translator_start_step=int(cfg.training.freeze_translator_start_steps_ratio * total_train_steps),
         target_stats=target_stats,
         loss_dtype=loss_dtype,
+        grad_allreduce_dtype=grad_allreduce_dtype,
     )
     eval_step = make_eval_step(
         model,
@@ -316,8 +332,10 @@ def train_from_config(
         use_tensorboard=bool(cfg.logging.get("tensorboard", False)),
         project=cfg.logging.project,
         config=cfg.to_dict(),
+        enabled=is_main,
     )
-    print(to_yaml(cfg))
+    if is_main:
+        print(to_yaml(cfg))
 
     pin = device.type == "cuda"
 
@@ -353,7 +371,7 @@ def train_from_config(
     # point; the reference has no resume at all, SURVEY.md §5)
     start_ep = min(steps // train_epoch_steps, int(cfg.training.epochs)) if train_epoch_steps else 0
     done_in_epoch = steps - start_ep * train_epoch_steps
-    if steps:
+    if steps and is_main:
         print(f"[theia_tpu_torch] resuming at step {steps} (epoch {start_ep}, {done_in_epoch} steps into it)")
     summary: dict[str, Any] = {}
     images_trained = 0
@@ -368,7 +386,7 @@ def train_from_config(
             batch_size=batch_size,
             shuffle=cfg.dataset.shuffle,
             shuffle_buffer_size=cfg.dataset.shuffle_buffer_size,
-            seed=cfg.seed + ep,
+            seed=cfg.seed + rank * 100 + ep,
             num_workers=num_workers,
             pin_memory=pin,
         )
@@ -395,11 +413,12 @@ def train_from_config(
             images, targets = place(batch)
             state, metrics = train_step(state, images, targets, loss_masks)
             steps += 1
-            images_seen += images.shape[0]
-            images_trained += images.shape[0]
+            global_images = images.shape[0] * world
+            images_seen += global_images
+            images_trained += global_images
             window_sum = metrics if window_sum is None else _tree_add(window_sum, metrics)
             window_steps += 1
-            window_images += images.shape[0]
+            window_images += global_images
 
             if steps % log_interval == 0:
                 fetched = _fetch_mean(window_sum, window_steps)
@@ -428,11 +447,12 @@ def train_from_config(
             window_sum, window_steps, window_images = None, 0, 0
 
         # ---- eval epoch (reference train_rvfm.py:159-201) ----
-        # partial tail batches are kept (an eval set smaller than one batch
-        # must still evaluate); metrics are summed on the device and read
-        # back once
+        # one process keeps partial tail batches (an eval set smaller than
+        # one batch must still evaluate); more drop them and an exhausted
+        # rank re-iterates, so that every rank runs eval_epoch_steps steps;
+        # metrics are summed on the device and read back once
         eval_loader = get_frame_dataloader(eval_ds, batch_size=batch_size, shuffle=False, seed=cfg.seed,
-                                           drop_last=False, pin_memory=pin)
+                                           drop_last=world > 1, pin_memory=pin)
         eval_iter = iter(eval_loader)
         eval_sum = None
         eval_batches = 0
@@ -441,12 +461,19 @@ def train_from_config(
             try:
                 batch = next_batch(eval_iter)
             except StopIteration:
-                break
+                if world == 1:
+                    break
+                eval_iter = iter(eval_loader)
+                try:
+                    batch = next_batch(eval_iter)
+                except StopIteration:
+                    raise RuntimeError(f"rank {rank}: the eval split yields no full batch of {batch_size}; "
+                                       "reduce batch_size or add eval data") from None
             images, targets = place(batch)
             em = eval_step(images, targets)
             eval_sum = em if eval_sum is None else _tree_add(eval_sum, em)
             eval_batches += 1
-            eval_images += images.shape[0]
+            eval_images += images.shape[0] * world
         if eval_sum is not None:
             fetched = _fetch_mean(eval_sum, eval_batches)
             flat = update_meters_from_metrics(meters, fetched, target_model_names, "eval", eval_images)
@@ -459,7 +486,8 @@ def train_from_config(
     wall_s = time.perf_counter() - t_loop
     logger.close()
     summary.update(step=steps, run=cfg.logging.run_identifier_prefix, ckpt_dir=ckpt_dir)
-    summary["timing"] = dict(wall_s=wall_s, steps=steps - first_step, images=images_trained,
-                             loader_wait_s=loader_wait, saves=[tuple(t) for t in ckpt_session.timings],
-                             restore_s=restore_s)
+    if is_main:
+        summary["timing"] = dict(wall_s=wall_s, steps=steps - first_step, images=images_trained,
+                                 loader_wait_s=loader_wait, saves=[tuple(t) for t in ckpt_session.timings],
+                                 restore_s=restore_s)
     return summary

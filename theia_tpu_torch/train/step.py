@@ -3,9 +3,23 @@
 uint8 images and raw teacher features go in; the step runs the model, the
 loss, the gradients, the optional grad clip and the masked AdamW update on
 the device, and returns metrics as device tensors (nothing is read back to
-the host inside a step). Left out with the JAX package's TPU and mesh
-toggles: ``mesh=``, ``grad_allreduce_dtype``, ``donate``,
-``compiler_options`` and ``DEFAULT_COMPILER_OPTIONS``.
+the host inside a step).
+
+Data parallelism: in a process group of more than one rank (one process a
+card, ``parallel/distributed.py``), each rank differentiates its own rows
+of the global batch and the step averages the gradients by hand, as the
+JAX step's bf16 bucket does (theia_tpu/train/step.py:134-196): the
+gradients, zero-filled where a parameter got none, are flattened in
+parameter order into one float32 buffer, scaled by 1/world, cast to the
+wire dtype (``grad_allreduce_dtype``: bf16, or None for float32), summed
+by **one** ``all_reduce``, and cast back to float32 before the grad clip
+and the optimizer. The loss and its terms are averaged over ranks by one
+more small float32 ``all_reduce`` (the JAX ``pmean``), kept on the device.
+At one rank the step issues no collective. (``torch.distributed``'s
+``bf16_compress_hook`` casts before it divides, which rounds otherwise;
+and ``DistributedDataParallel``'s reducer never sees ``autograd.grad``.)
+Left out with the JAX package's TPU and mesh toggles: ``mesh=``,
+``donate``, ``compiler_options`` and ``DEFAULT_COMPILER_OPTIONS``.
 """
 
 from __future__ import annotations
@@ -13,10 +27,12 @@ from __future__ import annotations
 from typing import Any, Callable, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from theia_tpu_torch.models.losses import get_loss, main_loss_from_terms
 from theia_tpu_torch.models.translators import head_key
+from theia_tpu_torch.parallel.distributed import world_size
 from theia_tpu_torch.train.optim import clip_grad_norm
 from theia_tpu_torch.train.state import TrainState
 
@@ -58,6 +74,49 @@ def _metrics(main: torch.Tensor, losses: Mapping[str, Any]) -> dict[str, Any]:
     return metrics
 
 
+def mean_over_ranks(metrics: dict[str, Any], world: int) -> dict[str, Any]:
+    """``metrics`` (scalar tensors, and dicts of them) averaged over the
+    ``world`` ranks by one float32 ``all_reduce`` of their stack, on the
+    device; unchanged at one rank."""
+    if world <= 1:
+        return metrics
+    keys: list[tuple[str, Optional[str]]] = []
+    leaves: list[torch.Tensor] = []
+    for k, v in metrics.items():
+        for sub, leaf in (v.items() if isinstance(v, dict) else [(None, v)]):
+            keys.append((k, sub))
+            leaves.append(leaf.float())
+    stacked = torch.stack(leaves)
+    dist.all_reduce(stacked)
+    stacked = stacked / world
+    out: dict[str, Any] = {}
+    for (k, sub), v in zip(keys, stacked):
+        if sub is None:
+            out[k] = v
+        else:
+            out.setdefault(k, {})[sub] = v
+    return out
+
+
+def all_reduce_grads(
+    grads: dict[str, torch.Tensor], world: int, wire_dtype: Optional[torch.dtype] = None
+) -> dict[str, torch.Tensor]:
+    """The mean of every rank's ``grads``, by one ``all_reduce`` of their
+    flat buffer: each gradient in float32, scaled by 1/world, cast to
+    ``wire_dtype`` (None: float32), summed over ranks and cast back, then
+    split into the parameters' shapes and dtypes."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads.values()])
+    flat.div_(world)
+    wire = flat if wire_dtype in (None, torch.float32) else flat.to(wire_dtype)
+    dist.all_reduce(wire)
+    flat = wire.float()
+    out, offset = {}, 0
+    for n, g in grads.items():
+        out[n] = flat[offset:offset + g.numel()].view(g.shape).to(g.dtype)
+        offset += g.numel()
+    return out
+
+
 def make_train_step(
     model: nn.Module,
     tx: Any,
@@ -72,6 +131,7 @@ def make_train_step(
     freeze_translator_start_step: int = 0,
     target_stats: Optional[Mapping[str, tuple]] = None,
     loss_dtype: torch.dtype = torch.float32,
+    grad_allreduce_dtype: Optional[torch.dtype] = None,
 ) -> Callable:
     """Build ``train_step(state, images, targets, loss_masks=None) -> (state, metrics)``.
 
@@ -85,7 +145,13 @@ def make_train_step(
         parameters, Adam moments and per-parameter step counts (``tx`` must
         take ``mask=``, as ``MaskedAdamW`` does). Both are device tensors,
         so a step never waits on the host.
+    In a process group of more than one rank (its size read here), the
+    gradients are averaged over the ranks on a ``grad_allreduce_dtype``
+    wire (bf16, or None for float32) and the metrics over the ranks, as
+    the module docstring says; ``images`` and ``targets`` are this rank's
+    rows of the global batch.
     """
+    world = world_size()
 
     def train_step(state: TrainState, images: Any, targets: Mapping[str, torch.Tensor], loss_masks=None):
         names = list(state.params)
@@ -98,6 +164,9 @@ def make_train_step(
         found = torch.autograd.grad(main, [state.params[n] for n in names], allow_unused=True)
         grads = {n: torch.zeros_like(state.params[n]) if g is None else g for n, g in zip(names, found)}
         metrics = _metrics(main, losses)
+        if world > 1:
+            grads = all_reduce_grads(grads, world, grad_allreduce_dtype)
+            metrics = mean_over_ranks(metrics, world)
 
         if grad_clip:
             max_norm = torch.where(state.step < warmup_steps, grad_clip_norm_warmup, grad_clip_norm)
@@ -137,7 +206,9 @@ def make_eval_step(
     loss_dtype: torch.dtype = torch.float32,
 ) -> Callable:
     """``eval_step(images, targets) -> metrics`` with the model's current
-    parameters (the JAX step takes them as its first argument)."""
+    parameters (the JAX step takes them as its first argument); in a
+    process group, the metrics are averaged over the ranks."""
+    world = world_size()
 
     @torch.no_grad()
     def eval_step(images: Any, targets: Mapping[str, torch.Tensor]) -> dict[str, Any]:
@@ -145,6 +216,6 @@ def make_eval_step(
             model(images), prepare_targets(targets, target_stats, dtype=loss_dtype),
             target_loss_weights, compute_dtype=loss_dtype,
         )
-        return _metrics(main_loss_from_terms(losses, main_loss), losses)
+        return mean_over_ranks(_metrics(main_loss_from_terms(losses, main_loss), losses), world)
 
     return eval_step
