@@ -148,6 +148,18 @@ failure (the script then exits nonzero and prints no result):
    backward through K3/K4 (3 + 3 and 2 + 2 launches) against the plain
    backward (float32, atol 1e-3), a ``VFMEncoder`` over DINOv2-L and a
    ``ConcatVFMEncoder`` over DINOv2-L and CLIP-L at B=8 (seeded weights);
+13. tensor parallelism (run after 12): K4 against its plain version with
+   the normaliser's count twice the row length (a sample whose channels two
+   ranks split) at [16, 384, 31|64, ·] in bf16 and float32; two gloo ranks
+   at ``model_axis=2`` on this card (``tools/tp_step.py``), both on one
+   global batch of 16, 3 recipe steps: the losses and the gathered
+   parameters' change against one process's on the same batch, the
+   replicated parameters bit-equal on both ranks (and the replicated
+   gradients before their bucket), exact launch counts a rank, the
+   audit's model-group all-reduces (2 a block and 3 a head each way, and
+   the replicated bucket), each rank's step ms, the all-reduces' share and
+   its peak memory against one process's; in exact mode the gathered
+   gradient against one process's (rel L2 5e-3);
 7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
    also with the stream held, the device's time alone), and each kernel's
    bound and library call; K3's and K4's sums over a recipe step's 15
@@ -322,6 +334,19 @@ DP_LOSS_RTOL = 2e-2
 HEAD_BATCH, HEAD_HISTORY, HEAD_PROPRIO, HEAD_ACTIONS = 32, 3, 9, 7
 HEAD_F32_ATOL = 1e-3
 VFM_BATCH = 8
+# phase 13: tensor parallelism. K4 with the normaliser's count twice the
+# row length (a sample whose channels two ranks split) at the split
+# ladder's LayerNormSpatial shapes; two gloo ranks at model_axis=2 on the
+# card, both on the same global batch, TP_STEPS recipe steps against one
+# process's: losses within DP_LOSS_RTOL, the parameters' change within
+# TP_CHANGE_REL_L2 of one process's change (relative L2: Adam's first
+# steps move each parameter by about the learning rate whatever the
+# gradient's size, so bf16 rounding that flips the sign of a small
+# gradient moves that parameter by twice the step), the exact-mode
+# gradient within TRAIN_GRAD_REL_L2
+TP_ROWS, TP_STEPS = 16, 3
+TP_LN_SHAPES = ((384, 31), (384, 64))
+TP_CHANGE_REL_L2 = 0.5
 # JAX's TPU flash attention library, whose three Pallas kernels K7-K9 replace
 FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # the H100 SXM's published peaks
@@ -1843,6 +1868,124 @@ def downstream_phase(card: str, model, reset_counts, read_counts) -> dict:
     return records
 
 
+def tensor_parallel_phase(card: str, teachers: list[str], ln_pallas) -> dict:
+    """Phase 13: tensor parallelism. K4 against its plain version with the
+    normaliser's count apart from the row length, at the split ladder's
+    shapes, and K3/K4 timed there; then two gloo ranks at ``model_axis=2`` on this card
+    (``tools/tp_step.py``): the losses and the gathered parameters' change
+    against one process's, the replicated parameters bit-equal on both
+    ranks, the exact-mode gradient against one process's, the launches, the
+    audit's model-group records, each rank's step time, the share of it in
+    the all-reduces and its peak memory. Returns the ranks' records."""
+    import os
+    import socket
+
+    from theia_tpu_torch.tools import two_rank_step
+    from theia_tpu_torch.train.step import make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    print(f"phase 13, tensor parallelism ({card}):")
+    for c, side in TP_LN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            x, g, w, mean, r = ln_inputs(TRAIN_BATCH, c, side, dtype, gen)
+            s1, s2, _, _ = ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)
+            count = 2 * x[0].numel()
+            dx = ln_pallas.ln_bwd_dx(x, w, mean, r, g, s1, s2, count)
+            torch.cuda.synchronize()
+            compare(f"K4 ln_bwd_dx {dn} [{TRAIN_BATCH},{c},{side},{side}], N = {count} (twice the row)", dx,
+                    ln_pallas.ln_bwd_dx_plain(x, w, mean, r, g, s1, s2, count), dtype)
+    del x, g, w, mean, r, s1, s2, dx
+    torch.cuda.empty_cache()
+    print("  K3 and K4 at a rank's split ladder maps, timed (N the row: the count changes one scalar):")
+    ln_rows = ln_shape_rows(ln_pallas, TRAIN_BATCH, TP_LN_SHAPES, card, gen)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out_dir = Path(tempfile.mkdtemp(prefix="theia_tp_"))
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen([sys.executable, "-m", "theia_tpu_torch.tools.tp_step", "--out", str(out_dir),
+                                       "--rows", str(TP_ROWS), "--steps", str(TP_STEPS)], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    two_s = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"tp_step rank {rank} failed ({p.returncode}):\n{log[-4000:]}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+    cut = torch.load(out_dir / "params.pt", weights_only=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # one process on the same batch, from the same start
+    images, targets = two_rank_step.global_batch(TP_ROWS)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, tx, state = two_rank_step.build_model(two_rank_step.RECIPE)
+    flat = lambda tree: torch.cat([t.detach().reshape(-1).float().cuda() for t in tree.values()])  # noqa: E731
+    init = flat(state.params)
+    step = make_train_step(model, tx)
+    one = {"losses": []}
+    for _ in range(TP_STEPS):
+        state, m = step(state, images, targets)
+        one["losses"].append(float(m["loss"]))
+    one["peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    want_p = flat(state.params)
+    one["change_rel_l2"] = float((flat(cut) - want_p).norm() / (want_p - init).norm())
+    del model, tx, state, step, cut, init, want_p
+    torch.cuda.empty_cache()
+
+    r0, r1 = ranks
+    n_layers, n_heads = 12, len(teachers)
+    want = {"mha_fwd": 0, "mha_bwd": 0, "ln_bwd_stats": 3 * n_heads * TP_STEPS, "ln_bwd_dx": 3 * n_heads * TP_STEPS,
+            "loss_sums_fwd": n_heads * TP_STEPS, "loss_sums_bwd": n_heads * TP_STEPS}
+    # the forward: 2 row-parallel sums a block, and a head's split LayerNorm
+    # sums, row-parallel conv and fused loss sums; the backward: 2
+    # column-parallel input gradients a block, and a head's 2 (its conv's and
+    # last Dense's) and its split LayerNorm's s1, s2; then the replicated bucket
+    want_ars = (2 * n_layers + 3 * n_heads) * 2 + 1
+    print(f"  two gloo ranks on one card (both cuda:0), model_axis=2, both on one global batch of {TP_ROWS}, "
+          f"{MODEL} at the recipe, {TP_STEPS} steps; {two_s:.1f} s for both processes ({card}); "
+          f"{r0['recipe']['n_split']} of {r0['recipe']['n_params']} parameters split, "
+          f"{r0['recipe']['local_elements']} elements a rank")
+    print(f"  losses {' '.join(f'{x:.6f}' for x in r0['recipe']['losses'])}; one process on the same batch "
+          f"{' '.join(f'{x:.6f}' for x in one['losses'])} (rtol {DP_LOSS_RTOL}); the gathered parameters' change "
+          f"against one process's: rel_l2 {one['change_rel_l2']:.3e} (< {TP_CHANGE_REL_L2})")
+    for rank, r in enumerate(ranks):
+        rec = r["recipe"]
+        later = slice(1, None)
+        share = sum(map(sum, rec["allreduce_ms"][later])) / sum(rec["step_ms"][later])
+        bucket = [ms[-1] for ms in rec["allreduce_ms"]]
+        print(f"    rank {rank}: step ms {' '.join(f'{x:.1f}' for x in rec['step_ms'])}; {len(rec['allreduce_ms'][0])} "
+              f"model-group all-reduces a step ({sum(rec['allreduce_bytes'][0]) / 2**20:.1f} MiB), their share of "
+              f"steps 2-{TP_STEPS} {100 * share:.1f}% (CUDA events, gloo's host staging included), of which the "
+              f"replicated gradients' bucket {' '.join(f'{x:.1f}' for x in bucket)} ms; peak memory "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB (one process's {one['peak_bytes'] / 2**30:.2f} GiB above what "
+              f"the script held); replicated parameters bit-equal on both ranks: "
+              f"{rec['replicated_equal']}; launches {rec['launches']}")
+    for mode in ("recipe", "exact"):
+        sp = r0[mode]["replicated_grad_spread"]
+        print(f"  {mode}: the ranks' replicated gradients before the bucket that averages them: {sp['differ']} of "
+              f"{sp['elements']} elements differ, max abs {sp['max_abs']:.3e}")
+    print(f"  exact mode (float32 compute), one step: the gathered gradient against one process's rel_l2 "
+          f"{r0['exact']['grad_rel_l2_whole']:.3e} (< {TRAIN_GRAD_REL_L2}); loss {r0['exact']['loss']:.6f}")
+    print(f"  audit of one recipe step on rank 0: {r0['audit']} (model-group all-reduces expected {want_ars})")
+    check(r0["recipe"]["losses"] == r1["recipe"]["losses"], "the ranks' losses differ")
+    check(np.allclose(r0["recipe"]["losses"], one["losses"], rtol=DP_LOSS_RTOL), "TP losses far from one process's")
+    check(one["change_rel_l2"] < TP_CHANGE_REL_L2, "TP parameters' change far from one process's")
+    check(r0["recipe"]["replicated_equal"] and r1["recipe"]["replicated_equal"],
+          "the replicated parameters differ across the model group")
+    check(r0["recipe"]["launches"] == want == r1["recipe"]["launches"], f"TP launch counts are off (expected {want})")
+    check(r0["exact"]["grad_rel_l2_whole"] < TRAIN_GRAD_REL_L2, "the TP gradient is far from one process's")
+    check(r0["audit"] == {"all-reduce@g2": r0["audit"].get("all-reduce@g2", {})}
+          and r0["audit"]["all-reduce@g2"]["count"] == want_ars, "the audit's model-group records are off")
+    return {"ranks": ranks, "seconds": two_s, "ln_rows": ln_rows}
+
+
 def _host_ms(fn, iters: int = 3) -> float:
     """Mean host milliseconds of a synchronous call after one warm call."""
     fn()
@@ -2398,6 +2541,10 @@ def main() -> int:
     downstream_phase(card, model, reset_counts, read_counts)
     torch.cuda.empty_cache()
     stamp("phase 12")
+    # phase 13: tensor parallelism, two ranks of one model group on the card
+    tensor_parallel_phase(card, teachers, ln_pallas)
+    torch.cuda.empty_cache()
+    stamp("phase 13")
 
     # phase 7: timings
     print(f"phase 7: timings on {card}:")

@@ -180,7 +180,8 @@ def test_fused_selection_follows_the_jax_rule(monkeypatch):
     with D >= 1024 and D % 128 == 0; fused=False and FUSED_LOSS = False none."""
     seen = []
     real = tlosses._losses_fused
-    monkeypatch.setattr(tlosses, "_losses_fused", lambda p, t, dt: seen.append(p[0].numel()) or real(p, t, dt))
+    monkeypatch.setattr(tlosses, "_losses_fused",
+                        lambda p, t, dt, **kw: seen.append(p[0].numel()) or real(p, t, dt, **kw))
     f = {k: torch.randn(s, generator=torch.Generator().manual_seed(6)) for k, s in SIZES.items()}
     for fused, default, want in [(True, False, [1536, 2048]), (None, True, [1536, 2048]), (False, True, []),
                                  (None, False, [])]:

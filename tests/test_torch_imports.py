@@ -48,6 +48,9 @@ SLICE_MODULES = [
     "theia_tpu_torch.train.loop",
     "theia_tpu_torch.parallel",
     "theia_tpu_torch.parallel.distributed",
+    "theia_tpu_torch.parallel.mesh",
+    "theia_tpu_torch.parallel.tp",
+    "theia_tpu_torch.parallel.audit",
     "theia_tpu_torch.utils.cortexbench",
     "theia_tpu_torch.utils.cortexbench.load_model",
     "theia_tpu_torch.utils.cortexbench.transforms",
@@ -111,6 +114,7 @@ SLICE_MODULES = [
     "theia_tpu_torch.tools.time_serving",
     "theia_tpu_torch.tools.timing",
     "theia_tpu_torch.tools.two_rank_step",
+    "theia_tpu_torch.tools.tp_step",
 ]
 
 

@@ -399,3 +399,35 @@ def test_cuda_kernels_take_any_channel_count_and_one_position(cuda, shape, dtype
     want_dx = tln.ln_bwd_dx_plain(*(t.double() for t in (x, w, mean, r, g)), want[0], want[1])
     assert _rel_l2(dx, want_dx) < (1e-6 if dtype == torch.float32 else 1e-2)
     assert (tln.LN_BWD_STATS_LAUNCHES, tln.LN_BWD_DX_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+def test_bwd_dx_plain_takes_the_normaliser_count():
+    """K4's plain version divides by ``count`` (the whole sample's N where
+    the channels are split over ranks), by default the row length."""
+    x, g, weight, _ = _inputs((2, 8, 4, 4))
+    mean, r = _torch_stats(x)
+    x, g, w = _nchw(x), _nchw(g), torch.from_numpy(weight)
+    s1, s2, _, _ = tln.ln_bwd_stats_plain(x, w, mean, r, g)
+    n = x[0].numel()
+    assert torch.equal(tln.ln_bwd_dx_plain(x, w, mean, r, g, s1, s2),
+                       tln.ln_bwd_dx_plain(x, w, mean, r, g, s1, s2, n))
+    m, rr, a, c = (t.reshape(-1, 1, 1, 1) for t in (mean, r, s1, s2))
+    want = rr * (g * w - (a + (x - m) * rr * c) / (3 * n))
+    torch.testing.assert_close(tln.ln_bwd_dx_plain(x, w, mean, r, g, s1, s2, 3 * n), want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", (31, 64))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_cuda_dx_takes_the_normaliser_count(cuda, s, dtype):
+    """K4 with a normaliser's count of twice the row length (a sample whose
+    channels two ranks split) against its plain version in float64: relative
+    L2 1e-6 in float32, 1e-2 in bf16 (its rounding)."""
+    x, w, mean, r, g = _k3_inputs(cuda, 4, 64, s, dtype)
+    s1, s2, _, _ = tln.ln_bwd_stats_plain(*(t.double() for t in (x, w, mean, r, g)))
+    count = 2 * x[0].numel()
+    before = tln.LN_BWD_DX_LAUNCHES
+    dx = tln.ln_bwd_dx(x, w, mean, r, g, s1.float(), s2.float(), count)
+    want = tln.ln_bwd_dx_plain(*(t.double() for t in (x, w, mean, r, g)), s1, s2, count)
+    assert tln.LN_BWD_DX_LAUNCHES == before + 1
+    assert _rel_l2(dx, want) < (1e-6 if dtype == torch.float32 else 1e-2)

@@ -320,7 +320,7 @@ def test_pretrained_flag_trains_and_names_the_run(shards, tmp_path):
 
 
 @pytest.mark.parametrize("override,err", [
-    ("training.model_axis=2", NotImplementedError),
+    ("training.model_axis=2", ValueError),  # one process: the world is not a multiple of the model axis
     ("training.grad_allreduce_dtype=bf9", ValueError),
     ("env:WORLD_SIZE=2", ValueError),  # without RANK, MASTER_ADDR, ...: not a torchrun launch
 ])

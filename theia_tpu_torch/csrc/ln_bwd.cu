@@ -530,13 +530,13 @@ int launch_stats(const void* g, const void* x, const float* w, const float* mean
 
 template <typename T, int V>
 int launch_dx_v(const void* g, const void* x, const float* w, const float* mean, const float* rstd, const float* s1,
-                const float* s2, void* dx, int batch, int64_t n, cudaStream_t stream) {
+                const float* s2, void* dx, int batch, int64_t n, int64_t count, cudaStream_t stream) {
   const int64_t vecs = static_cast<int64_t>(batch) * (n / V);
   const int64_t want = (vecs + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(want < (int64_t{1} << 30) ? want : (int64_t{1} << 30));
   auto kernel = V == kVec ? ln_bwd_dx<T> : ln_bwd_dx_scalar<T>;
   kernel<<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(g), static_cast<const T*>(x), w, mean, rstd, s1, s2,
-                                          static_cast<T*>(dx), batch, n, static_cast<float>(n));
+                                          static_cast<T*>(dx), batch, n, static_cast<float>(count));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -546,13 +546,15 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // pointer is 16-byte aligned, else one element a thread
 template <typename T>
 int launch_dx(const void* g, const void* x, const float* w, const float* mean, const float* rstd, const float* s1,
-              const float* s2, void* dx, int batch, int64_t n, cudaStream_t stream) {
+              const float* s2, void* dx, int batch, int64_t n, int64_t count, cudaStream_t stream) {
   if (n % kVec == 0 && aligned16(g) && aligned16(x) && aligned16(w) && aligned16(dx))
-    return launch_dx_v<T, kVec>(g, x, w, mean, rstd, s1, s2, dx, batch, n, stream);
-  return launch_dx_v<T, 1>(g, x, w, mean, rstd, s1, s2, dx, batch, n, stream);
+    return launch_dx_v<T, kVec>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count, stream);
+  return launch_dx_v<T, 1>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count, stream);
 }
 
-bool bad_args(int batch, int64_t n, int dtype) { return batch < 1 || n < 1 || (dtype != 0 && dtype != 1); }
+bool bad_args(int batch, int64_t n, int64_t count, int dtype) {
+  return batch < 1 || n < 1 || count < 1 || (dtype != 0 && dtype != 1);
+}
 
 bool bad_stats_args(int batch, int s, int c, int dtype) {
   return batch < 1 || s < 1 || c < 1 || (dtype != 0 && dtype != 1) ||
@@ -620,14 +622,17 @@ int theia_ln_bwd_stats_blocks_per_sm(int s, int c, int dtype, int* threads, int*
 }
 
 // K4: dx [batch, n] in the dtype of g and x, from K3's s1 and s2; w: [n]
-// (= [S, C]) float32. Any n; 16-byte loads where n is a multiple of 8 and
-// the pointers are 16-byte aligned.
+// (= [S, C]) float32; count: the normaliser N of the formula, n for a
+// whole sample, more where the sample's channels are split over ranks and
+// s1, s2 were summed over them. Any n; 16-byte loads where n is a
+// multiple of 8 and the pointers are 16-byte aligned.
 int theia_ln_bwd_dx(const void* g, const void* x, const float* w, const float* mean, const float* rstd,
-                    const float* s1, const float* s2, void* dx, int batch, int64_t n, int dtype, void* stream) {
-  if (bad_args(batch, n, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+                    const float* s1, const float* s2, void* dx, int batch, int64_t n, int64_t count, int dtype,
+                    void* stream) {
+  if (bad_args(batch, n, count, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dx<float>(g, x, w, mean, rstd, s1, s2, dx, batch, n, s);
-  return launch_dx<__nv_bfloat16>(g, x, w, mean, rstd, s1, s2, dx, batch, n, s);
+  if (dtype == 0) return launch_dx<float>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count, s);
+  return launch_dx<__nv_bfloat16>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count, s);
 }
 
 }  // extern "C"

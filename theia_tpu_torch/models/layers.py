@@ -12,6 +12,12 @@ Mixed precision as in the JAX modules: each layer has a ``compute_dtype``
 (the JAX ``dtype``), casts its input and its parameters to it at use, and
 returns that dtype; the parameters keep the dtype they are stored in
 (float32 for training), and their gradients flow back through the cast.
+
+Tensor parallelism (``parallel/tp.py``): ``shard_module`` gives a split
+Linear or convolution ``tp`` (its grid) and ``tp_role``. A column-parallel
+layer takes its input through ``copy_to_model``; a row-parallel one runs
+without its bias, sums the partial output over the model group, then adds
+the bias. A split LayerNormSpatial all-reduces its per-sample sums.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from torch import nn
 
 from theia_tpu_torch.ops.init import uniform_fan_in_
 from theia_tpu_torch.ops.ln_pallas import LNSpatialFunction, ln_spatial_plain
+from theia_tpu_torch.parallel.tp import copy_to_model, row_parallel_out
 
 # LayerNormSpatial's backward (the JAX module constant of the same name):
 #   "pallas" — ops.ln_pallas.LNSpatialFunction: the CUDA kernels K3, K4 on
@@ -37,7 +44,26 @@ def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
     return None if p is None else p.to(dtype)
 
 
-class DenseTorch(nn.Linear):
+class _ModelParallel:
+    """A layer's tensor-parallel role, set by ``parallel.tp.shard_module``
+    (None: the layer is whole)."""
+
+    tp = None
+    tp_role: Optional[str] = None
+
+    def _tp_forward(self, x: torch.Tensor, run, channel_dim: int) -> torch.Tensor:
+        """``run(x, bias)`` as the role wants it: the input through
+        ``copy_to_model`` (column), or the bias after the model group's sum
+        of the partial outputs (row)."""
+        dt = self.compute_dtype
+        if self.tp_role == "row":
+            return row_parallel_out(run(x, None), self.bias, self.tp, dt, channel_dim)
+        if self.tp_role == "col":
+            x = copy_to_model(x, self.tp)
+        return run(x, _cast(self.bias, dt))
+
+
+class DenseTorch(_ModelParallel, nn.Linear):
     """nn.Linear; torch default init U(±1/√in) for weight and bias."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
@@ -47,7 +73,7 @@ class DenseTorch(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        return self._tp_forward(x.to(dt), lambda x, b: F.linear(x, self.weight.to(dt), b), -1)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -56,7 +82,7 @@ class DenseTorch(nn.Linear):
             uniform_fan_in_(self.bias, self.in_features, generator)
 
 
-class Conv2dTorch(nn.Conv2d):
+class Conv2dTorch(_ModelParallel, nn.Conv2d):
     """nn.Conv2d; torch default init with fan_in = I·kh·kw."""
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs) -> None:
@@ -65,7 +91,7 @@ class Conv2dTorch(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        return self._tp_forward(x.to(dt), lambda x, b: self._conv_forward(x, self.weight.to(dt), b), 1)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -74,7 +100,7 @@ class Conv2dTorch(nn.Conv2d):
         uniform_fan_in_(self.bias, fan_in, generator)
 
 
-class ConvTranspose2dTorch(nn.ConvTranspose2d):
+class ConvTranspose2dTorch(_ModelParallel, nn.ConvTranspose2d):
     """nn.ConvTranspose2d with torch's output shape
     (in-1)·stride - 2·padding + k + output_padding, for any output_padding.
 
@@ -94,7 +120,9 @@ class ConvTranspose2dTorch(nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        x, weight, bias = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        return self._tp_forward(x.to(dt), lambda x, b: self._deconv(x, self.weight.to(dt), b), 1)
+
+    def _deconv(self, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         stride, pad, op = self.stride[0], self.padding[0], self.output_padding[0]
         if op < stride:
             return F.conv_transpose2d(x, weight, bias, stride, pad, op)
@@ -104,7 +132,7 @@ class ConvTranspose2dTorch(nn.ConvTranspose2d):
         y = F.pad(y, (0, op, 0, op))
         if pad:
             y = y[..., pad:-pad, pad:-pad]
-        return y + bias.view(-1, 1, 1)
+        return y if bias is None else y + bias.view(-1, 1, 1)
 
 
 class LayerNormTorch(nn.LayerNorm):
@@ -132,8 +160,12 @@ class LayerNormSpatial(nn.Module):
 
     The JAX numerics: float32 stats as mean(x²) − mean², the elementwise
     normalize and affine in the compute dtype. ``LN_STATS_IMPL`` picks the
-    backward.
+    backward. With ``tp`` (a grid, set by ``shard_module``) the map and the
+    affine hold this rank's slice of the channels, and the statistics are
+    the whole sample's, from per-sample sums all-reduced over the model group.
     """
+
+    tp = None
 
     def __init__(self, shape_chw: tuple[int, int, int], eps: float = 1e-5, *,
                  compute_dtype: torch.dtype = torch.float32) -> None:
@@ -153,7 +185,7 @@ class LayerNormSpatial(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         if LN_STATS_IMPL == "pallas":
-            return LNSpatialFunction.apply(x, self.weight, self.bias, self.eps)
+            return LNSpatialFunction.apply(x, self.weight, self.bias, self.eps, self.tp)
         if LN_STATS_IMPL == "vpu":
-            return ln_spatial_plain(x, self.weight, self.bias, self.eps)
+            return ln_spatial_plain(x, self.weight, self.bias, self.eps, self.tp)
         raise ValueError(f"unknown LN_STATS_IMPL {LN_STATS_IMPL!r}")

@@ -9,6 +9,14 @@ The fused one-pass loss (``_losses_fused``: the five per-sample sums of
 CUDA tensors) takes every teacher whose flattened feature has at least 1024
 elements, a multiple of 128 (the JAX selection rule), while ``fused`` is
 True; ``fused=None`` means ``FUSED_LOSS``.
+
+Tensor parallelism (``parallel/tp.py``): a prediction whose features stay
+split over a model group (``split``) meets its target sliced the same way
+(``train.step.prepare_targets``). The fused loss runs K5 on the rank's
+slice, sums the five per-sample sums over the group (``reduce_from_model``)
+and divides the means by the whole D; K6 then runs on the slice. The other
+teachers' loss gathers the prediction and the target whole first. The
+selection rule reads the whole D.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from typing import Any, Mapping, Optional
 import torch
 
 from theia_tpu_torch.ops.fused_loss import LossSums, flat_rows
+from theia_tpu_torch.parallel.mesh import Grid
+from theia_tpu_torch.parallel.tp import gather_from_model, reduce_from_model
 
 # get_loss(fused=None): True runs the one-pass loss (K5/K6 on CUDA tensors,
 # their plain versions on CPU tensors; the port's default, as attention's
@@ -55,13 +65,17 @@ def _loss_input(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x if x.dtype == torch.bfloat16 else x.to(dtype)
 
 
-def _losses_fused(pred: torch.Tensor, target: torch.Tensor, compute_dtype: torch.dtype, eps: float = 1e-12):
-    """(mse, l1, cos) from the five per-sample sums of one pass (K5, K6)."""
-    b = pred.shape[0]
+def _losses_fused(pred: torch.Tensor, target: torch.Tensor, compute_dtype: torch.dtype, eps: float = 1e-12,
+                  grid: Optional[Grid] = None):
+    """(mse, l1, cos) from the five per-sample sums of one pass (K5, K6);
+    with ``grid``, of the slices of the features the model group splits."""
     p = flat_rows(_loss_input(pred, compute_dtype))
     t = flat_rows(_loss_input(target, compute_dtype).detach())
     d = p.shape[1]
     sums = LossSums.apply(p, t, 1.0)
+    if grid is not None:
+        sums = reduce_from_model(sums, grid)
+        d *= grid.n_model
     mse = sums[:, 0].mean() / d
     l1 = sums[:, 1].mean() / d
     denom = sums[:, 3].sqrt().clamp_min(eps) * sums[:, 4].sqrt().clamp_min(eps)
@@ -76,6 +90,7 @@ def get_loss(
     loss_masks: Optional[Mapping[str, Any]] = None,
     fused: Optional[bool] = None,
     compute_dtype: torch.dtype = torch.float32,
+    split: Optional[Mapping[str, Grid]] = None,
 ) -> dict[str, Any]:
     """Distillation loss terms for every predicted teacher.
 
@@ -84,7 +99,8 @@ def get_loss(
     active ones (at least 1). ``compute_dtype``: the elementwise dtype of
     the loss terms; the reductions accumulate in float32 either way.
     ``fused``: the one-pass loss for the teachers the JAX rule selects
-    (None: ``FUSED_LOSS``).
+    (None: ``FUSED_LOSS``). ``split``: teacher -> grid for the predictions
+    (and targets) whose last dimension is split over the grid's model group.
     """
     if fused is None:
         fused = FUSED_LOSS
@@ -100,12 +116,16 @@ def get_loss(
     mse_avg, cos_avg, l1_avg = zero, zero, zero
     mse_per, cos_per, l1_per = {}, {}, {}
     for t in names:
-        d_flat = pred_features[t][0].numel()
+        grid = (split or {}).get(t)
+        d_flat = pred_features[t][0].numel() * (1 if grid is None else grid.n_model)
         if fused and d_flat >= 1024 and d_flat % 128 == 0:
-            mse, l1, cos = _losses_fused(pred_features[t], targets[t], compute_dtype)
+            mse, l1, cos = _losses_fused(pred_features[t], targets[t], compute_dtype, grid=grid)
         else:
-            pred = pred_features[t].to(compute_dtype)
-            target = targets[t].to(compute_dtype)
+            pred, target = pred_features[t], targets[t]
+            if grid is not None:
+                pred, target = gather_from_model(pred, grid), gather_from_model(target.detach(), grid)
+            pred = pred.to(compute_dtype)
+            target = target.to(compute_dtype)
             mse, l1, cos = mse_loss(pred, target), smooth_l1_loss(pred, target), cosine_loss(pred, target)
         if target_loss_weights is None:
             weight = 1.0 / n_active

@@ -27,6 +27,13 @@ LayerNorms (flax computes stats, normalise and affine in float32 with the
 float32 params, then casts), and, on the exact path, the attention scores
 and softmax.
 
+Tensor parallelism (``parallel/tp.py``): a block that ``shard_module`` gave
+a grid (``tp``) holds ``num_heads / n_model`` heads of q, k and v and that
+slice of the MLP's features; its LayerNorm outputs enter the split matmuls
+through ``copy_to_model``, and the attention output and the MLP output
+projections sum their partial products over the model group before their
+biases. Attention runs on the rank's heads as it runs on all of them.
+
 Parameter names follow HF ``ViTModel`` under ``model.`` (``model.embeddings.*``,
 ``model.encoder.layer.{i}.attention.attention.query`` ...), which is the
 reference ``RobotVisionFM`` layout that ``state_dict_from_jax`` emits.
@@ -46,6 +53,7 @@ from torch import nn
 
 from theia_tpu_torch.ops.attention import packed_attention
 from theia_tpu_torch.ops.image import _cubic_kernel, bicubic_resize, preprocess_images
+from theia_tpu_torch.parallel.tp import copy_to_model, row_parallel_out
 
 
 @functools.lru_cache(maxsize=8)
@@ -156,7 +164,10 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.T
 
 
 class _TransformerBlock(nn.Module):
-    """Pre-LN ViT encoder block with HF ViTLayer numerics and names."""
+    """Pre-LN ViT encoder block with HF ViTLayer numerics and names; ``tp``:
+    the grid of a block cut by ``parallel.tp.shard_module``."""
+
+    tp = None
 
     def __init__(self, cfg: ViTBackboneConfig, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
@@ -178,40 +189,59 @@ class _TransformerBlock(nn.Module):
         dt = self.dtype
         return F.linear(x, m.weight.to(dt), m.bias.to(dt))
 
+    def _row(self, m: nn.Linear, product) -> torch.Tensor:
+        """A row-parallel projection: ``product(weight, bias)``; where the
+        block is cut, the product without its bias, summed over the model
+        group, then the bias."""
+        dt = self.dtype
+        if self.tp is None:
+            return product(m.weight.to(dt), m.bias.to(dt))
+        return row_parallel_out(product(m.weight.to(dt), None), m.bias, self.tp, dt)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         dt = self.dtype
-        h = layer_norm(x, self.layernorm_before, dt)
+        heads = cfg.num_heads if self.tp is None else cfg.num_heads // self.tp.n_model
+        h = self._split_input(layer_norm(x, self.layernorm_before, dt))
         # packed QKV: one matmul over the concatenated column blocks
         qkv_layers = [self.attention["attention"][n] for n in ("query", "key", "value")]
         w_qkv = torch.cat([m.weight for m in qkv_layers]).to(dt)
         b_qkv = torch.cat([m.bias for m in qkv_layers]).to(dt) if cfg.qkv_bias else None
         qkv = F.linear(h, w_qkv, b_qkv)
         if cfg.fast_math:
-            x = x + self._fast_attention(qkv)
+            product = self._fast_attention(qkv, heads)
         else:
             # the kernels read q, k, v in place in the packed projection
-            ctx = packed_attention(qkv, cfg.num_heads, implementation=cfg.attention_impl)
-            x = x + self._dense(self.attention["output"]["dense"], ctx)
-        h = layer_norm(x, self.layernorm_after, dt)
+            ctx = packed_attention(qkv, heads, implementation=cfg.attention_impl)
+            product = functools.partial(F.linear, ctx)
+        x = x + self._row(self.attention["output"]["dense"], product)
+        h = self._split_input(layer_norm(x, self.layernorm_after, dt))
         # exact erf GELU, or JAX's gelu(approximate=True) under fast_math
         h = F.gelu(self._dense(self.intermediate["dense"], h), approximate="tanh" if cfg.fast_math else "none")
-        return x + self._dense(self.output["dense"], h)
+        return x + self._row(self.output["dense"], functools.partial(F.linear, h))
 
-    def _fast_attention(self, qkv: torch.Tensor) -> torch.Tensor:
-        """The JAX fast_math "bhqd_fused" attention and output projection
-        over a packed QKV projection [B, T, 3C] -> [B, T, C], every product
-        and the softmax in the compute dtype."""
+    def _split_input(self, h: torch.Tensor) -> torch.Tensor:
+        """The input of the column-parallel matmuls: through
+        ``copy_to_model`` where the block is cut."""
+        return h if self.tp is None else copy_to_model(h, self.tp)
+
+    def _fast_attention(self, qkv: torch.Tensor, heads: int):
+        """The JAX fast_math "bhqd_fused" attention over a packed QKV
+        projection [B, T, 3C] of ``heads`` heads, every product and the
+        softmax in the compute dtype; returns the output projection as a
+        function of its weight [C_out, C] and bias (or None)."""
         b, t, c3 = qkv.shape
         c = c3 // 3
-        nh = self.cfg.num_heads
-        hd = c // nh
-        q, k, v = (y.view(b, t, nh, hd).transpose(1, 2) for y in qkv.split(c, dim=-1))  # [B, H, T, hd]
+        hd = c // heads
+        q, k, v = (y.view(b, t, heads, hd).transpose(1, 2) for y in qkv.split(c, dim=-1))  # [B, H, T, hd]
         probs = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd), dim=-1)
         ctx = torch.matmul(probs, v)  # [B, H, T, hd]: the layout JAX contracts in the projection
-        out = self.attention["output"]["dense"]
-        dt = self.dtype
-        return torch.einsum("bhqd,chd->bqc", ctx, out.weight.to(dt).view(c, nh, hd)) + out.bias.to(dt)
+
+        def project(w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+            y = torch.einsum("bhqd,chd->bqc", ctx, w.view(w.shape[0], heads, hd))
+            return y if bias is None else y + bias
+
+        return project
 
 
 class _Embeddings(nn.Module):

@@ -17,11 +17,24 @@ it reads the weight in its own (C, H, W) layout and writes dw and db
 there, so autograd receives them in the parameter's layout. Any C: where
 C is a multiple of 8 the kernels move 16-byte vectors (the maps must then
 be 16-byte aligned), else one element a thread (the policy heads' C = 60).
+
+Tensor parallelism (``parallel/tp.py``): on a map whose channels are split
+over a model group (``grid``), the forward's per-sample sums of x and x²
+are all-reduced over the group before the mean and r, which are then the
+whole sample's; in the backward K3 runs on the rank's slice, its s1 and s2
+are all-reduced, and K4 divides by the whole sample's count N (its
+``count`` argument), not by the slice's row length. dw and db are per
+position and stay the rank's.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from theia_tpu_torch.parallel.mesh import Grid
+from theia_tpu_torch.parallel.tp import model_sum, sum_over_model
 
 # Launches of the CUDA kernels in this process; each is incremented only
 # where its kernel is launched.
@@ -37,19 +50,32 @@ def _acc(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def ln_spatial_stats(x: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+def _count(x: torch.Tensor, grid: Optional[Grid]) -> int:
+    """The whole sample's element count N: the row length, times the model
+    group's size where the channels are split."""
+    return x[0].numel() * (1 if grid is None else grid.n_model)
+
+
+def ln_spatial_stats(x: torch.Tensor, eps: float, grid: Optional[Grid] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-sample float32 mean and r = rsqrt(var + eps) of an NCHW map, as
-    [B, 1, 1, 1], with var = E[x²] − E[x]² (the JAX "vpu" numerics)."""
+    [B, 1, 1, 1], with var = E[x²] − E[x]² (the JAX "vpu" numerics); with
+    ``grid``, of the whole sample whose channels the model group splits."""
     acc = torch.promote_types(x.dtype, torch.float32)
-    mean = x.mean(dim=_DIMS, keepdim=True, dtype=acc)
-    mean_sq = _acc(x).square().mean(dim=_DIMS, keepdim=True)
+    if grid is None:
+        mean = x.mean(dim=_DIMS, keepdim=True, dtype=acc)
+        mean_sq = _acc(x).square().mean(dim=_DIMS, keepdim=True)
+    else:
+        sums = torch.stack([x.sum(dim=_DIMS, dtype=acc), _acc(x).square().sum(dim=_DIMS)], dim=1)
+        sums = sum_over_model(sums, grid).view(-1, 2, 1, 1, 1) / _count(x, grid)
+        mean, mean_sq = sums[:, 0], sums[:, 1]
     return mean, torch.rsqrt(mean_sq - mean.square() + eps)
 
 
-def ln_spatial_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+def ln_spatial_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+                     grid: Optional[Grid] = None) -> torch.Tensor:
     """The forward in plain PyTorch: float32 stats, the elementwise
     normalise and affine in x's dtype (weight, bias (C, H, W) cast to it)."""
-    mean, r = ln_spatial_stats(x, eps)
+    mean, r = ln_spatial_stats(x, eps, grid)
     return _affine(x, mean, r, weight, bias)
 
 
@@ -72,13 +98,15 @@ def ln_bwd_stats_plain(
 
 def ln_bwd_dx_plain(
     x: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor, r: torch.Tensor, g: torch.Tensor,
-    s1: torch.Tensor, s2: torch.Tensor,
+    s1: torch.Tensor, s2: torch.Tensor, count: Optional[int] = None,
 ) -> torch.Tensor:
-    """K4's function in plain PyTorch: dx = r·(g·w − (s1 + x̂·s2)/N) in x's dtype."""
+    """K4's function in plain PyTorch: dx = r·(g·w − (s1 + x̂·s2)/N) in x's
+    dtype; N is ``count``, by default the row length C·H·W."""
     mean, r, s1, s2 = (t.reshape(-1, 1, 1, 1) for t in (mean, r, s1, s2))
     xh = (_acc(x) - mean) * r
     gw = _acc(g) * _acc(weight)
-    return (r * (gw - (s1 + xh * s2) / x[0].numel())).to(x.dtype)
+    n = x[0].numel() if count is None else count
+    return (r * (gw - (s1 + xh * s2) / n)).to(x.dtype)
 
 
 def ln_spatial_bwd_plain(
@@ -174,11 +202,11 @@ def ln_bwd_stats(
 
 def ln_bwd_dx(
     x: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor, r: torch.Tensor, g: torch.Tensor,
-    s1: torch.Tensor, s2: torch.Tensor,
+    s1: torch.Tensor, s2: torch.Tensor, count: Optional[int] = None,
 ) -> torch.Tensor:
     """K4 on CUDA tensors: dx = r·(g·w − (s1 + x̂·s2)/N) in x's dtype and
-    channels_last memory, N = C·H·W. Raises on inputs the kernel does not
-    take or on a failed launch."""
+    channels_last memory; N is ``count``, by default the row length C·H·W.
+    Raises on inputs the kernel does not take or on a failed launch."""
     if x.device.type != "cuda":
         raise ValueError(f"ln_bwd_dx runs on CUDA tensors, got {x.device}")
     _check_kernel_inputs(x, g, weight, mean)
@@ -192,7 +220,8 @@ def ln_bwd_dx(
     with torch.cuda.device(x.device):
         err = lib.theia_ln_bwd_dx(
             g.data_ptr(), x.data_ptr(), w_sc.data_ptr(), mean.data_ptr(), r.data_ptr(),
-            s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), b, x[0].numel(), _DTYPE_CODES[x.dtype],
+            s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), b, x[0].numel(),
+            x[0].numel() if count is None else count, _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -204,34 +233,45 @@ def ln_bwd_dx(
 
 
 def ln_spatial_bwd(
-    x: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor, r: torch.Tensor, g: torch.Tensor
+    x: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor, r: torch.Tensor, g: torch.Tensor,
+    grid: Optional[Grid] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """dx, dw, db: K3 then K4 on CUDA tensors, the plain version on CPU tensors."""
+    """dx, dw, db: K3 then K4 on CUDA tensors, the plain version on CPU
+    tensors; with ``grid``, K3's s1 and s2 summed over the model group
+    between them and K4's N the whole sample's."""
     if all(t.device.type == "cpu" for t in (x, weight, g)):
-        return ln_spatial_bwd_plain(x, weight, mean, r, g)
-    x, g = (t.contiguous(memory_format=torch.channels_last) for t in (x, g))
-    s1, s2, dw, db = ln_bwd_stats(x, weight, mean, r, g)
-    dx = ln_bwd_dx(x, weight, mean, r, g, s1, s2)
+        stats, dx_of = ln_bwd_stats_plain, ln_bwd_dx_plain
+    else:
+        x, g = (t.contiguous(memory_format=torch.channels_last) for t in (x, g))
+        stats, dx_of = ln_bwd_stats, ln_bwd_dx
+    s1, s2, dw, db = stats(x, weight, mean, r, g)
+    if grid is not None:
+        s1, s2 = model_sum(torch.stack([s1, s2]), grid).unbind(0)
+    dx = dx_of(x, weight, mean, r, g, s1, s2, _count(x, grid))
     return dx, dw.to(weight.dtype), db.to(weight.dtype)
 
 
 class LNSpatialFunction(torch.autograd.Function):
-    """The ``ln_spatial_pallas`` custom_vjp: ``apply(x, weight, bias, eps)``.
+    """The ``ln_spatial_pallas`` custom_vjp: ``apply(x, weight, bias, eps,
+    grid=None)``.
 
     x: [B, C, H, W] in the compute dtype; weight, bias (C, H, W) as stored
     (cast to x's dtype for the affine, as the JAX module casts its float32
     params). Saves (x, weight, mean, r); the gradients of weight and bias
-    come back in their own dtype, computed in float32.
+    come back in their own dtype, computed in float32. ``grid``: the model
+    group that splits the channels (see the module docstring).
     """
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
-        mean, r = ln_spatial_stats(x, eps)
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+                grid: Optional[Grid] = None) -> torch.Tensor:
+        mean, r = ln_spatial_stats(x, eps, grid)
+        ctx.grid = grid
         ctx.save_for_backward(x, weight, mean, r)
         return _affine(x, mean, r, weight, bias)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         x, weight, mean, r = ctx.saved_tensors
-        dx, dw, db = ln_spatial_bwd(x, weight, mean, r, g)
-        return dx, dw, db, None
+        dx, dw, db = ln_spatial_bwd(x, weight, mean, r, g, ctx.grid)
+        return dx, dw, db, None, None

@@ -11,7 +11,10 @@ the global batch, and the train step all-reduces the gradients by hand
 (``train/step.py``). This module holds the process group's set-up, the
 rank arithmetic, a barrier and the rank-0 broadcast of a module's
 parameters and buffers, which plays the part of the JAX package's
-replicated ``device_put`` (theia_tpu/train/loop.py:301-303).
+replicated ``device_put`` (theia_tpu/train/loop.py:301-303). Every
+collective the port issues goes through ``all_reduce``, ``all_gather``,
+``broadcast`` or ``broadcast_object`` here, which note it for
+``parallel/audit.py``.
 
 Launch:
     torchrun --nproc_per_node=N -m theia_tpu_torch.scripts.train_rvfm [overrides...]
@@ -23,11 +26,13 @@ process trains alone and no process group is made.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from theia_tpu_torch.parallel import audit
 
 _TORCHRUN_VARS = ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
@@ -97,6 +102,46 @@ def barrier() -> None:
             dist.barrier()
 
 
+def group_size(group: Optional[dist.ProcessGroup] = None) -> int:
+    """Ranks in ``group`` (None: the world)."""
+    return dist.get_world_size(group)
+
+
+def all_reduce(t: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
+               op: Any = dist.ReduceOp.SUM) -> torch.Tensor:
+    """``dist.all_reduce`` of ``t`` in place over ``group`` (None: the
+    world), noted for the audit; returns ``t``."""
+    audit.record("all-reduce", t.numel() * t.element_size(), group_size(group))
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> list[torch.Tensor]:
+    """Every rank's ``t`` (one shape on all ranks), in rank order of
+    ``group``, noted for the audit with the gathered bytes."""
+    n = group_size(group)
+    out = [torch.empty_like(t) for _ in range(n)]
+    audit.record("all-gather", n * t.numel() * t.element_size(), n)
+    dist.all_gather(out, t.contiguous(), group=group)
+    return out
+
+
+def broadcast(t: torch.Tensor, src: int, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """``dist.broadcast`` of ``t`` in place from global rank ``src``, noted
+    for the audit; returns ``t``."""
+    audit.record("collective-broadcast", t.numel() * t.element_size(), group_size(group))
+    dist.broadcast(t, src, group=group)
+    return t
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """Rank ``src``'s picklable ``obj`` on every rank of the world."""
+    box = [obj]
+    audit.record("collective-broadcast", 0, group_size())
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
 @torch.no_grad()
 def broadcast_module(module: nn.Module, src: int = 0) -> None:
     """Copy rank ``src``'s parameters and buffers into every rank's
@@ -105,4 +150,4 @@ def broadcast_module(module: nn.Module, src: int = 0) -> None:
     if world_size() <= 1:
         return
     for t in [*module.parameters(), *module.buffers()]:
-        dist.broadcast(t.data, src)
+        broadcast(t.data, src)

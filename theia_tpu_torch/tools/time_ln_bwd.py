@@ -83,7 +83,9 @@ TIMED = ((torch.bfloat16, 7), (torch.bfloat16, 16), (torch.bfloat16, 31), (torch
 TIMED_WIDE = ((torch.bfloat16, 2048, 64), (torch.float32, 2048, 64), (torch.bfloat16, 1024, 16))
 
 NEW_SIGNATURES = {"theia_ln_bwd_stats": [PTR] * 10 + [I32] * 4 + [PTR], "theia_ln_bwd_stats_parts": [I32] * 3,
-                  "theia_ln_bwd_stats_counter_words": [], "theia_ln_bwd_dx": [PTR] * 8 + [I32, I64, I32, PTR]}
+                  "theia_ln_bwd_stats_counter_words": [], "theia_ln_bwd_dx": [PTR] * 8 + [I32, I64, I64, I32, PTR]}
+# K4 before it took the normaliser's count apart from the row length
+UNCOUNTED_K4 = {"theia_ln_bwd_dx": [PTR] * 8 + [I32, I64, I32, PTR]}
 PARENT_SIGNATURES = {"theia_ln_bwd_stats": [PTR] * 11 + [I32, I64, I32, PTR], "theia_ln_bwd_partials": [I64]}
 
 
@@ -118,13 +120,15 @@ def new_launcher(lib: ctypes.CDLL) -> Callable:
     return run
 
 
-def dx_launcher(lib: ctypes.CDLL) -> Callable:
-    """K4 through another build's ``theia_ln_bwd_dx`` (no checks)."""
+def dx_launcher(lib: ctypes.CDLL, counted: bool = True) -> Callable:
+    """K4 through another build's ``theia_ln_bwd_dx`` (no checks); ``counted``:
+    the build takes the normaliser's count after the row length."""
     def run(x, w, mean, r, g, s1, s2):
         w_sc = ln_pallas._rows_sc(w)
         dx = torch.empty_like(x, memory_format=torch.channels_last)
+        sizes = (x[0].numel(),) * (2 if counted else 1)  # the row length, and the normaliser's count
         err = lib.theia_ln_bwd_dx(g.data_ptr(), x.data_ptr(), w_sc.data_ptr(), mean.data_ptr(), r.data_ptr(),
-                                  s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), x.shape[0], x[0].numel(),
+                                  s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), x.shape[0], *sizes,
                                   ln_pallas._DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed ({err})")
@@ -213,11 +217,14 @@ def main() -> int:
               f"per SM of {threads.value} threads, a grid of {grid.value} blocks")
     csrc = build.PACKAGE_DIR / "csrc" / TARGET.source
     sources = {}
-    one_launch_parent = False
+    one_launch_parent = counted_parent = False
     if args.parent:
         parent_src = args.parent / "theia_tpu_torch" / "csrc" / TARGET.source
-        one_launch_parent = "theia_ln_bwd_stats_parts" in parent_src.read_text()
-        sources["parent"] = (parent_src, (), NEW_SIGNATURES if one_launch_parent else PARENT_SIGNATURES)
+        parent_text = parent_src.read_text()
+        one_launch_parent = "theia_ln_bwd_stats_parts" in parent_text
+        counted_parent = "int64_t count, int dtype" in parent_text
+        signatures = NEW_SIGNATURES if counted_parent else {**NEW_SIGNATURES, **UNCOUNTED_K4}
+        sources["parent"] = (parent_src, (), signatures if one_launch_parent else PARENT_SIGNATURES)
     if args.ablations:
         sources.update({name: (csrc, d, NEW_SIGNATURES) for name, d in TARGET.ablations.items()})
     fns = {"kernel": ln_pallas.ln_bwd_stats}
@@ -227,7 +234,7 @@ def main() -> int:
             old = name == "parent" and not one_launch_parent
             fns[name] = parent_launcher(other) if old else new_launcher(other)
             if name == "parent" and one_launch_parent:
-                dx_fns[name] = dx_launcher(other)
+                dx_fns[name] = dx_launcher(other, counted_parent)
         gen = torch.Generator(device="cuda").manual_seed(0)
         worst = {}
         shapes = [(dtype, b, side, c) for dtype in (torch.bfloat16, torch.float32) for b, side, c in CHECKS]

@@ -20,7 +20,12 @@ step, ``<ckpt_dir>/<step>.pt``, with orbax's guarantees:
     alone writes, and every rank meets a barrier at each save (after a
     blocking save's write), so no rank restores or exits ahead of the file;
     every rank restores the step rank 0 restored (the newest it could
-    read). Rank 0's writer thread takes part in no collective.
+    read). Rank 0's writer thread takes part in no collective;
+  - **tensor parallelism** (a ``layout``, ``parallel.tp.TPLayout``): the
+    ranks of rank 0's model group gather the split parameters and their
+    moments whole before rank 0 copies them, so the file is the one a
+    single process writes; a restore reads the whole tensors and keeps each
+    rank's slice.
 
 ``read_params`` reads a step's parameters alone, for serving
 (``models/pretrained.py``).
@@ -42,9 +47,9 @@ import warnings
 from typing import Any, Optional
 
 import torch
-import torch.distributed as dist
 
-from theia_tpu_torch.parallel.distributed import barrier, is_main_process, world_size
+from theia_tpu_torch.parallel.distributed import barrier, broadcast_object, is_main_process, world_size
+from theia_tpu_torch.parallel.tp import TPLayout, gather_state, slice_state
 from theia_tpu_torch.train.state import TrainState
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
@@ -70,6 +75,20 @@ def _flat(state: TrainState) -> dict[str, Any]:
     opt = state.opt_state
     return {"step": state.step, "params": state.params, "sched_count": opt.sched_count,
             "count": opt.count, "mu": opt.mu, "nu": opt.nu}
+
+
+_SPLIT_ENTRIES = ("params", "mu", "nu")  # named by parameter, shaped like it
+
+
+def _whole(state: TrainState, layout: Optional[TPLayout]) -> Optional[dict[str, Any]]:
+    """``_flat(state)`` with the split tensors gathered whole over the model
+    group, on the ranks of data index 0 (collectives of that group); None
+    elsewhere, and the state's own tensors without a cut."""
+    if layout is None:
+        return _flat(state)
+    if layout.grid.data_index != 0:
+        return None
+    return {k: gather_state(v, layout) if k in _SPLIT_ENTRIES else v for k, v in _flat(state).items()}
 
 
 def _to_host(tree: dict[str, Any]) -> dict[str, Any]:
@@ -114,11 +133,13 @@ class CheckpointSession:
     ``[step, seconds save() blocked, seconds the write took]`` per save (the
     write's time is filled in when it ends; a blocking save's blocked time
     includes its write). In a process group, only rank 0 copies and
-    writes, and ``save`` ends at a barrier of every rank."""
+    writes, and ``save`` ends at a barrier of every rank. ``layout``: a
+    cut model's, whose split tensors are gathered whole first."""
 
-    def __init__(self, ckpt_dir: str, max_to_keep: int = 5) -> None:
+    def __init__(self, ckpt_dir: str, max_to_keep: int = 5, layout: Optional[TPLayout] = None) -> None:
         self.ckpt_dir = ckpt_dir
         self.max_to_keep = max_to_keep
+        self.layout = layout
         self.timings: list[list] = []
         self._thread: Optional[threading.Thread] = None
         self._err: Optional[BaseException] = None
@@ -133,14 +154,15 @@ class CheckpointSession:
             raise err
 
     def save(self, state: TrainState, step: int, block: bool = False) -> None:
+        t0 = time.perf_counter()
+        tree = _whole(state, self.layout)
         if is_main_process():
-            self._save(state, step, block)
+            self._save(tree, step, block, t0)
         barrier()
 
-    def _save(self, state: TrainState, step: int, block: bool) -> None:
-        t0 = time.perf_counter()
+    def _save(self, tree: dict[str, Any], step: int, block: bool, t0: float) -> None:
         self.wait()
-        host = _to_host(_flat(state))
+        host = _to_host(tree)
         record = [step, None, None]
         self.timings.append(record)
 
@@ -171,19 +193,25 @@ class CheckpointSession:
         self.close()
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState, step: int, max_to_keep: int = 5) -> None:
+def save_checkpoint(ckpt_dir: str, state: TrainState, step: int, max_to_keep: int = 5,
+                    layout: Optional[TPLayout] = None) -> None:
     """One-shot blocking save (scripts and tests; the train loop uses
     ``CheckpointSession`` for async saves); rank 0 writes, then every rank
     meets a barrier."""
+    tree = _whole(state, layout)
     if is_main_process():
-        _write(ckpt_dir, _to_host(_flat(state)), step, max_to_keep)
+        _write(ckpt_dir, _to_host(tree), step, max_to_keep)
     barrier()
 
 
-def _load_into(path: str, target: TrainState) -> None:
-    """Read ``path`` and copy it into ``target``'s tensors; nothing is
-    copied unless every name, shape and dtype matches."""
+def _load_into(path: str, target: TrainState, layout: Optional[TPLayout] = None) -> None:
+    """Read ``path`` and copy it into ``target``'s tensors (each rank's
+    slice of the split ones, with a ``layout``); nothing is copied unless
+    every name, shape and dtype matches."""
     saved = torch.load(path, map_location="cpu", weights_only=True)
+    if layout is not None:
+        saved = {k: slice_state(v, layout) if k in _SPLIT_ENTRIES and isinstance(v, dict) else v
+                 for k, v in saved.items()}
     live = _flat(target)
     if set(saved) != set(live):
         raise ValueError(f"{path}: entries {sorted(saved)}, expected {sorted(live)}")
@@ -221,7 +249,8 @@ def _newest_readable(ckpt_dir: str, load) -> Optional[tuple[int, Any]]:
     return None
 
 
-def restore_checkpoint(ckpt_dir: str, target_state: TrainState, step: Optional[int] = None) -> Optional[TrainState]:
+def restore_checkpoint(ckpt_dir: str, target_state: TrainState, step: Optional[int] = None,
+                       layout: Optional[TPLayout] = None) -> Optional[TrainState]:
     """Restore into ``target_state`` in place and return it; None if the
     directory holds no committed step.
 
@@ -230,30 +259,35 @@ def restore_checkpoint(ckpt_dir: str, target_state: TrainState, step: Optional[i
     falls back to the previous one; if every step fails — a mismatch of
     structure rather than corruption — the newest step's error is raised.
     In a process group, rank 0 picks the step so and every other rank
-    restores the step it picked (None on every rank if it found none)."""
+    restores the step it picked (None on every rank if it found none).
+    ``layout``: a cut model's; each rank keeps its slice of the file's
+    whole tensors."""
+    def load(path: str) -> None:
+        _load_into(path, target_state, layout)
+
     if step is not None:
-        _load_into(_step_path(ckpt_dir, step), target_state)
+        load(_step_path(ckpt_dir, step))
         return target_state
     if world_size() > 1:
-        picked: list[Any] = [None]
+        picked: Any = None
         err: Optional[Exception] = None
         if is_main_process():
             try:
-                found = _newest_readable(ckpt_dir, lambda path: _load_into(path, target_state))
-                picked[0] = None if found is None else found[0]
+                found = _newest_readable(ckpt_dir, load)
+                picked = None if found is None else found[0]
             except Exception as e:  # every rank learns of it, then raises
-                err, picked[0] = e, "failed"
-        dist.broadcast_object_list(picked, src=0)
+                err, picked = e, "failed"
+        picked = broadcast_object(picked, src=0)
         if err is not None:
             raise err
-        if picked[0] == "failed":
+        if picked == "failed":
             raise RuntimeError(f"rank 0 could not restore any step of {ckpt_dir}")
-        if picked[0] is None:
+        if picked is None:
             return None
         if not is_main_process():
-            _load_into(_step_path(ckpt_dir, picked[0]), target_state)
+            load(_step_path(ckpt_dir, picked))
         return target_state
-    if _newest_readable(ckpt_dir, lambda path: _load_into(path, target_state)) is None:
+    if _newest_readable(ckpt_dir, load) is None:
         return None
     return target_state
 

@@ -10,8 +10,13 @@ the gradients over the ranks (``parallel/distributed.py``): the epoch,
 step, eval, learning-rate and fast-forward arithmetic is the JAX loop's at
 that many processes of one chip each (theia_tpu/train/loop.py:142-145,
 205-254,396,480-507). Rank 0 alone prints, logs and writes checkpoints.
-Left out with the JAX package's mesh: ``model_axis > 1`` (tensor
-parallelism) raises; ``donate_state`` has no meaning here.
+``training.model_axis = n > 1`` (tensor parallelism, theia_tpu/train/
+loop.py:163-182,296-303) lays the ranks out as a (data, model) grid of n
+ranks a model group (``parallel/mesh.py``) and cuts the model over each
+group (``parallel/tp.py``): the data arithmetic above is then that of the
+data groups (the ranks of one data index read the same rows), and rank 0
+writes the whole parameters and moments, gathered over its model group.
+``donate_state`` has no meaning here.
 """
 
 from __future__ import annotations
@@ -29,7 +34,10 @@ from theia_tpu_torch.data.dataset import get_frame_dataloader, get_image_video_d
 from theia_tpu_torch.data.stats import load_feature_stats
 from theia_tpu_torch.foundation.common import MODEL_FEATURE_SIZES, get_model_feature_size
 from theia_tpu_torch.models.rvfm import Theia
+from theia_tpu_torch.models.vit import BACKBONE_CONFIGS
 from theia_tpu_torch.parallel.distributed import broadcast_module, init_distributed
+from theia_tpu_torch.parallel.mesh import make_grid
+from theia_tpu_torch.parallel.tp import shard_module, validate_tp
 from theia_tpu_torch.train.checkpoint import CheckpointSession, restore_checkpoint
 from theia_tpu_torch.train.optim import (
     constant_with_warmup,
@@ -199,12 +207,19 @@ def build_optimizer(cfg: DotDict, learning_rate: float | Callable):
     )
 
 
-def _check_data_parallel_only(cfg: DotDict) -> None:
-    if int(cfg.training.get("model_axis", 1) or 1) > 1:
-        raise NotImplementedError(
-            f"training.model_axis={cfg.training.model_axis}: tensor parallelism (theia_tpu/parallel/tp.py) is not "
-            "ported; the port trains data-parallel only"
-        )
+def _validate_model_axis(cfg: DotDict) -> int:
+    """``training.model_axis``, checked against the backbone's heads and MLP
+    width (the JAX loop's check, before any process group is joined)."""
+    n_model = int(cfg.training.get("model_axis", 1) or 1)
+    if n_model > 1:
+        bb_cfg = BACKBONE_CONFIGS.get(cfg.model.backbone.backbone)
+        if bb_cfg is None:
+            raise ValueError(
+                f"model_axis={n_model} requires a known backbone config to validate divisibility, but "
+                f"{cfg.model.backbone.backbone!r} is not in BACKBONE_CONFIGS ({sorted(BACKBONE_CONFIGS)})"
+            )
+        validate_tp(bb_cfg.num_heads, bb_cfg.intermediate_size, n_model)
+    return n_model
 
 
 def train_from_config(
@@ -227,10 +242,13 @@ def train_from_config(
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_from_config: no CUDA device; pass device='cpu' to train on the CPU")
-    _check_data_parallel_only(cfg)
+    n_model = _validate_model_axis(cfg)
     grad_allreduce_dtype = _parse_grad_allreduce_dtype(cfg.training.get("grad_allreduce_dtype", None))
-    rank, world, device = init_distributed(device)
+    rank, _, device = init_distributed(device)
     is_main = rank == 0
+    grid = make_grid(n_model)
+    # the data arithmetic is the data groups': ranks of one data index read the same rows
+    data_rank, world = grid.data_index, grid.n_data
     if not cfg.logging.get("run_identifier_prefix"):
         cfg.logging.run_identifier_prefix = build_run_identifier(cfg)
     _, generator = seed_everything(cfg.seed)
@@ -257,14 +275,14 @@ def train_from_config(
         from theia_tpu_torch.data.oxe import get_oxe_frame_dataset
 
         ds_kwargs = dict(dataset_root=cfg.dataset.dataset_root, dataset_mix=mix, feature_models=names_wocls,
-                         image_views=cfg.dataset.get("image_views"), rank=rank, world_size=world, seed=cfg.seed)
+                         image_views=cfg.dataset.get("image_views"), rank=data_rank, world_size=world, seed=cfg.seed)
         train_ds, train_len = get_oxe_frame_dataset(
             split="train", dataset_ratio=cfg.dataset.dataset_ratio, shuffle=cfg.dataset.shuffle, **ds_kwargs
         )
         eval_ds, eval_len = get_oxe_frame_dataset(split="val", dataset_ratio=0.1, shuffle=False, **ds_kwargs)
     else:
         ds_kwargs = dict(dataset_root=cfg.dataset.dataset_root, dataset_mix=mix, feature_models=names_wocls,
-                         feature_norm=feature_norm, stats_root=cfg.dataset.get("stats_root"), rank=rank,
+                         feature_norm=feature_norm, stats_root=cfg.dataset.get("stats_root"), rank=data_rank,
                          world_size=world, seed=cfg.seed)
         train_ds, train_len = get_image_video_dataset(
             split="train", dataset_ratio=cfg.dataset.dataset_ratio, shuffle=cfg.dataset.shuffle, **ds_kwargs
@@ -272,7 +290,7 @@ def train_from_config(
         eval_ds, eval_len = get_image_video_dataset(split="val", dataset_ratio=0.1, shuffle=False, **ds_kwargs)
 
     # the JAX loop's step arithmetic (train_rvfm.py:294-301) with one chip a
-    # process: ``batch_size`` rows a rank, ``world`` ranks. One process keeps
+    # process: ``batch_size`` rows a rank, ``world`` data ranks. One process keeps
     # eval's partial tail batch (an eval set smaller than one batch must
     # still evaluate); more take the floor, at least one step, so that every
     # rank runs the same number of eval steps and their all-reduces pair up
@@ -293,16 +311,18 @@ def train_from_config(
     schedule = build_lr_schedule(cfg, lr, total_train_steps, warmup_steps)
     loss_dtype = torch.bfloat16 if cfg.training.get("loss_dtype", "float32") == "bfloat16" else torch.float32
     tx = build_optimizer(cfg, schedule)
+    # every rank starts from rank 0's parameters (the JAX loop's replicated
+    # placement), then keeps its model group's slice of the split ones
+    broadcast_module(model)
+    layout = shard_module(model, grid)
     state = TrainState.create(dict(model.named_parameters()), tx)
 
     ckpt_dir = os.path.join(cfg.logging.model_path, cfg.logging.run_identifier_prefix)
     restore_s = None
     if resume:
         t0 = time.perf_counter()
-        if restore_checkpoint(ckpt_dir, state) is not None:
+        if restore_checkpoint(ckpt_dir, state, layout=layout) is not None:
             restore_s = time.perf_counter() - t0
-    # every rank starts from rank 0's parameters (the JAX loop's replicated placement)
-    broadcast_module(model)
 
     train_step = make_train_step(
         model, tx,
@@ -375,7 +395,7 @@ def train_from_config(
         print(f"[theia_tpu_torch] resuming at step {steps} (epoch {start_ep}, {done_in_epoch} steps into it)")
     summary: dict[str, Any] = {}
     images_trained = 0
-    ckpt_session = CheckpointSession(ckpt_dir)
+    ckpt_session = CheckpointSession(ckpt_dir, layout=layout)
     t_loop = time.perf_counter()
     for ep in range(start_ep, int(cfg.training.epochs)):
         epoch_steps = train_epoch_steps - (done_in_epoch if ep == start_ep else 0)
@@ -386,7 +406,7 @@ def train_from_config(
             batch_size=batch_size,
             shuffle=cfg.dataset.shuffle,
             shuffle_buffer_size=cfg.dataset.shuffle_buffer_size,
-            seed=cfg.seed + rank * 100 + ep,
+            seed=cfg.seed + data_rank * 100 + ep,
             num_workers=num_workers,
             pin_memory=pin,
         )

@@ -22,6 +22,8 @@ from typing import Any, Callable, Mapping, Optional
 
 import torch
 
+from theia_tpu_torch.parallel.tp import model_sum
+
 Schedule = Callable[[Any], torch.Tensor]
 
 
@@ -174,10 +176,18 @@ def make_optimizer(
     return MaskedAdamW(learning_rate, weight_decay, tuple(betas), eps, translator_lr_factor, moment_dtype)
 
 
-def clip_grad_norm(grads: Mapping[str, torch.Tensor], max_norm: float | torch.Tensor
+def clip_grad_norm(grads: Mapping[str, torch.Tensor], max_norm: float | torch.Tensor, layout: Any = None
                    ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """torch ``clip_grad_norm_`` semantics, scale = min(1, max_norm / (norm + 1e-6));
-    returns the scaled grads and the global norm, both on the device."""
-    norm = torch.stack([g.float().square().sum() for g in grads.values()]).sum().sqrt()
+    returns the scaled grads and the global norm, both on the device.
+    ``layout``: a cut model's ``parallel.tp.TPLayout``; the squares of its
+    split gradients are summed over the model group, the replicated
+    gradients counted once."""
+    squares = [g.float().square().sum() for n, g in grads.items() if layout is None or not layout.is_split(n)]
+    norm_sq = torch.stack(squares).sum()
+    if layout is not None:
+        split = [g.float().square().sum() for n, g in grads.items() if layout.is_split(n)]
+        norm_sq = norm_sq + model_sum(torch.stack(split).sum(), layout.grid)
+    norm = norm_sq.sqrt()
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return {n: g * scale.to(g.dtype) for n, g in grads.items()}, norm

@@ -20,10 +20,24 @@ At one rank the step issues no collective. (``torch.distributed``'s
 and ``DistributedDataParallel``'s reducer never sees ``autograd.grad``.)
 Left out with the JAX package's TPU and mesh toggles: ``mesh=``,
 ``donate``, ``compiler_options`` and ``DEFAULT_COMPILER_OPTIONS``.
+
+Tensor parallelism: on a model cut by ``parallel.tp.shard_module`` over a
+(data, model) grid, the targets of the predictions whose features stay
+split are sliced to the rank's features, the loss sums its split parts over
+the model group, and the gradients go in two float32 buckets: the split
+parameters' averaged over the data group, the replicated parameters'
+averaged over the whole world (the data group's mean, and the model
+group's copies made one, should the device's rounding set them apart, so
+that the replicated parameters stay bit-equal across the model group). A bf16 wire
+warns and stays float32, as the JAX step does under a model axis. The grad
+clip's norm sums the split gradients' squares over the model group and
+counts the replicated ones once; the metrics are averaged over the data
+group.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, Mapping, Optional
 
 import torch
@@ -32,7 +46,9 @@ from torch import nn
 
 from theia_tpu_torch.models.losses import get_loss, main_loss_from_terms
 from theia_tpu_torch.models.translators import head_key
-from theia_tpu_torch.parallel.distributed import world_size
+from theia_tpu_torch.parallel.distributed import all_reduce, world_size
+from theia_tpu_torch.parallel.mesh import Grid
+from theia_tpu_torch.parallel.tp import split_outputs
 from theia_tpu_torch.train.optim import clip_grad_norm
 from theia_tpu_torch.train.state import TrainState
 
@@ -44,27 +60,40 @@ def prepare_targets(
     targets: Mapping[str, torch.Tensor],
     target_stats: Optional[Mapping[str, tuple]] = None,
     dtype: torch.dtype = torch.float32,
+    split: Optional[Mapping[str, Grid]] = None,
 ) -> dict[str, torch.Tensor]:
     """Raw [B, C, H, W] teacher features -> [B, H*W, C] in ``dtype``, then
     (x - mean) / std where ``target_stats`` has the teacher; on the device.
+    ``split``: teacher -> grid for the targets of predictions whose features
+    (the last dimension) the grid's model group splits; each keeps the
+    rank's slice of its features, and of its statistics.
 
-    The transpose is made in the same copy as the cast, so the result is
-    contiguous: the fused loss reads it as [B, D] rows without a copy of its
-    own (``ops.fused_loss.flat_rows``)."""
+    The transpose (and slice) is made in the same copy as the cast, so the
+    result is contiguous: the fused loss reads it as [B, D] rows without a
+    copy of its own (``ops.fused_loss.flat_rows``)."""
     out = {}
     for t, arr in targets.items():
         if arr.ndim == 4:
             b, c = arr.shape[:2]
             arr = arr.reshape(b, c, -1).transpose(1, 2)
-        arr = arr.to(dtype, memory_format=torch.contiguous_format)
+        grid = (split or {}).get(t)
+        arr = _features_of_rank(arr, grid).to(dtype, memory_format=torch.contiguous_format)
         if target_stats is not None and t in target_stats:
             mean, std = target_stats[t]
             if mean is not None:
-                arr = (arr - torch.as_tensor(mean, dtype=dtype, device=arr.device)) / torch.as_tensor(
-                    std, dtype=dtype, device=arr.device
-                )
+                mean, std = (_features_of_rank(torch.as_tensor(v, dtype=dtype, device=arr.device), grid)
+                             for v in (mean, std))
+                arr = (arr - mean) / std
         out[t] = arr
     return out
+
+
+def _features_of_rank(x: torch.Tensor, grid: Optional[Grid]) -> torch.Tensor:
+    """The model rank's slice of ``x``'s last dimension (a view); ``x`` itself without a grid."""
+    if grid is None:
+        return x
+    width = x.shape[-1] // grid.n_model
+    return x.narrow(-1, grid.model_index * width, width)
 
 
 def _metrics(main: torch.Tensor, losses: Mapping[str, Any]) -> dict[str, Any]:
@@ -74,10 +103,11 @@ def _metrics(main: torch.Tensor, losses: Mapping[str, Any]) -> dict[str, Any]:
     return metrics
 
 
-def mean_over_ranks(metrics: dict[str, Any], world: int) -> dict[str, Any]:
+def mean_over_ranks(metrics: dict[str, Any], world: int, group: Optional[dist.ProcessGroup] = None
+                    ) -> dict[str, Any]:
     """``metrics`` (scalar tensors, and dicts of them) averaged over the
-    ``world`` ranks by one float32 ``all_reduce`` of their stack, on the
-    device; unchanged at one rank."""
+    ``world`` ranks of ``group`` (None: all) by one float32 ``all_reduce``
+    of their stack, on the device; unchanged at one rank."""
     if world <= 1:
         return metrics
     keys: list[tuple[str, Optional[str]]] = []
@@ -86,9 +116,7 @@ def mean_over_ranks(metrics: dict[str, Any], world: int) -> dict[str, Any]:
         for sub, leaf in (v.items() if isinstance(v, dict) else [(None, v)]):
             keys.append((k, sub))
             leaves.append(leaf.float())
-    stacked = torch.stack(leaves)
-    dist.all_reduce(stacked)
-    stacked = stacked / world
+    stacked = all_reduce(torch.stack(leaves), group) / world
     out: dict[str, Any] = {}
     for (k, sub), v in zip(keys, stacked):
         if sub is None:
@@ -99,17 +127,19 @@ def mean_over_ranks(metrics: dict[str, Any], world: int) -> dict[str, Any]:
 
 
 def all_reduce_grads(
-    grads: dict[str, torch.Tensor], world: int, wire_dtype: Optional[torch.dtype] = None
+    grads: dict[str, torch.Tensor], world: int, wire_dtype: Optional[torch.dtype] = None,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> dict[str, torch.Tensor]:
-    """The mean of every rank's ``grads``, by one ``all_reduce`` of their
-    flat buffer: each gradient in float32, scaled by 1/world, cast to
-    ``wire_dtype`` (None: float32), summed over ranks and cast back, then
-    split into the parameters' shapes and dtypes."""
+    """The mean of the ``world`` ranks' (of ``group``; None: all) ``grads``,
+    by one ``all_reduce`` of their flat buffer: each gradient in float32,
+    scaled by 1/world, cast to ``wire_dtype`` (None: float32), summed over
+    ranks and cast back, then split into the parameters' shapes and dtypes."""
+    if not grads:
+        return {}
     flat = torch.cat([g.reshape(-1).float() for g in grads.values()])
     flat.div_(world)
     wire = flat if wire_dtype in (None, torch.float32) else flat.to(wire_dtype)
-    dist.all_reduce(wire)
-    flat = wire.float()
+    flat = all_reduce(wire, group).float()
     out, offset = {}, 0
     for n, g in grads.items():
         out[n] = flat[offset:offset + g.numel()].view(g.shape).to(g.dtype)
@@ -149,28 +179,36 @@ def make_train_step(
     gradients are averaged over the ranks on a ``grad_allreduce_dtype``
     wire (bf16, or None for float32) and the metrics over the ranks, as
     the module docstring says; ``images`` and ``targets`` are this rank's
-    rows of the global batch.
+    rows of the global batch (of its data index, on a cut model).
     """
     world = world_size()
+    layout = getattr(model, "tp_layout", None)
+    split = split_outputs(model)
+    if layout is not None and grad_allreduce_dtype not in (None, torch.float32):
+        warnings.warn(f"grad_allreduce_dtype is only supported without a model axis (model axis is "
+                      f"{layout.grid.n_model}); keeping the float32 gradient all-reduce.")
+        grad_allreduce_dtype = None
 
     def train_step(state: TrainState, images: Any, targets: Mapping[str, torch.Tensor], loss_masks=None):
         names = list(state.params)
         preds = model(images)
         losses = get_loss(
-            preds, prepare_targets(targets, target_stats, dtype=loss_dtype),
-            target_loss_weights, loss_masks, compute_dtype=loss_dtype,
+            preds, prepare_targets(targets, target_stats, dtype=loss_dtype, split=split),
+            target_loss_weights, loss_masks, compute_dtype=loss_dtype, split=split,
         )
         main = main_loss_from_terms(losses, main_loss)
         found = torch.autograd.grad(main, [state.params[n] for n in names], allow_unused=True)
         grads = {n: torch.zeros_like(state.params[n]) if g is None else g for n, g in zip(names, found)}
         metrics = _metrics(main, losses)
-        if world > 1:
+        if layout is not None:
+            grads, metrics = _reduce_over_grid(grads, metrics, layout)
+        elif world > 1:
             grads = all_reduce_grads(grads, world, grad_allreduce_dtype)
             metrics = mean_over_ranks(metrics, world)
 
         if grad_clip:
             max_norm = torch.where(state.step < warmup_steps, grad_clip_norm_warmup, grad_clip_norm)
-            grads, metrics["grad_norm"] = clip_grad_norm(grads, max_norm)
+            grads, metrics["grad_norm"] = clip_grad_norm(grads, max_norm, layout)
 
         update_mask = None
         if loss_masks is not None or freeze_translator:
@@ -197,6 +235,19 @@ def make_train_step(
     return train_step
 
 
+def _reduce_over_grid(grads: dict[str, torch.Tensor], metrics: dict[str, Any], layout) -> tuple[dict, dict]:
+    """A cut model's gradients and metrics averaged over its grid: the split
+    parameters' gradients over the data group, the replicated ones' over
+    the world, the metrics over the data group (all float32)."""
+    grid = layout.grid
+    split = {n: g for n, g in grads.items() if layout.is_split(n)}
+    if grid.n_data > 1:
+        split = all_reduce_grads(split, grid.n_data, group=grid.data_group)
+        metrics = mean_over_ranks(metrics, grid.n_data, grid.data_group)
+    replicated = all_reduce_grads({n: g for n, g in grads.items() if n not in split}, grid.world)
+    return {n: split[n] if n in split else replicated[n] for n in grads}, metrics
+
+
 def make_eval_step(
     model: nn.Module,
     *,
@@ -207,15 +258,20 @@ def make_eval_step(
 ) -> Callable:
     """``eval_step(images, targets) -> metrics`` with the model's current
     parameters (the JAX step takes them as its first argument); in a
-    process group, the metrics are averaged over the ranks."""
-    world = world_size()
+    process group, the metrics are averaged over the ranks (over the data
+    group, on a cut model)."""
+    world, group = world_size(), None
+    layout = getattr(model, "tp_layout", None)
+    if layout is not None:
+        world, group = layout.grid.n_data, layout.grid.data_group
+    split = split_outputs(model)
 
     @torch.no_grad()
     def eval_step(images: Any, targets: Mapping[str, torch.Tensor]) -> dict[str, Any]:
         losses = get_loss(
-            model(images), prepare_targets(targets, target_stats, dtype=loss_dtype),
-            target_loss_weights, compute_dtype=loss_dtype,
+            model(images), prepare_targets(targets, target_stats, dtype=loss_dtype, split=split),
+            target_loss_weights, compute_dtype=loss_dtype, split=split,
         )
-        return mean_over_ranks(_metrics(main_loss_from_terms(losses, main_loss), losses), world)
+        return mean_over_ranks(_metrics(main_loss_from_terms(losses, main_loss), losses), world, group)
 
     return eval_step
