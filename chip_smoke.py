@@ -150,16 +150,21 @@ failure (the script then exits nonzero and prints no result):
    ``ConcatVFMEncoder`` over DINOv2-L and CLIP-L at B=8 (seeded weights);
 13. tensor parallelism (run after 12): K4 against its plain version with
    the normaliser's count twice the row length (a sample whose channels two
-   ranks split) at [16, 384, 31|64, ·] in bf16 and float32; two gloo ranks
-   at ``model_axis=2`` on this card (``tools/tp_step.py``), both on one
-   global batch of 16, 3 recipe steps: the losses and the gathered
-   parameters' change against one process's on the same batch, the
-   replicated parameters bit-equal on both ranks (and the replicated
-   gradients before their bucket), exact launch counts a rank, the
-   audit's model-group all-reduces (2 a block and 3 a head each way, and
-   the replicated bucket), each rank's step ms, the all-reduces' share and
-   its peak memory against one process's; in exact mode the gathered
-   gradient against one process's (rel L2 5e-3);
+   ranks split) at the lconv ladder's [16, 384, 31|64, ·] and the conv
+   translator's [16, 1024, 31|16, ·] in bf16 and float32, K3/K4 timed
+   there; one pair of gloo ranks at ``model_axis=2`` on this card
+   (``tools/tp_step.py``), both on one global batch of 16, runs the lconv,
+   conv, mlp and transformer translators in turn, 2 recipe steps each: the
+   losses and the gathered parameters' change against one process's on
+   the same batch, the replicated parameters bit-equal on both ranks (and
+   the replicated gradients before their bucket), exact launch counts a
+   rank, the audit's model-group all-reduces against the plan's (2 a block
+   each way, a head's row-parallel outputs, split LayerNorm sums and loss
+   sums forward, its column-parallel inputs and split LayerNorm sums back,
+   and the replicated bucket), each rank's step ms, the all-reduces' share
+   and its peak memory against one process's; for lconv and conv one
+   exact-mode step, its launches and its gathered gradient against one
+   process's (rel L2 5e-3);
 7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
    also with the stream held, the device's time alone), and each kernel's
    bound and library call; K3's and K4's sums over a recipe step's 15
@@ -336,17 +341,20 @@ HEAD_F32_ATOL = 1e-3
 VFM_BATCH = 8
 # phase 13: tensor parallelism. K4 with the normaliser's count twice the
 # row length (a sample whose channels two ranks split) at the split
-# ladder's LayerNormSpatial shapes; two gloo ranks at model_axis=2 on the
-# card, both on the same global batch, TP_STEPS recipe steps against one
-# process's: losses within DP_LOSS_RTOL, the parameters' change within
-# TP_CHANGE_REL_L2 of one process's change (relative L2: Adam's first
-# steps move each parameter by about the learning rate whatever the
-# gradient's size, so bf16 rounding that flips the sign of a small
-# gradient moves that parameter by twice the step), the exact-mode
-# gradient within TRAIN_GRAD_REL_L2
-TP_ROWS, TP_STEPS = 16, 3
-TP_LN_SHAPES = ((384, 31), (384, 64))
+# ladders' LayerNormSpatial shapes (lconv's 768 channels, the conv
+# translator's 2048, halved); two gloo ranks at model_axis=2 on the card,
+# both on the same global batch, TP_STEPS recipe steps of each of
+# TP_TRANSLATORS against one process's: losses within DP_LOSS_RTOL, the
+# parameters' change within TP_CHANGE_REL_L2 of one process's change
+# (relative L2: Adam's first steps move each parameter by about the
+# learning rate whatever the gradient's size, so bf16 rounding that flips
+# the sign of a small gradient moves that parameter by twice the step),
+# the exact-mode gradient of tools/tp_step.EXACT_TRANSLATORS' within
+# TRAIN_GRAD_REL_L2
+TP_ROWS, TP_STEPS = 16, 2
+TP_LN_SHAPES = ((384, 31), (384, 64), (1024, 31), (1024, 16))
 TP_CHANGE_REL_L2 = 0.5
+TP_TRANSLATORS = ("lconv", "conv", "mlp", "transformer")
 # JAX's TPU flash attention library, whose three Pallas kernels K7-K9 replace
 FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # the H100 SXM's published peaks
@@ -1868,19 +1876,47 @@ def downstream_phase(card: str, model, reset_counts, read_counts) -> dict:
     return records
 
 
+def tp_predicted(translator: str, n_heads: int, n_layers: int = 12) -> tuple[dict, int]:
+    """The launches a recipe step and the model-group all-reduces a step
+    predicted for ``translator`` before the first run: K3/K4 3 a conv or
+    lconv head, K5/K6 one a head; the all-reduces 2 a block each way, then
+    for each head its row-parallel outputs, split LayerNorm sums and split
+    loss sums forward, its column-parallel inputs and split LayerNorm sums
+    back (lconv and conv 3 + 3, a 3-layer mlp head 2 + 2, the transformer's
+    2-layer head 1 + 1), and the replicated gradients' bucket."""
+    ln = 3 * n_heads if translator in ("lconv", "conv") else 0
+    per_head = {"lconv": 6, "conv": 6, "mlp": 4, "transformer": 2}[translator]
+    launches = {"mha_fwd": 0, "mha_bwd": 0, "ln_bwd_stats": ln, "ln_bwd_dx": ln,
+                "loss_sums_fwd": n_heads, "loss_sums_bwd": n_heads}
+    return launches, 4 * n_layers + per_head * n_heads + 1
+
+
+def tp_plan_all_reduces(split: dict) -> int:
+    """The model-group all-reduces a step the cut's split layers give
+    (``tools/tp_step.split_layers``): 2 a block each way, a row-parallel
+    output and a split loss forward, a column-parallel input back, a split
+    LayerNorm's sums both ways, and the replicated gradients' bucket."""
+    return (4 * split["blocks"] + split["row"] + split["col"] + 2 * split["ln_shard"]
+            + split["split_outputs"] + 1)
+
+
 def tensor_parallel_phase(card: str, teachers: list[str], ln_pallas) -> dict:
     """Phase 13: tensor parallelism. K4 against its plain version with the
-    normaliser's count apart from the row length, at the split ladder's
-    shapes, and K3/K4 timed there; then two gloo ranks at ``model_axis=2`` on this card
-    (``tools/tp_step.py``): the losses and the gathered parameters' change
+    normaliser's count apart from the row length, at the split ladders'
+    shapes, and K3/K4 timed there; then one pair of gloo ranks at
+    ``model_axis=2`` on this card (``tools/tp_step.py``) for each of
+    TP_TRANSLATORS in turn: the losses and the gathered parameters' change
     against one process's, the replicated parameters bit-equal on both
-    ranks, the exact-mode gradient against one process's, the launches, the
-    audit's model-group records, each rank's step time, the share of it in
-    the all-reduces and its peak memory. Returns the ranks' records."""
+    ranks, the launches and the audit's model-group records against the
+    prediction and the plan, each rank's step time, the share of it in the
+    all-reduces and its peak memory; ``tp_step.EXACT_TRANSLATORS``'
+    exact-mode launches and gradient against one process's. Returns the
+    ranks' records and the K3/K4 rows."""
     import os
     import socket
 
     from theia_tpu_torch.tools import two_rank_step
+    from theia_tpu_torch.tools.tp_step import EXACT_TRANSLATORS
     from theia_tpu_torch.train.step import make_train_step
 
     gen = torch.Generator(device="cuda").manual_seed(23)
@@ -1909,80 +1945,91 @@ def tensor_parallel_phase(card: str, teachers: list[str], ln_pallas) -> dict:
     for rank in range(2):
         env = dict(os.environ, RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(port), OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen([sys.executable, "-m", "theia_tpu_torch.tools.tp_step", "--out", str(out_dir),
-                                       "--rows", str(TP_ROWS), "--steps", str(TP_STEPS)], env=env,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "theia_tpu_torch.tools.tp_step", "--out", str(out_dir), "--rows", str(TP_ROWS),
+             "--steps", str(TP_STEPS), "--translators", ",".join(TP_TRANSLATORS)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = [p.communicate(timeout=900)[0] for p in procs]
     two_s = time.perf_counter() - t0
     for rank, (p, log) in enumerate(zip(procs, logs)):
         check(p.returncode == 0, f"tp_step rank {rank} failed ({p.returncode}):\n{log[-4000:]}")
-    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
-    cut = torch.load(out_dir / "params.pt", weights_only=True)
-    shutil.rmtree(out_dir, ignore_errors=True)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())["translators"] for r in range(2)]
+    print(f"  one pair of gloo ranks on one card (both cuda:0), model_axis=2, both on one global batch of {TP_ROWS}, "
+          f"{MODEL} at the recipe, {TP_STEPS} steps of each of {', '.join(TP_TRANSLATORS)}; {two_s:.1f} s for both "
+          f"processes ({card})")
 
-    # one process on the same batch, from the same start
     images, targets = two_rank_step.global_batch(TP_ROWS)
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    model, tx, state = two_rank_step.build_model(two_rank_step.RECIPE)
     flat = lambda tree: torch.cat([t.detach().reshape(-1).float().cuda() for t in tree.values()])  # noqa: E731
-    init = flat(state.params)
-    step = make_train_step(model, tx)
-    one = {"losses": []}
-    for _ in range(TP_STEPS):
-        state, m = step(state, images, targets)
-        one["losses"].append(float(m["loss"]))
-    one["peak_bytes"] = torch.cuda.max_memory_allocated() - held
-    want_p = flat(state.params)
-    one["change_rel_l2"] = float((flat(cut) - want_p).norm() / (want_p - init).norm())
-    del model, tx, state, step, cut, init, want_p
-    torch.cuda.empty_cache()
+    n_heads = len(teachers)
+    for t in TP_TRANSLATORS:
+        r0, r1 = ranks[0][t], ranks[1][t]
+        # one process on the same batch, from the same start
+        cut = torch.load(out_dir / f"params_{t}.pt", weights_only=True)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model, tx, state = two_rank_step.build_model(two_rank_step.RECIPE, translator=t)
+        init = flat(state.params)
+        step = make_train_step(model, tx)
+        one = {"losses": []}
+        for _ in range(TP_STEPS):
+            state, m = step(state, images, targets)
+            one["losses"].append(float(m["loss"]))
+        one["peak_bytes"] = torch.cuda.max_memory_allocated() - held
+        want_p = flat(state.params)
+        one["change_rel_l2"] = float((flat(cut) - want_p).norm() / (want_p - init).norm())
+        del model, tx, state, step, cut, init, want_p
+        torch.cuda.empty_cache()
 
-    r0, r1 = ranks
-    n_layers, n_heads = 12, len(teachers)
-    want = {"mha_fwd": 0, "mha_bwd": 0, "ln_bwd_stats": 3 * n_heads * TP_STEPS, "ln_bwd_dx": 3 * n_heads * TP_STEPS,
-            "loss_sums_fwd": n_heads * TP_STEPS, "loss_sums_bwd": n_heads * TP_STEPS}
-    # the forward: 2 row-parallel sums a block, and a head's split LayerNorm
-    # sums, row-parallel conv and fused loss sums; the backward: 2
-    # column-parallel input gradients a block, and a head's 2 (its conv's and
-    # last Dense's) and its split LayerNorm's s1, s2; then the replicated bucket
-    want_ars = (2 * n_layers + 3 * n_heads) * 2 + 1
-    print(f"  two gloo ranks on one card (both cuda:0), model_axis=2, both on one global batch of {TP_ROWS}, "
-          f"{MODEL} at the recipe, {TP_STEPS} steps; {two_s:.1f} s for both processes ({card}); "
-          f"{r0['recipe']['n_split']} of {r0['recipe']['n_params']} parameters split, "
-          f"{r0['recipe']['local_elements']} elements a rank")
-    print(f"  losses {' '.join(f'{x:.6f}' for x in r0['recipe']['losses'])}; one process on the same batch "
-          f"{' '.join(f'{x:.6f}' for x in one['losses'])} (rtol {DP_LOSS_RTOL}); the gathered parameters' change "
-          f"against one process's: rel_l2 {one['change_rel_l2']:.3e} (< {TP_CHANGE_REL_L2})")
-    for rank, r in enumerate(ranks):
-        rec = r["recipe"]
-        later = slice(1, None)
-        share = sum(map(sum, rec["allreduce_ms"][later])) / sum(rec["step_ms"][later])
-        bucket = [ms[-1] for ms in rec["allreduce_ms"]]
-        print(f"    rank {rank}: step ms {' '.join(f'{x:.1f}' for x in rec['step_ms'])}; {len(rec['allreduce_ms'][0])} "
-              f"model-group all-reduces a step ({sum(rec['allreduce_bytes'][0]) / 2**20:.1f} MiB), their share of "
-              f"steps 2-{TP_STEPS} {100 * share:.1f}% (CUDA events, gloo's host staging included), of which the "
-              f"replicated gradients' bucket {' '.join(f'{x:.1f}' for x in bucket)} ms; peak memory "
-              f"{rec['peak_bytes'] / 2**30:.2f} GiB (one process's {one['peak_bytes'] / 2**30:.2f} GiB above what "
-              f"the script held); replicated parameters bit-equal on both ranks: "
-              f"{rec['replicated_equal']}; launches {rec['launches']}")
-    for mode in ("recipe", "exact"):
-        sp = r0[mode]["replicated_grad_spread"]
-        print(f"  {mode}: the ranks' replicated gradients before the bucket that averages them: {sp['differ']} of "
+        rec = r0["recipe"]
+        want, predicted_ars = tp_predicted(t, n_heads)
+        want = {k: v * TP_STEPS for k, v in want.items()}
+        plan_ars = tp_plan_all_reduces(rec["split_layers"])
+        print(f"  {t}: {rec['n_split']} of {rec['n_params']} parameters split, {rec['local_elements']} elements a "
+              f"rank; split layers {rec['split_layers']}")
+        print(f"    losses {' '.join(f'{x:.6f}' for x in rec['losses'])}; one process on the same batch "
+              f"{' '.join(f'{x:.6f}' for x in one['losses'])} (rtol {DP_LOSS_RTOL}); the gathered parameters' "
+              f"change against one process's: rel_l2 {one['change_rel_l2']:.3e} (< {TP_CHANGE_REL_L2})")
+        for rank, rr in enumerate((r0, r1)):
+            rc = rr["recipe"]
+            share = sum(map(sum, rc["allreduce_ms"][1:])) / sum(rc["step_ms"][1:])
+            bucket = [ms[-1] for ms in rc["allreduce_ms"]]
+            print(f"    rank {rank}: step ms {' '.join(f'{x:.1f}' for x in rc['step_ms'])}; "
+                  f"{len(rc['allreduce_ms'][0])} model-group all-reduces a step "
+                  f"({sum(rc['allreduce_bytes'][0]) / 2**20:.1f} MiB), their share of steps 2-{TP_STEPS} "
+                  f"{100 * share:.1f}% (CUDA events, gloo's host staging included), of which the replicated "
+                  f"gradients' bucket {' '.join(f'{x:.1f}' for x in bucket)} ms; peak memory "
+                  f"{rc['peak_bytes'] / 2**30:.2f} GiB (one process's {one['peak_bytes'] / 2**30:.2f} GiB above "
+                  f"what the script held); replicated parameters bit-equal on both ranks: "
+                  f"{rc['replicated_equal']}; launches {rc['launches']}")
+        sp = rec["replicated_grad_spread"]
+        print(f"    recipe: the ranks' replicated gradients before the bucket that averages them: {sp['differ']} of "
               f"{sp['elements']} elements differ, max abs {sp['max_abs']:.3e}")
-    print(f"  exact mode (float32 compute), one step: the gathered gradient against one process's rel_l2 "
-          f"{r0['exact']['grad_rel_l2_whole']:.3e} (< {TRAIN_GRAD_REL_L2}); loss {r0['exact']['loss']:.6f}")
-    print(f"  audit of one recipe step on rank 0: {r0['audit']} (model-group all-reduces expected {want_ars})")
-    check(r0["recipe"]["losses"] == r1["recipe"]["losses"], "the ranks' losses differ")
-    check(np.allclose(r0["recipe"]["losses"], one["losses"], rtol=DP_LOSS_RTOL), "TP losses far from one process's")
-    check(one["change_rel_l2"] < TP_CHANGE_REL_L2, "TP parameters' change far from one process's")
-    check(r0["recipe"]["replicated_equal"] and r1["recipe"]["replicated_equal"],
-          "the replicated parameters differ across the model group")
-    check(r0["recipe"]["launches"] == want == r1["recipe"]["launches"], f"TP launch counts are off (expected {want})")
-    check(r0["exact"]["grad_rel_l2_whole"] < TRAIN_GRAD_REL_L2, "the TP gradient is far from one process's")
-    check(r0["audit"] == {"all-reduce@g2": r0["audit"].get("all-reduce@g2", {})}
-          and r0["audit"]["all-reduce@g2"]["count"] == want_ars, "the audit's model-group records are off")
+        print(f"    audit of the first recipe step on rank 0: {rec['audit']} (model-group all-reduces: the plan's "
+              f"{plan_ars}, predicted {predicted_ars})")
+        check(rec["losses"] == r1["recipe"]["losses"], f"{t}: the ranks' losses differ")
+        check(np.allclose(rec["losses"], one["losses"], rtol=DP_LOSS_RTOL), f"{t}: TP losses far from one process's")
+        check(one["change_rel_l2"] < TP_CHANGE_REL_L2, f"{t}: TP parameters' change far from one process's")
+        check(rec["replicated_equal"] and r1["recipe"]["replicated_equal"],
+              f"{t}: the replicated parameters differ across the model group")
+        check(rec["launches"] == want == r1["recipe"]["launches"], f"{t}: TP launch counts are off (expected {want})")
+        check(rec["audit"] == {"all-reduce@g2": rec["audit"].get("all-reduce@g2", {})}
+              and rec["audit"]["all-reduce@g2"]["count"] == plan_ars == predicted_ars,
+              f"{t}: the audit's model-group records are off")
+        if t in EXACT_TRANSLATORS:
+            ex = r0["exact"]
+            sp = ex["replicated_grad_spread"]
+            n_layers = 12
+            want_exact = {"mha_fwd": n_layers, "mha_bwd": n_layers, "ln_bwd_stats": 3 * n_heads,
+                          "ln_bwd_dx": 3 * n_heads, "loss_sums_fwd": n_heads, "loss_sums_bwd": n_heads}
+            print(f"    exact mode (float32 compute), one step: the gathered gradient against one process's rel_l2 "
+                  f"{ex['grad_rel_l2_whole']:.3e} (< {TRAIN_GRAD_REL_L2}); loss {ex['loss']:.6f}; launches "
+                  f"{ex['launches']}; replicated gradients before the bucket: {sp['differ']} of {sp['elements']} "
+                  f"differ, max abs {sp['max_abs']:.3e}")
+            check(ex["grad_rel_l2_whole"] < TRAIN_GRAD_REL_L2, f"{t}: the TP gradient is far from one process's")
+            check(ex["launches"] == want_exact == r1["exact"]["launches"],
+                  f"{t}: exact-mode TP launch counts are off (expected {want_exact})")
+    shutil.rmtree(out_dir, ignore_errors=True)
     return {"ranks": ranks, "seconds": two_s, "ln_rows": ln_rows}
 
 
@@ -2542,7 +2589,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("phase 12")
     # phase 13: tensor parallelism, two ranks of one model group on the card
-    tensor_parallel_phase(card, teachers, ln_pallas)
+    tp_ln_rows = tensor_parallel_phase(card, teachers, ln_pallas)["ln_rows"]
     torch.cuda.empty_cache()
     stamp("phase 13")
 
@@ -2803,10 +2850,11 @@ def main() -> int:
             "launches": launches, "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
             "bound_ms": bound, "bound_by": by, "library_ms": t.get("library"),
             **({"float32": f32_records[name]} if name in f32_records else {}),
-            # K3/K4 at the conv translator's LayerNormSpatial shapes (phase 9)
-            # and at the policy heads' (phase 3)
+            # K3/K4 at the conv translator's LayerNormSpatial shapes (phase 9),
+            # the policy heads' (phase 3) and a tensor-parallel rank's split ones (phase 13)
             **({"conv_translator": [v for k, v in conv_ln_rows.items() if k[0] == name],
-                "policy_heads": [v for k, v in policy_ln_rows.items() if k[0] == name]}
+                "policy_heads": [v for k, v in policy_ln_rows.items() if k[0] == name],
+                "tensor_parallel": [v for k, v in tp_ln_rows.items() if k[0] == name]}
                if name in ("ln_bwd_stats", "ln_bwd_dx") else {}),
         })
     # K7 on phase 8's path: ViT-H's 32 layers a call, float32

@@ -29,6 +29,7 @@ from theia_tpu_torch.config import load_config
 from theia_tpu_torch.models import hub as thub
 from theia_tpu_torch.models import pretrained as tpre
 from theia_tpu_torch.models import vit as tvit
+from theia_tpu_torch.models.convert import state_dict_from_jax
 from theia_tpu_torch.models.rvfm import Theia as TTheia
 from theia_tpu_torch.train import loop as tloop
 
@@ -202,6 +203,49 @@ def test_checkpoint_path_none_raises(tmp_path):
         thub.from_pretrained(NAME, device="cpu")
     with pytest.raises(FileNotFoundError, match="no committed checkpoint step"):
         tpre.load_theia_checkpoint(str(tmp_path), _port_model(TINY, DINO))
+
+
+# a 16x16 and a 64x64 head; square ladder convs, whose weights the JAX
+# converter's other reading keeps the shape of: conv's adapter.4 and .7 at
+# 16x16 (hidden 8: 8 -> 16 -> 16 -> 16), lconv's adapter.1 and .4 at 64x64
+# (192 -> 192 -> 192)
+PADLESS = {"conv": ({"translator_hidden_size": 8}, {"teacher/a": (16, 16, 16), "teacher/b": (12, 64, 64)}),
+           "lconv": ({}, {"teacher/a": (16, 16, 16), "teacher/b": (12, 64, 64)})}
+
+
+@pytest.mark.parametrize("translator", list(PADLESS))
+def test_head_without_its_pad_loads_as_the_jax_loader(tmp_path, translator):
+    """A translator's state dict with every head's ``pad.1.*`` dropped: the
+    JAX converter reads the heads on the 14x14 grid (conv: the 16x16
+    ladder as ConvTranspose2d; lconv: the 16 -> 64 ladder as Conv2d) and
+    keeps its init where a shape then differs. From the same initial
+    parameters (the JAX loader's ``PRNGKey(0)`` init), the port's loaded
+    state dict equals ``state_dict_from_jax`` of the JAX loader's params."""
+    kwargs, sizes = PADLESS[translator]
+
+    def jax_model():
+        return JTheia(backbone=TINY, translator=translator, target_feature_sizes=sizes, translator_kwargs=kwargs)
+
+    def carried(params):
+        return state_dict_from_jax(jax.tree.map(np.asarray, params), sizes, translator=translator)
+
+    zeros = jnp.zeros((1, 224, 224, 3), jnp.uint8)
+    sd = {k: v for k, v in carried(jax_model().init(jax.random.PRNGKey(5), zeros)["params"]).items()
+          if ".pad.1." not in k}
+    path = str(tmp_path / "nopad.pth")
+    torch.save(sd, path)
+    want = carried(jpre.load_theia_checkpoint(path, jax_model()))
+    model = TTheia(backbone=TINY, translator=translator, target_feature_sizes=sizes, translator_kwargs=kwargs)
+    model.load_state_dict(carried(jax_model().init(jax.random.PRNGKey(0), zeros)["params"]), strict=True)
+    tpre.load_theia_checkpoint(path, model)
+    got = model.state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    swapped = [k for k in sd if sd[k].dim() == 4 and not torch.equal(got[k], sd[k])
+               and torch.equal(got[k], sd[k].transpose(0, 1))]
+    assert [k.split(".", 3)[3] for k in swapped] == {
+        "conv": ["adapter.4.weight", "adapter.7.weight"], "lconv": ["adapter.1.weight", "adapter.4.weight"]}[translator]
 
 
 @pytest.fixture(scope="module")

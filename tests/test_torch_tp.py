@@ -106,9 +106,10 @@ def _collect(procs, out_dir):
     return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(len(procs))]
 
 
-def _jax_tp_steps(params, images, targets):
+def _jax_tp_steps(params, images, targets, translator="lconv", sizes=TARGETS, translator_kwargs=None):
     """The JAX package's TP step on a (1, 2) mesh: two steps, grad clip on."""
-    jmodel = JTheia(backbone=SMALL, translator="lconv", target_feature_sizes=TARGETS)
+    jmodel = JTheia(backbone=SMALL, translator=translator, target_feature_sizes=sizes,
+                    translator_kwargs=translator_kwargs)
     jtx = joptim.make_optimizer(joptim.constant_with_warmup(LR, 10), weight_decay=0.01)
     mesh = make_mesh(n_data=1, n_model=2, devices=jax.devices()[:2])
     jvalidate_tp(6, 1536, 2)
@@ -124,9 +125,10 @@ def _jax_tp_steps(params, images, targets):
     return jax.device_get(state), losses
 
 
-def _port_steps(sd, images, targets, steps, **kw):
+def _port_steps(sd, images, targets, steps, translator="lconv", sizes=TARGETS, translator_kwargs=None, **kw):
     """The port at one process on the whole batch."""
-    model = TTheia(backbone=SMALL, translator="lconv", target_feature_sizes=TARGETS, **kw)
+    model = TTheia(backbone=SMALL, translator=translator, target_feature_sizes=sizes,
+                   translator_kwargs=translator_kwargs, **kw)
     model.load_state_dict(sd, strict=True)
     tx = toptim.make_optimizer(toptim.constant_with_warmup(LR, 10), weight_decay=0.01,
                                moment_dtype=torch.bfloat16 if kw.get("fast_math") else None)
@@ -190,9 +192,9 @@ def run(tmp_path_factory):
             configs[SMALL] = cfg
 
 
-def _sd(tree):
+def _sd(tree, sizes=TARGETS, translator="lconv"):
     tree = jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
-    return {k: v.numpy() for k, v in state_dict_from_jax(tree, TARGETS).items()}
+    return {k: v.numpy() for k, v in state_dict_from_jax(tree, sizes, translator=translator).items()}
 
 
 @pytest.mark.parametrize("grid", list(GRIDS))
@@ -318,7 +320,8 @@ def small_backbone():
 
 
 TRANSLATOR_KWARGS = {"lconv": {}, "mlp": dict(translator_hidden_size=32, translator_n_layer=3),
-                     "conv": dict(translator_hidden_size=8)}
+                     "conv": dict(translator_hidden_size=8),
+                     "transformer": dict(translator_hidden_size=32, translator_n_layers=1, translator_n_heads=2)}
 PLAN_TARGETS = {"teacher/a": (24, 16, 16), "teacher/b": (12, 64, 64)}
 
 
@@ -372,9 +375,33 @@ def test_validate_tp_and_the_grid_reject_indivisible_axes():
     assert make_grid(1) == Grid(1, 1, 0, 0)
 
 
-@pytest.mark.parametrize("translator", ["mlp", "conv"])
-def test_other_translators_refuse_the_cut(translator, small_backbone):
+@pytest.mark.parametrize("translator", ["mlp", "conv", "transformer"])
+def test_shard_module_cuts_every_translator(translator, small_backbone):
+    """``shard_module`` keeps each rank's slice of the plan's split
+    parameters, gives the heads' split layers their roles, and marks the
+    features split where the head ends column-parallel (mlp's 3 layers and
+    conv), whole where it ends row-parallel (the transformer's 2)."""
     model = TTheia(backbone=SMALL, translator=translator, target_feature_sizes=PLAN_TARGETS,
                    translator_kwargs=TRANSLATOR_KWARGS[translator])
-    with pytest.raises(NotImplementedError, match="lconv"):
-        ttp.shard_module(model, Grid(1, 2, 0, 0))
+    whole = {n: p.shape for n, p in model.named_parameters()}
+    plan = ttp.tp_plan(model, 2)
+    layout = ttp.shard_module(model, Grid(1, 2, 0, 1))
+    assert layout is model.tp_layout and layout.dims == plan.dims
+    split = translator != "transformer"
+    assert layout.split_outputs == {t: split for t in PLAN_TARGETS}
+    assert set(plan.split_heads) == (set(PLAN_TARGETS) if split else set())
+    for n, p in model.named_parameters():
+        d = plan.dims[n]
+        want = list(whole[n])
+        if d is not None:
+            want[d] //= 2
+        assert list(p.shape) == want, n
+    for name, role in plan.roles.items():
+        m = model.get_submodule(name)
+        assert m.tp == Grid(1, 2, 0, 1) and (role == "ln_shard" or m.tp_role == role), name
+    roles = {n.split(".", 3)[3]: r for n, r in plan.roles.items() if n.startswith(ttp._HEADS_PREFIX + "teacher/a.")}
+    assert roles == {"mlp": {"adapter.0": "col", "adapter.2": "row", "adapter.4": "col"},
+                     "conv": {"adapter.1": "col", "adapter.3": "ln_shard", "adapter.4": "row", "adapter.7": "col"},
+                     "transformer": {"adapter.0": "col", "adapter.2": "row"}}[translator]
+    assert all(plan.dims[n] is None for n in plan.dims
+               if n.startswith("translator.") and not n.startswith(ttp._HEADS_PREFIX))

@@ -219,25 +219,30 @@ def test_load_theia_checkpoint_matches_jax(tmp_path, t):
 
 def test_load_theia_checkpoint_without_the_conv_pad(tmp_path):
     """The conv heads' ``pad`` is optional in a file, as in the JAX
-    converter: the model keeps its own, every other tensor comes from the
-    file. (The JAX converter then reads such a head as one on a 14x14 grid
-    and takes its 16x16 ladder's convolutions for transposed ones, keeping
-    its init where the shapes then differ; the port loads them as they are.)"""
+    converter, which then reads such a head on the 14x14 grid: the 16x16
+    ladder's convolutions as transposed ones, keeping the model's init where
+    the shapes then differ. The port loads the file as the JAX loader does,
+    from the same initial parameters (the JAX loader's ``PRNGKey(0)`` init):
+    every tensor equal, the pads the init's."""
     sizes = SIZES["conv"]
     sd = {k: v for k, v in state_dict_from_jax(_jax_params("conv", sizes, seed=5), sizes, translator="conv").items()
           if ".pad.1." not in k}
     path = str(tmp_path / "nopad.pth")
     torch.save(sd, path)
+    jloaded = jpre.load_theia_checkpoint(path, _jax_theia("conv", sizes))
+    want = state_dict_from_jax(jax.tree.map(np.asarray, jloaded), sizes, translator="conv")
     model = _port_theia("conv", sizes)
+    model.load_state_dict(state_dict_from_jax(_jax_params("conv", sizes), sizes, translator="conv"), strict=True)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     tpre.load_theia_checkpoint(path, model)
     got = model.state_dict()
-    pads = [k for k in got if ".pad.1." in k]
-    assert len(pads) == 2 * len(sizes) and set(got) == set(sd) | set(pads)
-    for k in pads:
-        assert torch.equal(got[k], init[k]), k
-    for k, v in sd.items():
+    assert set(got) == set(want) == set(sd) | {k for k in got if ".pad.1." in k}
+    for k, v in want.items():
         assert torch.equal(got[k], v), k
+    swapped = "translator.translator_heads.teacher/a.adapter.4.weight"  # hidden -> hidden, 16x16
+    assert torch.equal(got[swapped], sd[swapped].transpose(0, 1))
+    assert torch.equal(got["translator.translator_heads.teacher/a.adapter.1.weight"],
+                       init["translator.translator_heads.teacher/a.adapter.1.weight"])
 
 
 # the conv translator's LayerNormSpatial sites (C, side) at its configured

@@ -1,13 +1,17 @@
-"""One rank of tests/test_torch_tp.py and tests/test_torch_tp_audit.py: a
-process of a gloo group on the CPU, started with torchrun's environment
-(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT).
+"""One rank of tests/test_torch_tp.py, tests/test_torch_tp_translators.py and
+tests/test_torch_tp_audit.py: a process of a gloo group on the CPU, started
+with torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+MASTER_PORT).
 
     python tests/torch_tp_worker.py SPEC.json
 
 SPEC names the cases to run, the model axis, the 2-layer deit-small
-Theia's state dict and the global batch. Each rank writes what it saw to
-``<out>/rank<r>.pt``: whole tensors are gathered over its model group
-first, so every rank's record is in the one-process layout. Imports no JAX.
+Theia's translator (``translator`` and ``translator_kwargs``; lconv by
+default) and state dict, and the global batch; the ``translators_*``
+cases run each entry of ``spec["translators"]`` in turn, in one process.
+Each rank writes what it saw to ``<out>/rank<r>.pt``: whole tensors are
+gathered over its model group first, so every rank's record is in the
+one-process layout. Imports no JAX.
 """
 
 import dataclasses
@@ -54,16 +58,17 @@ def _rows(spec: dict, grid, key: str = "batch", names: str = "names"):
 
 
 def _model(spec: dict, sizes: dict, state_dict: str, grid, **kw):
-    model = Theia(backbone=SMALL, translator="lconv", target_feature_sizes=sizes, **kw)
+    model = Theia(backbone=SMALL, translator=spec.get("translator", "lconv"), target_feature_sizes=sizes,
+                  translator_kwargs=spec.get("translator_kwargs"), **kw)
     model.load_state_dict(torch.load(state_dict, weights_only=True), strict=True)
     layout = tp.shard_module(model, grid)
     return model, layout
 
 
-def _steps(spec: dict, grid, out: dict, name: str, steps: int, **kw) -> None:
+def _steps(spec: dict, grid, out: dict, name: str, steps: int, state_dict: str | None = None, **kw) -> None:
     """``steps`` train steps of the cut model on this data index's rows: the
     losses, step 1's collectives, and the whole parameters and moments after."""
-    model, layout = _model(spec, _sizes(spec), spec["state_dict"], grid, **kw)
+    model, layout = _model(spec, _sizes(spec), state_dict or spec["state_dict"], grid, **kw)
     tx = toptim.make_optimizer(toptim.constant_with_warmup(spec["lr"], 10), weight_decay=0.01,
                                moment_dtype=torch.bfloat16 if kw.get("fast_math") else None)
     step = tstep.make_train_step(model, tx, grad_clip=True, grad_clip_norm=spec["clip"])
@@ -167,7 +172,7 @@ def case_loss(spec: dict, out: dict) -> None:
     out["loss"] = res
 
 
-def case_loop(spec: dict, out: dict) -> None:
+def case_loop(spec: dict, out: dict, name: str = "loop") -> None:
     """``train_from_config`` at ``model_axis``: one epoch, then resumed for a second."""
     seen = []
     make_train = tloop.make_train_step
@@ -189,13 +194,31 @@ def case_loop(spec: dict, out: dict) -> None:
             summaries.append(tloop.train_from_config(cfg, device="cpu"))
     finally:
         tloop.make_train_step = make_train
-    out["loop"] = dict(steps=[s["step"] for s in summaries], train=seen,
+    out[name] = dict(steps=[s["step"] for s in summaries], train=seen,
                        losses=[s["train"]["avg_train_cos_loss"] for s in summaries],
                        ckpt_dir=summaries[-1]["ckpt_dir"])
 
 
+def case_translators_steps(spec: dict, out: dict) -> None:
+    """``tp_steps`` for each of ``spec["translators"]`` (translator -> its
+    ``translator_kwargs`` and ``state_dict``), recorded under "tp_<translator>"."""
+    grid = make_grid(spec["n_model"])
+    out["grid"] = (grid.n_data, grid.n_model, grid.data_index, grid.model_index)
+    for t, entry in spec["translators"].items():
+        sub = dict(spec, translator=t, translator_kwargs=entry["kwargs"])
+        _steps(sub, grid, out, f"tp_{t}", spec["steps"], state_dict=entry["state_dict"])
+
+
+def case_translators_loop(spec: dict, out: dict) -> None:
+    """``loop`` for each of ``spec["translators"]`` with its ``overrides``,
+    recorded under "loop_<translator>"."""
+    for t, entry in spec["translators"].items():
+        case_loop(dict(spec, overrides=entry["overrides"]), out, f"loop_{t}")
+
+
 CASES = {"dp_audit": case_dp_audit, "tp_steps": case_tp_steps, "tp_recipe": case_tp_recipe,
-         "audit64": case_audit64, "ln": case_ln, "loss": case_loss, "loop": case_loop}
+         "audit64": case_audit64, "ln": case_ln, "loss": case_loss, "loop": case_loop,
+         "translators_steps": case_translators_steps, "translators_loop": case_translators_loop}
 
 
 def main() -> None:

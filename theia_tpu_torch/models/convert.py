@@ -110,9 +110,7 @@ def _translator(
             sd[hp + "pad.1.weight"] = np.asarray(head["pad"]["pad_1"]["kernel"]).transpose(2, 3, 0, 1)
             sd[hp + "pad.1.bias"] = np.asarray(head["pad"]["pad_1"]["bias"])
             s_eff = 16
-        # the conv head's ladder up (16 -> 64) is ConvTranspose at 1, 4 and 7;
-        # the lconv head's at 1 and 4, its 8 (or 5) a Linear
-        deconv_ladder = s_eff < size[1] if translator == "conv" else (s_eff == 16 and size[1] == 64)
+        deconv_ladder = ladder_is_transposed(translator, s_eff, size[1])
         for idx in (0, 3, 6):  # LayerNormSpatial: (C,H,W) kept verbatim
             if f"adapter_{idx}" in head:
                 sd[hp + f"adapter.{idx}.weight"] = np.asarray(head[f"adapter_{idx}"]["weight"])
@@ -126,6 +124,19 @@ def _translator(
             if f"adapter_{idx}" in head:
                 _linear(sd, hp + f"adapter.{idx}", head[f"adapter_{idx}"])
     return sd
+
+
+def ladder_is_transposed(translator: str, source_side: int, target_side: int) -> bool:
+    """Whether ``hf_convert.convert_translator`` takes a conv or lconv head's
+    ``adapter.{1,4,7}`` for ConvTranspose2d weights (hf_convert.py:121-123,
+    136): the conv head's wherever ``source_side`` is below the target's
+    (its ladder up, 16 -> 64, is ConvTranspose at 1, 4 and 7), the lconv
+    head's on the 16 -> 64 ladder (at 1 and 4; its 8, or 5, a Linear). The
+    converter reads a head at ``source_side`` 16 where the file holds its
+    ``pad``, else at the backbone's grid."""
+    if translator == "conv":
+        return source_side < target_side
+    return source_side == 16 and target_side == 64
 
 
 def _hwio_to_oihw(kernel: Any) -> np.ndarray:

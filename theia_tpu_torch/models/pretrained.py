@@ -20,10 +20,16 @@ the model: a name of the model that the file lacks raises ``KeyError``
 converter reads only where the file has it), a file's extra names (other teachers) are
 ignored, a tensor whose shape differs from the model's keeps the model's
 value (``_merge_loose``), and values are cast to the parameter's dtype.
-One divergence: a conv head without its ``pad`` has every other tensor
-loaded as the file holds it, where the JAX converter reads such a head as
-one on the unpadded grid and takes its 16x16 ladder for transposed
-convolutions.
+A conv or lconv head whose ``pad`` the file lacks keeps the model's
+``pad`` and is read as the JAX converter reads it, on the backbone's
+unpadded 14x14 grid (hf_convert.py:103-146): where that takes
+``adapter.{1,4,7}`` for the other kind of convolution than the model's
+(the conv head's 16x16 ladder for ConvTranspose2d, the lconv head's
+16 -> 64 ladder for Conv2d), the converter's layout puts the file's
+(I, O) as the model's (O, I), so a weight loads with its first two
+dimensions swapped where its shape then matches, and keeps the model's
+value where it does not (``_as_jax_reads``). Parity with the JAX loader is
+the rule here, not the reference's reading (ROADMAP, "Watch list").
 A train state's ``params`` load as they are, as the JAX restore takes its
 params. Every load goes through ``load_state_dict(strict=True)``.
 """
@@ -37,9 +43,13 @@ import torch
 from torch import nn
 
 from theia_tpu_torch.data.webdataset import load_safetensors
+from theia_tpu_torch.models.convert import ladder_is_transposed
+from theia_tpu_torch.models.translators import ConvFeatureTranslator, LightConvFeatureTranslator, head_key
 from theia_tpu_torch.train.checkpoint import read_params
 
 _TRAIN_STATE_KEYS = {"step", "params"}
+# the backbone grid the JAX loader hands its converter (convert_theia_checkpoint's default)
+_CONVERTER_GRID = 14
 
 
 def _optional(name: str) -> bool:
@@ -56,6 +66,31 @@ def _merge_loose(init: Mapping[str, torch.Tensor], loaded: Mapping[str, torch.Te
     for name, t in init.items():
         src = loaded.get(name)
         out[name] = src.to(t.dtype) if src is not None and tuple(src.shape) == tuple(t.shape) else t
+    return out
+
+
+def _as_jax_reads(tensors: Mapping[str, torch.Tensor], model: nn.Module) -> dict[str, torch.Tensor]:
+    """``tensors`` with each conv or lconv head's ``adapter.{1,4,7}.weight``
+    as the JAX converter reads it, in the port's layout: swapped on its
+    first two dimensions where the converter takes it for the other kind
+    of convolution than the model's (a head whose ``pad`` the file lacks)."""
+    translator = getattr(model, "translator", None)
+    kinds = {ConvFeatureTranslator: "conv", LightConvFeatureTranslator: "lconv"}
+    kind = kinds.get(type(translator))
+    if kind is None:
+        return dict(tensors)
+    out = dict(tensors)
+    for t, size in translator.target_feature_sizes.items():
+        hp = f"translator.translator_heads.{head_key(t)}."
+        side = 16 if f"{hp}pad.1.weight" in tensors else _CONVERTER_GRID
+        read_transposed = ladder_is_transposed(kind, side, size[1])
+        adapter = translator.translator_heads[head_key(t)].adapter
+        for idx in (1, 4, 7):
+            m = adapter[idx] if idx < len(adapter) else None
+            name = f"{hp}adapter.{idx}.weight"
+            if (isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and name in out
+                    and read_transposed != isinstance(m, nn.ConvTranspose2d)):
+                out[name] = out[name].transpose(0, 1)
     return out
 
 
@@ -85,5 +120,5 @@ def load_theia_checkpoint(path: str, model: nn.Module) -> nn.Module:
     if missing:
         raise KeyError(f"checkpoint at {path} does not look like a reference RobotVisionFM state dict "
                        f"(missing {missing[0]!r})")
-    model.load_state_dict(_merge_loose(init, tensors), strict=True)
+    model.load_state_dict(_merge_loose(init, _as_jax_reads(tensors, model)), strict=True)
     return model

@@ -41,9 +41,13 @@ on the wire, whatever the compute dtype (the JAX package's model-axis
 all-reduces are float32 on the CPU, where its bf16 matmuls and convs run
 in float32).
 
-Only the lconv translator is cut: the mlp, conv and transformer
-translators raise under ``model_axis > 1`` (their plans are the JAX
-package's all the same, ``tp_plan``).
+Every translator is cut. The heads are cut as above: a 3-layer mlp head
+and a conv head end column-parallel, so their features stay split into
+the loss; the transformer translator's 2-layer mlp heads end row-parallel
+and give whole features. The backbone adapter and the transformer's stem,
+``decode_tokens`` and ``target_model_emb`` are replicated: they feed the
+heads' first, column-parallel layers, whose ``copy_to_model`` sums their
+gradients over the group.
 """
 
 from __future__ import annotations
@@ -314,7 +318,7 @@ def gather_state(tree: Mapping[str, torch.Tensor], layout: TPLayout) -> dict[str
 
 
 def shard_module(model: nn.Module, grid: Grid) -> Optional[TPLayout]:
-    """Cut ``model`` (a ``Theia`` with the lconv translator, or none) over
+    """Cut ``model`` (a ``Theia`` with any translator, or none) over
     ``grid``'s model group, in place: every split parameter keeps this
     rank's slice, and the blocks, the split layers and the split
     LayerNormSpatials learn the grid. Run after ``broadcast_module`` (every
@@ -324,14 +328,9 @@ def shard_module(model: nn.Module, grid: Grid) -> Optional[TPLayout]:
     n = grid.n_model
     if n <= 1:
         return None
-    from theia_tpu_torch.models.translators import LightConvFeatureTranslator, head_key
+    from theia_tpu_torch.models.translators import head_key
 
     translator = getattr(model, "translator", None)
-    if translator is not None and not isinstance(translator, LightConvFeatureTranslator):
-        raise NotImplementedError(
-            f"training.model_axis={n}: tensor parallelism cuts the lconv translator only, "
-            f"not {type(translator).__name__}"
-        )
     cfg = model.backbone.cfg
     validate_tp(cfg.num_heads, cfg.intermediate_size, n)
     plan = tp_plan(model, n)

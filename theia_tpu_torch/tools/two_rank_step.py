@@ -63,14 +63,24 @@ def global_batch(rows: int, device: torch.device | str = "cuda") -> tuple[torch.
     return images, targets
 
 
-def build_model(flags: dict, device: torch.device | str = "cuda"):
-    """Theia-Base cddsv from the seed, float32 params, in train mode, with
-    its masked AdamW (bf16 moments at the recipe) and TrainState."""
+def translator_kwargs(translator: str) -> dict:
+    """A translator's kwargs as ``configs/model/translator/<translator>.yaml`` sets them."""
+    import yaml
+
+    path = Path(__file__).resolve().parent.parent / "configs" / "model" / "translator" / f"{translator}.yaml"
+    return dict(yaml.safe_load(path.read_text()).get("kwargs") or {})
+
+
+def build_model(flags: dict, device: torch.device | str = "cuda", translator: str = "lconv"):
+    """Theia-Base cddsv with ``translator`` at its config's widths from the
+    seed, float32 params, in train mode, with its masked AdamW (bf16
+    moments at the recipe) and TrainState."""
     from theia_tpu_torch.models.hub import build_theia
     from theia_tpu_torch.train.optim import make_optimizer
     from theia_tpu_torch.train.state import TrainState
 
-    model = build_theia(MODEL, device=device, generator=torch.Generator().manual_seed(SEED), **flags).train()
+    model = build_theia(MODEL, device=device, generator=torch.Generator().manual_seed(SEED), translator=translator,
+                        translator_kwargs=translator_kwargs(translator), **flags).train()
     moments = torch.bfloat16 if flags.get("fast_math") else None
     tx = make_optimizer(LR, weight_decay=0.01, moment_dtype=moments)
     return model, tx, TrainState.create(dict(model.named_parameters()), tx)
