@@ -75,7 +75,7 @@ failure (the script then exits nonzero and prints no result):
    loaders bit-equal to the same splits merged round-robin in this
    process, 3 steps of ``train_from_config`` with workers (finite losses,
    exact launch counts, the loader's share of the wall), and
-   ``measure_loader_throughput`` at 0, 1, 2, 4 and cores - 1 workers in
+   ``measure_loader_throughput`` at 0, 2 and cores - 1 workers in
    both transports on 256 more samples, with the host's cores, /dev/shm's
    free bytes and the transport that ran;
 4b. serving the student 6b trained: ``from_pretrained`` from the run's
@@ -165,6 +165,21 @@ failure (the script then exits nonzero and prints no result):
    and its peak memory against one process's; for lconv and conv one
    exact-mode step, its launches and its gathered gradient against one
    process's (rel L2 5e-3);
+14. the data plane's tar index, profiling and the scripts (run after 13,
+   on phase 6b's and 8's directories, which stay until the script exits):
+   (a) ``data.webdataset.ShardIndex`` on every shard of phases 6b-11 and 8
+   and on one shard of 1,000 samples of an image and the five teachers'
+   features: the native walk (``data/fastpack.py``), members equal to
+   tarfile's, and the open time of both walks (host clock, page cache
+   warm); (b) ``utils.profiling.trace`` around 3 recipe steps of Theia-Base
+   cddsv at B=16: one trace file whose kernel records name K3, K4, K5 and
+   K6 as often as their launch counters (45, 45, 15, 15; CUPTI may drop one
+   record a name), ``StepTimer``'s images/s beside the CUDA-event step
+   time; (c) ``python -m theia_tpu_torch.scripts.verify_published`` on
+   phase 6b's student, offline: exit 0, no reference run, K1 12 a call, a
+   finite fixture; (d) ``bash
+   theia_tpu_torch/scripts/sanity_check_train_rvfm.sh``: exit 0 and a
+   committed checkpoint at its last step;
 7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
    also with the stream held, the device's time alone), and each kernel's
    bound and library call; K3's and K4's sums over a recipe step's 15
@@ -185,6 +200,7 @@ directory without the package beside it, the script exits nonzero.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import dataclasses
 import itertools
@@ -287,7 +303,8 @@ RUNTIME_TRAIN, RUNTIME_VAL, RUNTIME_STEPS = 96, 16, 6
 RUNTIME_SHARD = 8
 # phase 6c: worker-process loading. The loop trains 3 steps with workers;
 # the loader's throughput is measured on its own shards (16 of 16 samples),
-# 2 batches of warmup (the workers' start) and 12 timed
+# 2 batches of warmup (the workers' start) and 12 timed, at 0, 2 and cores - 1
+# workers (1 and 4 were cut to keep the script's run well inside its limit)
 LOADER_STEPS, LOADER_COMPARE_BATCHES = 3, 3
 LOADER_TRAIN, LOADER_SHARD, LOADER_WARMUP, LOADER_BATCHES = 256, 16, 2, 12
 # phase 4c: the exported forward_feature against the eager model in float32
@@ -355,6 +372,20 @@ TP_ROWS, TP_STEPS = 16, 2
 TP_LN_SHAPES = ((384, 31), (384, 64), (1024, 31), (1024, 16))
 TP_CHANGE_REL_L2 = 0.5
 TP_TRANSLATORS = ("lconv", "conv", "mlp", "transformer")
+# phase 14: the native tar index (data/fastpack.py) on phase 6b's and 8's
+# shards and on one shard of TAR_SAMPLES samples in ImageNet's layout (an
+# image and five teachers' features each, small payloads: ~9 MB), both walks'
+# open time the median of TAR_OPENS opens each; profiling.trace around
+# PROFILE_STEPS recipe steps, whose trace names K3-K6's kernels (by these
+# prefixes) as often as their counters say (CUPTI may drop one record of a
+# name); verify_published
+# on phase 6b's student (K1 12 a call, two calls); the sanity script
+TAR_SAMPLES, TAR_OPENS = 1000, 7
+PROFILE_STEPS = 3
+TRACE_KERNELS = {"ln_bwd_stats": "ln_bwd_stats_", "ln_bwd_dx": "ln_bwd_dx", "loss_sums_fwd": "loss_sums_partial",
+                 "loss_sums_bwd": "loss_sums_bwd"}
+VERIFY_CALLS = 2
+SANITY_STEPS = 64 // 4  # the script's 64 synthetic train samples at batch 4, one epoch
 # JAX's TPU flash attention library, whose three Pallas kernels K7-K9 replace
 FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # the H100 SXM's published peaks
@@ -999,7 +1030,7 @@ def worker_loading(card: str, tmp: str, reset_counts, read_counts, expected: dic
           f"({time.perf_counter() - t0:.1f} s); batches of {TRAIN_BATCH} into pinned memory, {LOADER_WARMUP} "
           f"warmup (the workers' start), {LOADER_BATCHES} timed:")
     loader_ds, _ = get_image_video_dataset(dataset_root=root, shuffle=False, **ds_kwargs)
-    for n in sorted({0, 1, 2, 4, cores - 1}):
+    for n in sorted({0, 2, cores - 1}):
         for transport in (("in-process",) if n == 0 else ("shm", "queue")):
             source = loader_ds if n == 0 else ParallelSampleSource(loader_ds, n, transport=transport)
             loader = get_frame_dataloader(source, batch_size=TRAIN_BATCH, pin_memory=True)
@@ -2033,6 +2064,201 @@ def tensor_parallel_phase(card: str, teachers: list[str], ln_pallas) -> dict:
     return {"ranks": ranks, "seconds": two_s, "ln_rows": ln_rows}
 
 
+def tar_index_check(card: str, roots: list[str], teachers: list[str], work: str) -> None:
+    """Phase 14 (a): ``ShardIndex`` on every shard under ``roots`` and on one
+    of TAR_SAMPLES samples of an image and each teacher's features (small
+    payloads) written into ``work``: the native walk, members equal to
+    tarfile's; both walks' open time of the large shard."""
+    import glob
+    import os
+    import tarfile
+
+    from theia_tpu_torch.data import webdataset as wds
+
+    big = os.path.join(work, "imagenet-000000-train.tar")
+    gen = np.random.default_rng(14)
+    t0 = time.perf_counter()
+    with wds.ShardWriter(big) as w:
+        for i in range(TAR_SAMPLES):
+            fields = {"image": wds.encode_image_npy(gen.integers(0, 256, (16, 16, 3), dtype=np.uint8))}
+            for t in teachers:
+                feat = torch.from_numpy(gen.standard_normal((32, 4, 4), dtype=np.float32)).to(torch.bfloat16)
+                fields[f"{t.replace('/', '_')}.safetensors"] = wds.save_safetensors({"embedding": feat})
+            w.write_sample(f"{i:09d}", fields)
+    write_s = time.perf_counter() - t0
+
+    def tarfile_walk(path: str) -> list:
+        with tarfile.open(path, "r") as tar:
+            return [(m.name, m.offset_data, m.size) for m in tar if m.isfile()]
+
+    shards = [p for root in roots for p in sorted(glob.glob(os.path.join(root, "**", "*.tar"), recursive=True))]
+    check(len(shards) > 0, f"no shards under {roots}")
+    members = 0
+    for path in [*shards, big]:
+        index = wds.ShardIndex(path)
+        check(index.walk == "native", f"{path}: the shard index walked with {index.walk}")
+        check(index.members == tarfile_walk(path), f"{path}: the native walk's members differ from tarfile's")
+        members += len(index.members)
+    times = {"native": [], "tarfile": []}
+    for _ in range(TAR_OPENS):
+        for name, walk in (("native", wds.ShardIndex), ("tarfile", tarfile_walk)):
+            t0 = time.perf_counter()
+            walk(big)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    native_ms, tarfile_ms = (statistics.median(times[k]) for k in ("native", "tarfile"))
+    print(f"  (a) tar index: walk == native and members equal to tarfile's on the {len(shards)} shards of phases "
+          f"6b-11 and 8 and on one of {TAR_SAMPLES} samples x {1 + len(teachers)} members "
+          f"({os.path.getsize(big) / 1e6:.1f} MB, written in {write_s:.2f} s); {members} members in all. Open "
+          f"time of the {TAR_SAMPLES * (1 + len(teachers))}-member shard, median of {TAR_OPENS} (host clock, page "
+          f"cache warm, not dropped): native ShardIndex {native_ms:.3f} ms, tarfile walk {tarfile_ms:.3f} ms "
+          f"({tarfile_ms / native_ms:.1f}x) ({card})")
+
+
+def trace_check(card: str, teachers: list[str], trainer, images, targets, reset_counts, read_counts, n_ln: int,
+                work: str) -> None:
+    """Phase 14 (b): ``utils.profiling.trace`` around PROFILE_STEPS recipe
+    steps of Theia-Base cddsv at B = TRAIN_BATCH: one trace file whose
+    device events name K3-K6's kernels as often as their counters (one
+    record short allowed, never more); ``StepTimer``'s images/s beside the
+    CUDA-event step time."""
+    import glob
+    import os
+
+    from theia_tpu_torch.tools.timing import profiled_kernel_name
+    from theia_tpu_torch.train.step import make_train_step
+    from theia_tpu_torch.utils import profiling
+
+    tmodel, tx, state = trainer(torch.bfloat16, "pallas", fast_math=True, fuse_preprocessing=True)
+    step = make_train_step(tmodel, tx, main_loss="cos_l1")
+    timer = profiling.StepTimer(warmup_steps=1)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    logdir = os.path.join(work, "trace")
+    losses = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(logdir):
+        for i in range(PROFILE_STEPS):
+            if i == 1:
+                start.record()
+            state, metrics = step(state, images, targets)
+            losses.append(metrics["loss"])
+            if i == PROFILE_STEPS - 1:
+                end.record()
+            torch.cuda.synchronize()
+            timer.step(TRAIN_BATCH)
+        images_per_s = timer.images_per_sec
+    traced_s = time.perf_counter() - t0
+    counts = read_counts()
+    step_ms = start.elapsed_time(end) / (PROFILE_STEPS - 1)
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"a traced step's loss is not finite: {losses}")
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    check(len(files) == 1, f"profiling.trace wrote {files}, not one trace file")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [profiled_kernel_name(e["name"]) for e in events if e.get("cat") == "kernel"]
+    traced = {k: sum(name.startswith(prefix) for name in kernels) for k, prefix in TRACE_KERNELS.items()}
+    want = {"ln_bwd_stats": n_ln * PROFILE_STEPS, "ln_bwd_dx": n_ln * PROFILE_STEPS,
+            "loss_sums_fwd": len(teachers) * PROFILE_STEPS, "loss_sums_bwd": len(teachers) * PROFILE_STEPS}
+    print(f"  (b) profiling.trace around {PROFILE_STEPS} recipe steps of {MODEL} at B={TRAIN_BATCH} "
+          f"({traced_s:.1f} s with the trace's writing): one trace file, {os.path.getsize(files[0]) / 1e6:.1f} MB, "
+          f"{len(kernels)} kernel records; losses {' '.join(f'{x:.6f}' for x in losses)}")
+    print(f"      K3-K6 traced {traced}, counted {({k: counts[k] for k in want})}, expected {want}")
+    print(f"      StepTimer(warmup_steps=1): {images_per_s:.1f} images/s (host clock, synchronized a step); CUDA "
+          f"events: {step_ms:.3f} ms/step, {TRAIN_BATCH / step_ms * 1e3:.1f} images/s over steps 2-{PROFILE_STEPS}; "
+          f"both under the profiler ({card})")
+    for k, n in want.items():
+        check(counts[k] == n, f"{k}: {counts[k]} launches counted under the trace, expected {n}")
+        check(n - 1 <= traced[k] <= n, f"{k}: the trace names its kernel {traced[k]} times, the counter says {n}")
+
+
+def verify_published_check(ckpt_dir: str, teachers: list[str], work: str) -> None:
+    """Phase 14 (c): ``python -m theia_tpu_torch.scripts.verify_published``
+    on ``ckpt_dir`` (phase 6b's student), offline, as a user runs it: exit 0,
+    no reference run, K1 12 a call, a finite fixture."""
+    import os
+
+    from theia_tpu_torch.models.hub import parse_model_name
+    from theia_tpu_torch.models.vit import BACKBONE_CONFIGS
+    from theia_tpu_torch.scripts.verify_published import fixture_name
+
+    here = Path(__file__).resolve().parent
+    fixture_dir = os.path.join(work, "fixtures")
+    cmd = [sys.executable, "-m", "theia_tpu_torch.scripts.verify_published", "--model", MODEL,
+           "--checkpoint", ckpt_dir, "--fixture-dir", fixture_dir]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=here,
+                         env=dict(os.environ, HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1"))
+    verify_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"verify_published failed ({out.returncode}):\n{out.stdout[-3000:]}\n"
+                               f"{out.stderr[-3000:]}")
+    lines = out.stdout.splitlines()
+    report = json.loads("\n".join(lines[len(lines) - 1 - lines[::-1].index("{"):]))
+    fixture = np.load(os.path.join(fixture_dir, fixture_name(MODEL)))
+    ours = {k: fixture[k] for k in fixture.files if k.startswith("ours::")}
+    finite = all(bool(np.isfinite(v.astype(np.float32)).all()) for v in ours.values())
+    want_k1 = BACKBONE_CONFIGS[parse_model_name(MODEL)[0]].num_layers * VERIFY_CALLS
+    print(f"  (c) python -m theia_tpu_torch.scripts.verify_published --checkpoint <phase 6b's run>: exit 0 in "
+          f"{verify_s:.1f} s (the process's start included); reference_ran {report['reference_ran']}; kernel "
+          f"launches {report['kernel_launches']} (K1 expected {want_k1}: 12 a call, {VERIFY_CALLS} calls); fixture "
+          f"{sorted((k, v.shape) for k, v in ours.items())}, finite {finite}")
+    check(report["reference_ran"] is False and report["device"] == "cuda", f"verify_published report {report}")
+    check(report["kernel_launches"] == {"mha_fwd": want_k1, "flash_fwd": 0},
+          f"verify_published's forward launched {report['kernel_launches']}, expected K1 = {want_k1}")
+    check(finite and len(ours) == 1 + len(teachers), "verify_published's fixture is not finite or incomplete")
+
+
+def sanity_script_check(work: str) -> None:
+    """Phase 14 (d): ``bash theia_tpu_torch/scripts/sanity_check_train_rvfm.sh``
+    (synthetic cdiv data, then one epoch of train_rvfm on the card): exit
+    0 and a committed checkpoint at its last step."""
+    import glob
+    import os
+
+    from theia_tpu_torch.train.checkpoint import all_steps
+
+    here = Path(__file__).resolve().parent
+    script = here / "theia_tpu_torch" / "scripts" / "sanity_check_train_rvfm.sh"
+    sanity = os.path.join(work, "sanity")
+    bindir = os.path.join(work, "bin")
+    os.makedirs(bindir)
+    # the script's `python` is this interpreter (exec'd by its own path, which keeps a virtual environment's packages)
+    with open(os.path.join(bindir, "python"), "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(bindir, "python"), 0o755)
+    t0 = time.perf_counter()
+    out = subprocess.run(["bash", str(script), sanity], capture_output=True, text=True, timeout=400, cwd=here,
+                         env=dict(os.environ, PATH=f"{bindir}:{os.environ['PATH']}", OMP_NUM_THREADS="1"))
+    sanity_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"the sanity script failed ({out.returncode}):\n{out.stdout[-3000:]}\n"
+                               f"{out.stderr[-3000:]}")
+    saved = [all_steps(run) for run in glob.glob(os.path.join(sanity, "ckpt", "*"))]
+    stepped = f"'step': {SANITY_STEPS}," in out.stdout
+    print(f"  (d) bash theia_tpu_torch/scripts/sanity_check_train_rvfm.sh: exit 0 in {sanity_s:.1f} s (data, the "
+          f"process's start and one epoch); committed steps {saved}; the printed summary ends at step "
+          f"{SANITY_STEPS}: {stepped}")
+    check(len(saved) == 1 and saved[0][-1:] == [SANITY_STEPS] and stepped,
+          f"the sanity script left no committed checkpoint at step {SANITY_STEPS}: {saved}")
+
+
+def tools_phase(card: str, roots: list[str], ckpt_dir: str, teachers: list[str], trainer, images, targets,
+                reset_counts, read_counts, n_ln: int) -> None:
+    """Phase 14: the native tar index on the shards under ``roots``
+    (phases 6b-11's and 8's), profiling, ``verify_published`` on
+    ``ckpt_dir`` and the sanity script, in a temporary directory."""
+    print(f"phase 14, the data plane's tar index, profiling and the scripts ({card}):")
+    work = tempfile.mkdtemp(prefix="theia_tools_")
+    try:
+        tar_index_check(card, roots, teachers, work)
+        trace_check(card, teachers, trainer, images, targets, reset_counts, read_counts, n_ln, work)
+        torch.cuda.empty_cache()
+        verify_published_check(ckpt_dir, teachers, work)
+        sanity_script_check(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _host_ms(fn, iters: int = 3) -> float:
     """Mean host milliseconds of a synchronous call after one warm call."""
     fn()
@@ -2543,40 +2769,38 @@ def main() -> int:
 
     stamp("phase 6")
     # phase 6b: the training runtime; 6c: the same with loader workers; 4b:
-    # serving the student it trained; 4c: exporting it
-    tmp = tempfile.mkdtemp(prefix="theia_runtime_")
-    try:
-        runtime_counts, resumed = training_runtime(card, tmp, teachers, reset_counts, read_counts,
-                                                   expected_launches(RUNTIME_STEPS, forward_only(0)))
-        torch.cuda.empty_cache()
-        stamp("phase 6b")
-        worker_loading(card, tmp, reset_counts, read_counts, expected_launches(LOADER_STEPS, forward_only(0)))
-        torch.cuda.empty_cache()
-        stamp("phase 6c")
-        loaded = serve_trained(card, tmp, resumed["ckpt_dir"], attention_model, reset_attention_counts,
-                               attention_counts, forward_only)
-        stamp("phase 4b")
-        export_trained(card, tmp, loaded, model, reset_attention_counts, attention_counts, forward_only)
-        del loaded
-        torch.cuda.empty_cache()
-        stamp("phase 4c")
-        # phase 9: the other translators, trained on phase 6b's shards
-        conv_ln_rows = translators_phase(card, tmp, teachers, reset_counts, read_counts, ln_pallas)
-        stamp("phase 9")
-        # phase 11: data parallelism, the CLI under torchrun on phase 6b's shards and two ranks on the card
-        data_parallel_phase(card, tmp, teachers)
-        torch.cuda.empty_cache()
-        stamp("phase 11")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # serving the student it trained; 4c: exporting it. The run's directory
+    # (its shards and checkpoints) and phase 8's stay for phase 14, and go
+    # when the script exits
+    runtime_tmp = tempfile.mkdtemp(prefix="theia_runtime_")
+    atexit.register(shutil.rmtree, runtime_tmp, ignore_errors=True)
+    runtime_counts, resumed = training_runtime(card, runtime_tmp, teachers, reset_counts, read_counts,
+                                               expected_launches(RUNTIME_STEPS, forward_only(0)))
+    torch.cuda.empty_cache()
+    stamp("phase 6b")
+    worker_loading(card, runtime_tmp, reset_counts, read_counts, expected_launches(LOADER_STEPS, forward_only(0)))
+    torch.cuda.empty_cache()
+    stamp("phase 6c")
+    loaded = serve_trained(card, runtime_tmp, resumed["ckpt_dir"], attention_model, reset_attention_counts,
+                           attention_counts, forward_only)
+    stamp("phase 4b")
+    export_trained(card, runtime_tmp, loaded, model, reset_attention_counts, attention_counts, forward_only)
+    del loaded
+    torch.cuda.empty_cache()
+    stamp("phase 4c")
+    # phase 9: the other translators, trained on phase 6b's shards
+    conv_ln_rows = translators_phase(card, runtime_tmp, teachers, reset_counts, read_counts, ln_pallas)
+    stamp("phase 9")
+    # phase 11: data parallelism, the CLI under torchrun on phase 6b's shards and two ranks on the card
+    data_parallel_phase(card, runtime_tmp, teachers)
+    torch.cuda.empty_cache()
+    stamp("phase 11")
 
     # phase 8: the teachers and offline extraction
-    tmp = tempfile.mkdtemp(prefix="theia_extract_")
-    try:
-        teacher_run = teachers_and_extraction(card, tmp, teachers, attention, reset_attention_counts,
-                                              attention_counts, forward_only)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    extract_tmp = tempfile.mkdtemp(prefix="theia_extract_")
+    atexit.register(shutil.rmtree, extract_tmp, ignore_errors=True)
+    teacher_run = teachers_and_extraction(card, extract_tmp, teachers, attention, reset_attention_counts,
+                                          attention_counts, forward_only)
     torch.cuda.empty_cache()
     stamp("phase 8")
 
@@ -2592,6 +2816,11 @@ def main() -> int:
     tp_ln_rows = tensor_parallel_phase(card, teachers, ln_pallas)["ln_rows"]
     torch.cuda.empty_cache()
     stamp("phase 13")
+    # phase 14: the native tar index, profiling, verify_published and the sanity script
+    tools_phase(card, [runtime_tmp, extract_tmp], resumed["ckpt_dir"], teachers, trainer, images, targets,
+                reset_counts, read_counts, n_ln)
+    torch.cuda.empty_cache()
+    stamp("phase 14")
 
     # phase 7: timings
     print(f"phase 7: timings on {card}:")

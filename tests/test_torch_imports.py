@@ -3,6 +3,7 @@ Triton or ml_dtypes, and its copied tables equal the JAX package's."""
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 
@@ -44,6 +45,8 @@ SLICE_MODULES = [
     "theia_tpu_torch.data.parallel_loader",
     "theia_tpu_torch.data.synthetic",
     "theia_tpu_torch.data.oxe",
+    "theia_tpu_torch.data.fastpack",
+    "theia_tpu_torch.utils.profiling",
     "theia_tpu_torch.train.checkpoint",
     "theia_tpu_torch.train.loop",
     "theia_tpu_torch.parallel",
@@ -83,6 +86,10 @@ SLICE_MODULES = [
     "theia_tpu_torch.scripts.check_feature",
     "theia_tpu_torch.scripts.organize_imagenet_webdataset",
     "theia_tpu_torch.scripts.split_dataset",
+    "theia_tpu_torch.scripts.verify_published",
+    "theia_tpu_torch.scripts.subsampling_videos",
+    "theia_tpu_torch.models",
+    "theia_tpu_torch.ops",
     "theia_tpu_torch.ops.image",
     "theia_tpu_torch.ops.init",
     "theia_tpu_torch.ops.attention",
@@ -129,6 +136,53 @@ def test_port_imports_no_jax_flax_or_triton():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+# the JAX modules without a same-path counterpart in the port, each with its reason
+NO_COUNTERPART = {
+    "ops/convt.py": "the TPU lowerings of a transposed convolution (CONVT_FWD, CONVT_VJP), toggles the "
+                    "North star leaves out (the port calls F.conv_transpose2d)",
+    "ops/conv_grads.py": "conv weight gradients as per-tap MXU dots (CONV_DW_IMPL), a TPU toggle the North "
+                         "star leaves out (the port's are autograd's)",
+    "ops/ln_spatial.py": "LayerNormSpatial's backward phrased as MXU dots (LNS_VJP), a TPU toggle the North "
+                         "star leaves out (the port's backward is K3/K4, ops/ln_pallas.py)",
+    "models/hf_convert.py": "the port's modules carry the reference's parameter names; models/convert.py and "
+                            "models/pretrained.py cover both of its directions",
+}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every module, shell script and C++ source of the JAX package has one
+    at the same path in the port, but for NO_COUNTERPART."""
+    jroot = Path(jregistries.__file__).resolve().parent.parent
+    troot = Path(tpackage.__file__).resolve().parent
+    missing = {str(p.relative_to(jroot)) for p in jroot.rglob("*")
+               if p.suffix in (".py", ".sh", ".cpp") and "__pycache__" not in p.parts
+               and not (troot / p.relative_to(jroot)).exists()}
+    assert missing == set(NO_COUNTERPART)
+
+
+def test_importing_the_subpackages_builds_nothing(tmp_path):
+    """Importing the package and its subpackages, from a copy of the
+    package with no ``_build/``, creates no file there: no kernel and no
+    tar indexer is built at import."""
+    import shutil
+
+    root = Path(tpackage.__file__).resolve().parent
+    shutil.copytree(root, tmp_path / "theia_tpu_torch", ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    mods = ["theia_tpu_torch", "theia_tpu_torch.data", "theia_tpu_torch.models", "theia_tpu_torch.train",
+            "theia_tpu_torch.ops", "theia_tpu_torch.utils", "theia_tpu_torch.data.fastpack",
+            "theia_tpu_torch.data.parallel_loader", "theia_tpu_torch.utils.profiling",
+            "theia_tpu_torch.scripts.verify_published", "theia_tpu_torch.scripts.subsampling_videos"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "assert all(sys.modules[m].__file__.startswith(sys.argv[1]) for m in " f"{mods!r}" "), 'imported the repo copy'\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True, text=True, timeout=120,
+                         cwd=tmp_path, env={**os.environ, "PYTHONPATH": str(tmp_path)})
+    assert out.returncode == 0, out.stderr
+    assert not (tmp_path / "theia_tpu_torch" / "_build").exists()
 
 
 def test_every_port_module_is_checked():

@@ -17,3 +17,5 @@ Training path: ``train.step.make_train_step`` over the same ``Theia``, with
 ``configs/``), ``data/`` (webdataset shards, the batched loader) and
 ``train/checkpoint.py``.
 """
+
+__version__ = "0.1.0"

@@ -527,3 +527,9 @@ def get_frame_dataloader(
     if shuffle:
         source = _ShuffleBuffer(source, shuffle_buffer_size, seed)
     return _BatchedLoader(source, batch_size, drop_last, prefetch, pin_memory)
+
+
+def get_frame_iterator(loader: Iterable[dict[str, Any]]) -> Iterator[dict[str, Any]]:
+    """API parity with the reference zip-of-loaders (data_utils.py:559-591);
+    the loader already yields merged sample dicts."""
+    return iter(loader)

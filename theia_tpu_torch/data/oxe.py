@@ -17,7 +17,10 @@ import os
 from collections import OrderedDict
 from typing import Any, Callable, Optional
 
-from theia_tpu_torch.data.dataset import RandomMix, _ZippedShardSet, normalize_ds_weights_by_ds_len, pad_shard_paths
+import torch
+
+from theia_tpu_torch.data.dataset import (RandomMix, _ZippedShardSet, get_frame_dataloader,
+                                         normalize_ds_weights_by_ds_len, pad_shard_paths)
 from theia_tpu_torch.data.webdataset import read_splits
 from theia_tpu_torch.foundation.common import MODELS
 
@@ -118,3 +121,21 @@ def get_oxe_frame_dataset(
     norm_weights, expected = normalize_ds_weights_by_ds_len(weights, lengths)
     return RandomMix(members, probs=norm_weights, seed=seed), expected
 
+
+def get_oxe_frame_dataloader(dataset: Any, batch_size: Optional[int] = None, shuffle_buffer_size: int = 1000,
+                             **kwargs: Any) -> Any:
+    """Loader over OXE frame datasets (reference data_utils.py:290-311); the
+    datasets already yield merged sample dicts, so this is the generic frame
+    loader."""
+    return get_frame_dataloader(dataset, batch_size=batch_size, shuffle_buffer_size=shuffle_buffer_size, **kwargs)
+
+
+def get_oxe_frame_iterator(loader: Any) -> Any:
+    """(reference data_utils.py:314-339)"""
+    return iter(loader)
+
+
+def totensor(arr: Any) -> torch.Tensor:
+    """The reference's only train-time image transform, ndarray to tensor
+    (oxe_transforms.py:8-11)."""
+    return torch.as_tensor(arr)

@@ -37,3 +37,10 @@ def normalize_feature(
     if mean is None or std is None:
         return x
     return ((x - mean) / std).to(x.dtype)
+
+
+def denormalize_feature(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """x * std + mean in x's dtype, the inverse of ``normalize_feature``
+    (the JAX package's; ``decoding/decode.py`` keeps its own helper, which
+    also takes a missing mean or std)."""
+    return (x * std + mean).to(x.dtype)

@@ -28,6 +28,8 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from theia_tpu_torch.data.fastpack import tar_index
+
 # safetensors dtype names; BF16 is torch's own (the stock safetensors.numpy codec has none,
 # but the reference stores features in bf16: feature_extraction_core/models.py:56)
 _ST_FROM_NAME: dict[str, torch.dtype] = {
@@ -174,21 +176,37 @@ class ShardIndex:
     """mmap-backed zero-copy shard access.
 
     The shard is mapped once, copy-on-write (so torch may view its pages
-    without a warning; nothing is ever written back), tarfile walks the
-    member headers, and members are memoryview slices: decoded tensors are
-    views into the OS page cache. Views keep the map alive; nothing to
-    close by hand. (The JAX package walks the headers with a native helper,
-    ``theia_tpu/data/fastpack.py``; here it is pure Python.)
+    without a warning; nothing is ever written back), the member headers
+    are walked by the native tar indexer (``data/fastpack.py``), and
+    members are memoryview slices: decoded tensors are views into the OS
+    page cache. Views keep the map alive; nothing to close by hand.
+
+    ``walk`` says which walk listed the members: "native", or "tarfile"
+    where no C++ compiler is found (as the JAX package without one), where
+    a member's name fills the header's 100 bytes (a GNU or pax long name,
+    which only ``tarfile`` reads) or where a size field is malformed (then
+    ``tarfile`` raises ``tarfile.ReadError`` as it finds it).
     """
 
     def __init__(self, path: str) -> None:
         self.path = path
         with open(path, "rb") as f:
             self._mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
-        with tarfile.open(path, "r") as tar:
-            self.members: list[tuple[str, int, int]] = [
-                (m.name, m.offset_data, m.size) for m in tar if m.isfile()
-            ]
+        self.members: list[tuple[str, int, int]] = []  # (name, data_off, size)
+        self.walk = "native"
+        idx = tar_index(self._mm)
+        if idx is not None:
+            for hdr_off, data_off, size in idx.tolist():
+                name = self._mm[hdr_off : hdr_off + 100].split(b"\x00", 1)[0].decode("utf-8")
+                if len(name) >= 100:  # GNU/pax long name: the format's limit, not a fallback
+                    self.members.clear()
+                    idx = None
+                    break
+                self.members.append((name, data_off, size))
+        if idx is None:
+            self.walk = "tarfile"
+            with tarfile.open(path, "r") as tar:
+                self.members = [(m.name, m.offset_data, m.size) for m in tar if m.isfile()]
 
     def view(self, data_off: int, size: int) -> memoryview:
         return memoryview(self._mm)[data_off : data_off + size]
