@@ -9,7 +9,7 @@ failure (the script then exits nonzero and prints no result):
 2. build of the CUDA kernels from ``theia_tpu_torch/csrc`` (nvcc, ctypes),
    ptxas's registers and spills, and the resident blocks per SM of K1 in
    bf16 and float32, of K2's two passes in bf16 and float32, of float32 K7,
-   K9 and K8, of bf16 K7, K9 and K8 and of K3;
+   K9 and K8, of bf16 K7, K9 and K8 and of K3 and K4;
 3. each kernel against its plain PyTorch version at the main paths' shapes:
    K1 (attention forward) and K2 (attention backward) at [B, 197|204, 12,
    64] as views of a packed QKV projection and over a sweep of head dim x
@@ -25,7 +25,9 @@ failure (the script then exits nonzero and prints no result):
    (LayerNormSpatial backward) at every ladder LayerNorm of the Theia-Base
    cddsv heads, K3 also over B x S x C at its edges, bit-identical across
    calls, over 50 calls back to back and on two streams at once, one launch
-   a call (torch.profiler),
+   a call (torch.profiler), K4 also over B x S x C at its edges (S = 1, C =
+   60, a batch split unevenly, N twice the row), bit-identical across calls
+   and over 50 back to back, one launch a call,
    K5 and K6 (the fused loss's sums and d pred) at the five
    cddsv teachers' [16, D] and over a sweep of B and D, and K3 and K4 at
    the CortexBench policy heads' LayerNormSpatial shapes, [32, 256, 7|3|1,
@@ -231,6 +233,12 @@ KERNEL_BF16_REL_L2 = 1e-2
 # 31x31 (whose last tile holds one position at 768 channels), one vector of
 # channels (256 positions a tile) and the heads' 768
 K3_EDGES = tuple((b, s, c) for b in (1, 3, 9, 16) for s in (7, 16, 31) for c in (8, 768))
+# K4 (B, side, C, N over the row) at its edges: B not a multiple of the
+# batch split (3 runs of 6 at 16x16 and 768 channels), S = 1, one vector of
+# channels, C = 60 (one element a thread), 2048 at a small side, N twice
+# the row (a sample whose channels two ranks split)
+K4_EDGES = tuple((b, s, c, 1) for b in (1, 3, 16) for s in (1, 7, 31) for c in (8, 60, 768)) + (
+    (5, 4, 2048, 1), (7, 16, 768, 2), (13, 16, 768, 1), (3, 64, 1024, 2))
 # the recipe step's LayerNormSpatial sites by side (models/adapter_heads.py):
 # three at 16x16 in each of the three 16x16 teachers' heads, one each at
 # 16x16, 31x31 and 64x64 in SAM's and Depth-Anything's
@@ -562,6 +570,7 @@ def compare_kernels(attention, ln_pallas) -> dict:
         errors[("ln_bwd_dx", dtype, s)] = compare(
             f"K4 ln_bwd_dx {dn} [16,768,{s},{s}]", dx, ln_pallas.ln_bwd_dx_plain(x, w, mean, r, g, *want[:2]), dtype)
     check_ln_bwd_stats_edges(ln_pallas, gen)
+    check_ln_bwd_dx_edges(ln_pallas, gen)
     return errors
 
 
@@ -610,6 +619,45 @@ def check_ln_bwd_stats_edges(ln_pallas, gen: torch.Generator) -> None:
           f"bit-identical; device operations a call (torch.profiler): {ops}")
     check(len(ops) == 1 and next(iter(ops)).startswith("ln_bwd_stats_sm90") and next(iter(ops.values())) == 1.0,
           f"a K3 call is not one kernel launch: {ops}")
+
+
+def check_ln_bwd_dx_edges(ln_pallas, gen: torch.Generator) -> None:
+    """K4 over its edges (``K4_EDGES``), bf16 and float32, against the plain
+    version on the same inputs in float64 (rel L2 KERNEL_F32_REL_L2 in
+    float32, KERNEL_BF16_REL_L2 in bf16), bit-identical on a second call and
+    over 50 calls back to back, and one device operation a call
+    (torch.profiler: the weight is read in its own layout, not copied)."""
+    from theia_tpu_torch.tools.timing import device_ops
+
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for dtype in worst:
+        limit = KERNEL_BF16_REL_L2 if dtype == torch.bfloat16 else KERNEL_F32_REL_L2
+        for b, s, c, mult in K4_EDGES:
+            x, g, w, mean, r = ln_inputs(b, c, s, dtype, gen)
+            x64, g64, w64, mean64, r64 = (t.double() for t in (x, g, w, mean, r))
+            s1, s2 = ln_pallas.ln_bwd_stats_plain(x64, w64, mean64, r64, g64)[:2]
+            count = mult * x[0].numel()
+            got = ln_pallas.ln_bwd_dx(x, w, mean, r, g, s1.float(), s2.float(), count)
+            err = rel_l2(got, ln_pallas.ln_bwd_dx_plain(x64, w64, mean64, r64, g64, s1, s2, count))
+            worst[dtype] = max(worst[dtype], err)
+            check(err < limit, f"K4 disagrees with its plain version at [{b},{c},{s},{s}], N = {mult} x the row, "
+                               f"{dtype}: rel_l2 {err:.3e}")
+            again = ln_pallas.ln_bwd_dx(x, w, mean, r, g, s1.float(), s2.float(), count)
+            check(torch.equal(got, again), f"K4's two calls differ at [{b},{c},{s},{s}]")
+    print(f"  K4 ln_bwd_dx over B x S x C = (1, 3, 16) x (1, 7², 31²) x (8, 60, 768) and 4 more (B 5, 7, 13; C "
+          f"1024, 2048; N twice the row), against the plain version in float64: worst rel_l2 bf16 "
+          f"{worst[torch.bfloat16]:.3e} (< {KERNEL_BF16_REL_L2}), float32 {worst[torch.float32]:.3e} "
+          f"(< {KERNEL_F32_REL_L2}); bit-identical on two calls")
+    x, g, w, mean, r = ln_inputs(16, 768, 16, torch.bfloat16, gen)
+    s1, s2 = ln_pallas.ln_bwd_stats_plain(x, w, mean, r, g)[:2]
+    first = ln_pallas.ln_bwd_dx(x, w, mean, r, g, s1, s2)
+    runs = [ln_pallas.ln_bwd_dx(x, w, mean, r, g, s1, s2) for _ in range(50)]
+    check(all(torch.equal(first, run) for run in runs), "K4's 50 calls back to back differ")
+    ops = device_ops(lambda: ln_pallas.ln_bwd_dx(x, w, mean, r, g, s1, s2))
+    print(f"  K4 ln_bwd_dx bf16 [16,768,16,16]: 50 calls back to back bit-identical; device operations a call "
+          f"(torch.profiler): {ops}")
+    check(len(ops) == 1 and next(iter(ops)).startswith("ln_bwd_dx_sm90") and next(iter(ops.values())) == 1.0,
+          f"a K4 call is not one kernel launch: {ops}")
 
 
 def flash_case(attention, b: int, t: int, h: int, hd: int, dtype: torch.dtype, gen: torch.Generator) -> dict:
@@ -2386,6 +2434,13 @@ def main() -> int:
               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block), a grid of "
               f"{grid.value}")
         check(k3 in usage and blocks > 0, f"K3's ptxas line or occupancy query is missing ({blocks})")
+        k4 = f"ln_bwd_dx_sm90<{'bf16' if dtype == torch.bfloat16 else 'f32'}>"
+        blocks = build.load().theia_ln_bwd_dx_blocks_per_sm(
+            TRAIN_BATCH, side * side, 768, ln_pallas._DTYPE_CODES[dtype], ctypes.byref(threads), ctypes.byref(grid))
+        print(f"  K4 {k4} [{TRAIN_BATCH},768,{side},{side}]: ptxas {usage.get(k4)}; {blocks} resident blocks per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, {threads.value} threads a block), a grid of "
+              f"{grid.value} (tiles x batch splits)")
+        check(k4 in usage and blocks > 0, f"K4's ptxas line or occupancy query is missing ({blocks})")
 
     stamp("phases 1-2")
     # phase 3: kernel vs plain; float32 phases run with TF32 off

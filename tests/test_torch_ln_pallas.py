@@ -5,9 +5,12 @@ Pallas kernel bodies ``_stats_kernel`` and ``_dx_kernel`` run in interpret
 mode; the autograd function (gradcheck in float64); ``LN_STATS_IMPL``
 "pallas" against "vpu"; the wrappers' checks; the plain version against
 both JAX references at K3's edges (a batch of 1 and 3, 7x7 and 31x31, 8 and
-24 channels); and (on a card) the CUDA kernels K3 and K4 against the plain
-version, K3 over its edges, bit-identical across calls and back to back,
-its dw and db in the parameter's layout, one launch a call.
+24 channels); the plain dx against ``_autodiff_bwd`` at K4's edges (B not
+a multiple of its batch split, S = 1, C = 60 and 2048, N twice the row);
+and (on a card) the CUDA kernels K3 and K4 against the plain version, each
+over its edges, bit-identical across calls and back to back, one launch a
+call, K3's dw and db in the parameter's layout, K4 on misaligned maps and a
+bf16-stored weight.
 
 Tolerances: float32 atol 1e-5 (the same float32 math, sums over up to
 C·H·W elements in another order); the TPU kernel bodies do their
@@ -165,6 +168,35 @@ def test_stats_plain_matches_jax_at_kernel_edges(b, side, c):
     np.testing.assert_allclose(gdw.permute(1, 2, 0).reshape(-1, c).numpy(), dw, atol=1e-5, rtol=0)
     np.testing.assert_allclose(gdb.permute(1, 2, 0).reshape(-1, c).numpy(), db, atol=1e-5, rtol=0)
     np.testing.assert_allclose(gdx.permute(0, 2, 3, 1).numpy(), dx, atol=1e-5, rtol=0)
+
+
+# K4's edges: B not a multiple of the kernel's batch split (7 samples), S =
+# 1 (1x1 maps), C = 2048 at a 2x2 side, C = 60 (one element a thread), and
+# N twice the row (each half of the channels with s1 and s2 summed over
+# both halves, as two ranks of a model group compute a split sample)
+DX_EDGES = [((7, 16, 4, 4), 1), ((3, 24, 1, 1), 1), ((2, 60, 1, 1), 1), ((2, 2048, 2, 2), 1), ((3, 60, 7, 7), 1),
+            ((3, 16, 5, 5), 2), ((2, 120, 3, 3), 2)]
+
+
+@pytest.mark.parametrize("shape, split", DX_EDGES)
+def test_dx_plain_matches_autodiff_bwd_at_k4_edges(shape, split):
+    """``ln_bwd_dx_plain`` against ``_autodiff_bwd``'s dx at the edges of K4's
+    tiling; with ``split`` > 1 the sample's channels are cut into that many
+    slices, each slice's s1, s2 summed over the slices and N the whole
+    sample's (parallel/tp.py's split LayerNormSpatial)."""
+    x, g, weight, _ = _inputs(shape, seed=9)
+    mean, r = _torch_stats(x)
+    w_hwc = jnp.asarray(weight.transpose(1, 2, 0))
+    want = jln._autodiff_bwd(jnp.asarray(x), w_hwc, jnp.asarray(mean.numpy()), jnp.asarray(r.numpy()), EPS,
+                             jnp.float32, jnp.asarray(g))
+    tx, tg, tw = _nchw(x), _nchw(g), torch.from_numpy(weight)
+    c = shape[1] // split
+    parts = [slice(i * c, (i + 1) * c) for i in range(split)]
+    stats = [tln.ln_bwd_stats_plain(tx[:, p], tw[p], mean, r, tg[:, p]) for p in parts]
+    s1, s2 = (sum(st[k] for st in stats) for k in (0, 1))
+    count = tx[0].numel() if split > 1 else None
+    dx = torch.cat([tln.ln_bwd_dx_plain(tx[:, p], tw[p], mean, r, tg[:, p], s1, s2, count) for p in parts], dim=1)
+    np.testing.assert_allclose(dx.permute(0, 2, 3, 1).numpy(), np.asarray(want[0]), atol=1e-5, rtol=0)
 
 
 def test_autograd_function_gradcheck_f64():
@@ -430,4 +462,85 @@ def test_cuda_dx_takes_the_normaliser_count(cuda, s, dtype):
     dx = tln.ln_bwd_dx(x, w, mean, r, g, s1.float(), s2.float(), count)
     want = tln.ln_bwd_dx_plain(*(t.double() for t in (x, w, mean, r, g)), s1, s2, count)
     assert tln.LN_BWD_DX_LAUNCHES == before + 1
+    assert _rel_l2(dx, want) < (1e-6 if dtype == torch.float32 else 1e-2)
+
+
+# K4's edges on the card ([B, C, H, W], N over the row): B not a multiple
+# of the batch split (at 16x16 and 768 channels 96 tiles, 3 runs of 3 and
+# one of 1 at B = 7), S = 1, C = 2048 at a small side, C = 60 and 13 (one
+# element a thread), N twice the row
+CUDA_DX_EDGES = [((7, 768, 16, 16), 1), ((13, 768, 16, 16), 1), ((3, 24, 1, 1), 1), ((32, 256, 1, 1), 1),
+                 ((5, 2048, 4, 4), 1), ((32, 60, 7, 7), 1), ((3, 13, 5, 5), 1), ((4, 64, 31, 31), 2),
+                 ((7, 768, 16, 16), 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, mult", CUDA_DX_EDGES)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_cuda_dx_matches_plain_at_k4_edges(cuda, shape, mult, dtype):
+    """K4 against its plain version in float64 at its edges: relative L2
+    1e-6 in float32, 1e-2 in bf16 (its rounding); one launch a call."""
+    b, c, side = shape[0], shape[1], shape[2]
+    x, w, mean, r, g = _k3_inputs(cuda, b, c, side, dtype, seed=10)
+    s1, s2, _, _ = tln.ln_bwd_stats_plain(*(t.double() for t in (x, w, mean, r, g)))
+    count = mult * x[0].numel()
+    before = tln.LN_BWD_DX_LAUNCHES
+    dx = tln.ln_bwd_dx(x, w, mean, r, g, s1.float(), s2.float(), count)
+    want = tln.ln_bwd_dx_plain(*(t.double() for t in (x, w, mean, r, g)), s1, s2, count)
+    assert tln.LN_BWD_DX_LAUNCHES == before + 1
+    assert _rel_l2(dx, want) < (1e-6 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", (13, 60))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_cuda_dx_takes_misaligned_maps(cuda, c, dtype):
+    """K4 on maps one element past a 16-byte boundary (C not a multiple of
+    8: the one-element path), against its plain version in float64."""
+    x, w, mean, r, g = _k3_inputs(cuda, 3, c, 5, dtype, seed=11)
+    x, g = (torch.empty(t.numel() + 1, dtype=dtype, device=cuda)[1:].view(3, 5, 5, c).permute(0, 3, 1, 2).copy_(t)
+            for t in (x, g))
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    s1, s2, _, _ = tln.ln_bwd_stats_plain(*(t.double() for t in (x, w, mean, r, g)))
+    dx = tln.ln_bwd_dx(x, w, mean, r, g, s1.float(), s2.float())
+    want = tln.ln_bwd_dx_plain(*(t.double() for t in (x, w, mean, r, g)), s1, s2)
+    assert _rel_l2(dx, want) < (1e-6 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_dx_bit_identical_across_calls(cuda):
+    """Two calls, and 50 back to back without a synchronize, give the same
+    bits: each element is one thread's, no atomics."""
+    x, w, mean, r, g = _k3_inputs(cuda, 16, 768, 16, torch.bfloat16)
+    s1, s2, _, _ = tln.ln_bwd_stats_plain(x, w, mean, r, g)
+    first, second = (tln.ln_bwd_dx(x, w, mean, r, g, s1, s2) for _ in range(2))
+    assert torch.equal(first, second)
+    runs = [tln.ln_bwd_dx(x, w, mean, r, g, s1, s2) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, run) for run in runs)
+
+
+@pytest.mark.gpu
+def test_cuda_dx_is_one_kernel_launch(cuda):
+    """A K4 call launches one kernel and nothing else: the weight is read in
+    its own (C, H, W) layout, not copied (torch.profiler)."""
+    from theia_tpu_torch.tools.timing import device_ops
+
+    x, w, mean, r, g = _k3_inputs(cuda, 16, 768, 16, torch.bfloat16)
+    s1, s2, _, _ = tln.ln_bwd_stats_plain(x, w, mean, r, g)
+    ops = device_ops(lambda: tln.ln_bwd_dx(x, w, mean, r, g, s1, s2))
+    assert len(ops) == 1 and next(iter(ops)).startswith("ln_bwd_dx_sm90") and list(ops.values()) == [1.0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_cuda_dx_takes_a_bf16_stored_weight(cuda, dtype):
+    """A weight stored in bf16 (a served model's) gives the bits of the same
+    weight in float32, and agrees with the plain version."""
+    x, w, mean, r, g = _k3_inputs(cuda, 4, 64, 16, dtype, seed=12)
+    wb = w.to(torch.bfloat16)
+    s1, s2, _, _ = tln.ln_bwd_stats_plain(x, wb, mean, r, g)
+    dx = tln.ln_bwd_dx(x, wb, mean, r, g, s1, s2)
+    assert torch.equal(dx, tln.ln_bwd_dx(x, wb.float(), mean, r, g, s1, s2))
+    want = tln.ln_bwd_dx_plain(*(t.double() for t in (x, wb, mean, r, g)), s1.double(), s2.double())
     assert _rel_l2(dx, want) < (1e-6 if dtype == torch.float32 else 1e-2)

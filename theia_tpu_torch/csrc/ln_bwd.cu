@@ -16,16 +16,15 @@
 // dx is stored in x's dtype, dw and db in float32.
 //
 // Layout. The maps are NCHW tensors in channels_last memory, so a sample
-// is one contiguous run of N = S*C elements (S = H*W, C fastest). K3 reads
-// w and writes dw, db in the parameter's own (C, H, W) layout (position
-// fastest); K4 takes w as [S, C] float32. The kernels read the maps in
-// place; they never form the [S, B, C] view the TPU kernel used for XLA's
+// is one contiguous run of N = S*C elements (S = H*W, C fastest). Both
+// kernels read w, and K3 writes dw, db, in the parameter's own (C, H, W)
+// float32 layout (position fastest). The kernels read the maps in place;
+// they never form the [S, B, C] view the TPU kernel used for XLA's
 // batch-minor layout. Any B, S and C: where C is a multiple of 8 a thread
 // moves 8-element vectors (16 bytes of bf16, 32 of float32; the maps must
 // then be 16-byte aligned), else one element (C = 60, 120 bytes a bf16 row,
 // as the policy heads' LayerNorms have), with the same tiling and the same
-// order of every sum. K4 takes 8-element vectors wherever a sample's N is a
-// multiple of 8 and its pointers are 16-byte aligned, else one element.
+// order of every sum.
 //
 // What bounds them: device memory. At [16, 64, 64, 768] bf16, K3 must read
 // g and x (201 MB) and w (12.6 MB) and write dw and db in float32 (25 MB),
@@ -64,8 +63,37 @@
 // THEIA_K3_SLOTS and THEIA_K3_TILE_C build the ablations that
 // tools/time_ln_bwd.py times.
 //
-// K4 (ln_bwd_dx) streams g, x and w once more, one vector of V elements a
-// thread, grid-stride.
+// K4 (ln_bwd_dx_sm90; replaces theia_tpu/ops/ln_pallas.py::_dx_kernel).
+// dx is elementwise, so bytes bound it: g and x read, dx written, w read
+// once (315 MB, 94 us at [16, 64, 64, 768] bf16; 839 MB, 250 us at 2048
+// channels). The TPU kernel's block was [positions, all B, C] with w's
+// chunk loaded once; here a block owns one of K3's tiles (16 positions x
+// 128 channels at C = 768, one vector a thread) and walks the batch:
+//   - w's tile is staged from its (C, H, W) layout through shared memory
+//     by 4-byte cp.async, transposed as K3 stages it, and held in
+//     registers across the samples: w is read once, not once a sample, and
+//     the caller makes no [S, C] copy of it (one device operation a call).
+//   - Each sample's mean, r, s1 and s2 are loaded once a block into shared
+//     memory (32 samples at a time; the first 32 in flight with the first
+//     samples' loads) and read as one float4; the per-sample and
+//     per-element offsets are multiplications, never a 64-bit division.
+//     A block of one sample keeps them in registers, and at S = 1 w is
+//     read where it lies ((C, 1, 1) is [S, C]): no barrier on that path.
+//   - The next THEIA_K4_SLOTS samples' 16-byte loads of g and x are in
+//     flight while a sample computes; g, x are read and dx written with
+//     evict-first hints (ld/st.global.cs): each of their bytes is touched
+//     once, and w's tiles, which the blocks of a split batch read again,
+//     keep their place in L2.
+//   - The divide by N is a multiply by its reciprocal (1 ulp of the term;
+//     THEIA_K4_DIV=1 divides).
+//   - Where the tiles are fewer than THEIA_K4_SPLIT_TARGET a SM (96 at
+//     16x16 and 768 channels), the grid's second dimension splits the
+//     batch, so every SM holds blocks.
+// Each dx element is computed by one thread from its own inputs, so the
+// results do not depend on the tiling or the split and are the same on
+// every call. The -D switches THEIA_K4_BLOCKS_PER_SM (and _F32_), THEIA_K4_SLOTS,
+// THEIA_K4_SPLIT_TARGET, THEIA_K4_STREAMING and THEIA_K4_DIV build the
+// ablations that tools/time_ln_bwd.py times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +107,24 @@
 #endif
 #ifndef THEIA_K3_TILE_C
 #define THEIA_K3_TILE_C 128  // channels a tile at most; positions a tile = 256 threads / (channels / 8)
+#endif
+#ifndef THEIA_K4_BLOCKS_PER_SM
+#define THEIA_K4_BLOCKS_PER_SM 4  // resident blocks a SM bf16 K4's registers are capped for (__launch_bounds__)
+#endif
+#ifndef THEIA_K4_F32_BLOCKS_PER_SM
+#define THEIA_K4_F32_BLOCKS_PER_SM 3  // the same for float32 K4 (4 spills: its loads in flight take twice the registers)
+#endif
+#ifndef THEIA_K4_SLOTS
+#define THEIA_K4_SLOTS 2  // samples (1, 2 or 4) whose loads of g and x a K4 thread keeps in flight
+#endif
+#ifndef THEIA_K4_SPLIT_TARGET
+#define THEIA_K4_SPLIT_TARGET 2  // blocks a SM K4's grid reaches by splitting the batch where tiles are fewer (0: never)
+#endif
+#ifndef THEIA_K4_STREAMING
+#define THEIA_K4_STREAMING 3  // evict-first (.cs): 1 g and x's reads, 2 dx's writes, 3 both, 0 neither
+#endif
+#ifndef THEIA_K4_DIV
+#define THEIA_K4_DIV 0  // 1: divide by N as the plain version does; 0: multiply by its reciprocal
 #endif
 
 namespace {
@@ -96,6 +142,12 @@ constexpr int kMaxTiles = 65535;  // tiles a launch at most, which sizes the cou
 constexpr int kCounterWords = 1 + (kMaxTiles + kGroup - 1) / kGroup;
 constexpr int kTileC = THEIA_K3_TILE_C;
 static_assert(kTileC % kVec == 0 && kTileC / kVec <= kThreads, "a tile's position is whole vectors, one a thread");
+template <typename T>
+constexpr int dx_min_blocks() {
+  return sizeof(T) == 4 ? THEIA_K4_F32_BLOCKS_PER_SM : THEIA_K4_BLOCKS_PER_SM;
+}
+constexpr int kDxSlots = THEIA_K4_SLOTS;
+static_assert(kDxSlots == 1 || kDxSlots == 2 || kDxSlots == 4, "a chunk of samples is whole rounds of the slots");
 
 __device__ __forceinline__ void load8(const float* p, float (&out)[kVec]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -116,13 +168,8 @@ __device__ __forceinline__ void unpack8(const uint4 u, float (&out)[kVec]) {
   }
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&out)[kVec]) {
-  unpack8(*reinterpret_cast<const uint4*>(p), out);
-}
-
 // one element: the path for shapes whose rows are not whole 16-byte vectors
 __device__ __forceinline__ void load1(const float* p, float (&out)[1]) { out[0] = *p; }
-__device__ __forceinline__ void load1(const __nv_bfloat16* p, float (&out)[1]) { out[0] = __bfloat162float(*p); }
 
 // V elements from p (V = 8: a 16-byte aligned vector)
 template <int V, typename T>
@@ -174,21 +221,74 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[kVec]) {
-  uint4 u;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[kVec]) { store8(p, v); }
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[1]) { *p = v[0]; }
+
+// K4's reads of g and x and its writes of dx, which nothing in the kernel
+// touches again: evict-first (.cs) as THEIA_K4_STREAMING says
+template <typename U>
+__device__ __forceinline__ U ld_stream(const U* p) {
+#if THEIA_K4_STREAMING & 1
+  return __ldcs(p);
+#else
+  return __ldg(p);
+#endif
+}
+
+template <typename U>
+__device__ __forceinline__ void st_stream(U* p, U v) {
+#if THEIA_K4_STREAMING & 2
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
+// V elements of a map as they arrive from memory (Raw's registers, loaded by ld_stream)
+template <typename T, int V>
+struct Streamed;
+template <>
+struct Streamed<__nv_bfloat16, kVec> : Raw<__nv_bfloat16, kVec> {
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) { u = ld_stream(reinterpret_cast<const uint4*>(p)); }
+};
+template <>
+struct Streamed<float, kVec> : Raw<float, kVec> {
+  __device__ __forceinline__ void load(const float* p) {
+    a = ld_stream(reinterpret_cast<const float4*>(p));
+    b = ld_stream(reinterpret_cast<const float4*>(p) + 1);
+  }
+};
+template <>
+struct Streamed<__nv_bfloat16, 1> : Raw<__nv_bfloat16, 1> {
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = ld_stream(reinterpret_cast<const unsigned short*>(p));
+  }
+};
+template <>
+struct Streamed<float, 1> : Raw<float, 1> {
+  __device__ __forceinline__ void load(const float* p) { a = ld_stream(p); }
+};
+
+__device__ __forceinline__ void store_stream(float* p, const float (&v)[kVec]) {
+  st_stream(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  st_stream(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], v[5], v[6], v[7]));
+}
+
+__device__ __forceinline__ void store_stream(__nv_bfloat16* p, const float (&v)[kVec]) {
+  uint32_t w[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
     w[i] = *reinterpret_cast<const uint32_t*>(&h);
   }
-  *reinterpret_cast<uint4*>(p) = u;
+  st_stream(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
 }
 
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[kVec]) { store8(p, v); }
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[kVec]) { store8(p, v); }
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[1]) { *p = v[0]; }
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[1]) { *p = __float2bfloat16_rn(v[0]); }
+__device__ __forceinline__ void store_stream(float* p, const float (&v)[1]) { st_stream(p, v[0]); }
+
+__device__ __forceinline__ void store_stream(__nv_bfloat16* p, const float (&v)[1]) {
+  st_stream(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v[0])));
+}
 
 // 4 bytes from device memory into shared memory, in flight until
 // cp_async_wait_all (no register holds it)
@@ -460,52 +560,140 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   stats_tile<T, 1>(g, x, w, mean, rstd, part, counter, sums, dw, db, batch, s, c);
 }
 
-// K4. dx = r * (g*w - (s1 + xhat*s2) / count), one V-element vector a
-// thread, grid-stride over [batch, n]; w: [n] (= [S, C]) float32. The
-// kernel ln_bwd_dx takes V = 8, ln_bwd_dx_scalar 1.
+// K4's dynamic shared memory for tiles of cvecs vectors of v channels: the
+// per-sample mean, r, s1, s2 of kBatchChunk samples, then w's tile ([p]
+// rows of the tile's width + 4 floats each, as K3 stages it)
+__host__ __device__ constexpr size_t dx_smem(int cvecs, int v) {
+  return kBatchChunk * sizeof(float4) + static_cast<size_t>(kThreads / cvecs) * (cvecs * v + 4) * sizeof(float);
+}
+static_assert(dx_smem(1, kVec) <= 48 * 1024 && dx_smem(1, 1) <= 48 * 1024,
+              "K4 launches within the default dynamic shared memory");
+
+// K4. g, x, dx: [batch, s, c] (c fastest); w: [c, s] float32; mean, rstd,
+// s1, s2: [batch]. dx = r * (g*w - (s1 + xhat*s2) / count). One block a
+// K3 tile (blockIdx.x) and a run of `per` samples (blockIdx.y), V
+// channels a thread (V = stats_vec(c), or 1 where the maps are not 16-byte
+// aligned): the kernel ln_bwd_dx_sm90 takes 8, ln_bwd_dx_scalar 1.
 template <typename T, int V>
-__device__ __forceinline__ void dx_rows(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
+__device__ __forceinline__ void dx_tile(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
                                         const float* __restrict__ mean, const float* __restrict__ rstd,
                                         const float* __restrict__ s1, const float* __restrict__ s2, T* __restrict__ dx,
-                                        int batch, int64_t n, float count) {
-  const int64_t per_sample = n / V;
-  const int64_t total = static_cast<int64_t>(batch) * per_sample;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < total;
-       i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int b = static_cast<int>(i / per_sample);
-    const int64_t e = (i - b * per_sample) * V;
-    const int64_t at = static_cast<int64_t>(b) * n + e;
-    float gv[V], xv[V], wv[V], out[V];
-    load_vec<V>(g + at, gv);
-    load_vec<V>(x + at, xv);
-    load_vec<V>(w + e, wv);
-    const float m = mean[b];
-    const float r = rstd[b];
-    const float a = s1[b];
-    const float c = s2[b];
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const float xh = (xv[k] - m) * r;
-      out[k] = r * (gv[k] * wv[k] - (a + xh * c) / count);
+                                        int batch, int s, int c, int per, float count) {
+  extern __shared__ float4 smem4[];
+  float4* consts = smem4;  // [kBatchChunk]: mean, r, s1, s2 of a chunk's samples
+  float* ws = reinterpret_cast<float*>(smem4 + kBatchChunk);  // [p][pitch]: w of the tile, position-major
+  const StatsTiles tiling = stats_tiles_for<V>(s, c);
+  const int pitch = tiling.cvecs * V + 4;
+  const int t = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int s0 = (tile / tiling.ctiles) * tiling.p;
+  const int c0 = (tile % tiling.ctiles) * tile_channels(V);
+  const int pv = min(tiling.p, s - s0);          // positions of this tile
+  const int cv = min(tile_channels(V), c - c0);  // channels of this tile
+  const int tp = t / tiling.cvecs;               // this thread's position and vector in the tile
+  const int tq = t - tp * tiling.cvecs;
+  const bool valid = tp < pv && tq * V < cv;
+  const int b0 = blockIdx.y * per;     // this block's samples: b0 .. b0 + nb - 1
+  const int nb = min(per, batch - b0);
+  const int64_t step = static_cast<int64_t>(s) * c;  // a sample
+  const int64_t at = b0 * step + static_cast<int64_t>(s0 + tp) * c + c0 + tq * V;
+  const T* gt = g + at;
+  const T* xt = x + at;
+  T* dt = dx + at;
+#if THEIA_K4_DIV
+  const float scale = count;
+#else
+  const float scale = __frcp_rn(count);
+#endif
+  // a block of one sample keeps its constants in registers (every thread
+  // loads them), and at S = 1 w's (C, 1, 1) tile is contiguous and is read
+  // where it lies: a one-sample block of a 1x1 map has no barrier
+  const bool one = nb == 1;
+  const bool direct = s == 1;
+
+  // w's tile, transposed into position-major order by 4-byte copies in
+  // flight with the first samples' loads
+  if (!direct) {
+    for (int e = t; e < cv * pv; e += kThreads) {
+      const int ch = e / pv;  // consecutive threads: consecutive positions of one channel
+      const int p = e - ch * pv;
+      cp_async4(ws + p * pitch + ch, w + static_cast<int64_t>(c0 + ch) * s + s0 + p);
     }
-    store_vec(dx + at, out);
+  }
+  Streamed<T, V> gr[kDxSlots], xr[kDxSlots];  // the loads of samples j, j + 1, ... in flight
+#pragma unroll
+  for (int d = 0; d < kDxSlots; ++d) {
+    if (valid && d < nb) {
+      gr[d].load(gt + d * step);
+      xr[d].load(xt + d * step);
+    }
+  }
+  // the first chunk's constants, in flight with the loads above
+  float4 kc;
+  if (one || t < min(kBatchChunk, nb)) {
+    const int b = one ? b0 : b0 + t;
+    kc = make_float4(__ldg(mean + b), __ldg(rstd + b), __ldg(s1 + b), __ldg(s2 + b));
+  }
+  float wv[V];
+  if (direct && valid) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) wv[e] = __ldg(w + c0 + tq * V + e);
+  }
+  cp_async_wait_all();
+  for (int j0 = 0; j0 < nb; j0 += kBatchChunk) {
+    const int nj = min(kBatchChunk, nb - j0);
+    if (j0) {
+      __syncthreads();  // every thread has read the previous chunk's constants
+      const int b = b0 + j0 + t;
+      if (t < nj) kc = make_float4(__ldg(mean + b), __ldg(rstd + b), __ldg(s1 + b), __ldg(s2 + b));
+    }
+    if (!one && t < nj) consts[t] = kc;
+    if (!(one && direct)) __syncthreads();
+    if (j0 == 0 && valid && !direct) load_vec<V>(ws + tp * pitch + tq * V, wv);
+    for (int jr = 0; jr < nj; jr += kDxSlots) {
+#pragma unroll
+      for (int d = 0; d < kDxSlots; ++d) {  // sample j sits in slot j % kDxSlots = d
+        const int jj = jr + d;
+        if (jj >= nj) break;
+        const int j = j0 + jj;
+        if (!valid) continue;
+        const float4 k = one ? kc : consts[jj];  // mean, r, s1, s2
+        float gv[V], xv[V], out[V];
+        gr[d].unpack(gv);
+        xr[d].unpack(xv);
+        if (j + kDxSlots < nb) {
+          gr[d].load(gt + (j + kDxSlots) * step);
+          xr[d].load(xt + (j + kDxSlots) * step);
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float xh = (xv[e] - k.x) * k.y;
+#if THEIA_K4_DIV
+          out[e] = k.y * (gv[e] * wv[e] - (k.z + xh * k.w) / scale);
+#else
+          out[e] = k.y * (gv[e] * wv[e] - (k.z + xh * k.w) * scale);
+#endif
+        }
+        store_stream(dt + j * step, out);
+      }
+    }
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ln_bwd_dx(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ mean, const float* __restrict__ rstd, const float* __restrict__ s1,
-              const float* __restrict__ s2, T* __restrict__ dx, int batch, int64_t n, float count) {
-  dx_rows<T, kVec>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count);
+__global__ void __launch_bounds__(kThreads, dx_min_blocks<T>())
+    ln_bwd_dx_sm90(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ mean, const float* __restrict__ rstd, const float* __restrict__ s1,
+                   const float* __restrict__ s2, T* __restrict__ dx, int batch, int s, int c, int per, float count) {
+  dx_tile<T, kVec>(g, x, w, mean, rstd, s1, s2, dx, batch, s, c, per, count);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, dx_min_blocks<T>())
     ln_bwd_dx_scalar(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ mean, const float* __restrict__ rstd, const float* __restrict__ s1,
-                     const float* __restrict__ s2, T* __restrict__ dx, int batch, int64_t n, float count) {
-  dx_rows<T, 1>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count);
+                     const float* __restrict__ s2, T* __restrict__ dx, int batch, int s, int c, int per, float count) {
+  dx_tile<T, 1>(g, x, w, mean, rstd, s1, s2, dx, batch, s, c, per, count);
 }
 
 template <typename T, int V>
@@ -528,32 +716,55 @@ int launch_stats(const void* g, const void* x, const float* w, const float* mean
   return launch_stats_v<T, 1>(g, x, w, mean, rstd, part, counter, sums, dw, db, batch, s, c, stream);
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// K4's grid: one block a tile (x) times runs of `per` samples (y), the
+// batch split where the tiles alone would leave fewer than
+// THEIA_K4_SPLIT_TARGET blocks a SM of the current device
+struct DxGrid {
+  int tiles;
+  int splits;
+  int per;
+};
+
+DxGrid dx_grid(int batch, int s, int c, bool vec) {
+  DxGrid d;
+  d.tiles = (vec ? stats_tiles_for<kVec>(s, c) : stats_tiles_for<1>(s, c)).tiles;
+  int want = 1;
+  int dev = 0, sms = 0;
+  if (THEIA_K4_SPLIT_TARGET > 0 && cudaGetDevice(&dev) == cudaSuccess &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+    want = (THEIA_K4_SPLIT_TARGET * sms + d.tiles - 1) / d.tiles;
+  want = want < 1 ? 1 : (want > batch ? batch : want);
+  d.per = (batch + want - 1) / want;
+  d.splits = (batch + d.per - 1) / d.per;
+  return d;
+}
+
 template <typename T, int V>
 int launch_dx_v(const void* g, const void* x, const float* w, const float* mean, const float* rstd, const float* s1,
-                const float* s2, void* dx, int batch, int64_t n, int64_t count, cudaStream_t stream) {
-  const int64_t vecs = static_cast<int64_t>(batch) * (n / V);
-  const int64_t want = (vecs + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < (int64_t{1} << 30) ? want : (int64_t{1} << 30));
-  auto kernel = V == kVec ? ln_bwd_dx<T> : ln_bwd_dx_scalar<T>;
-  kernel<<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(g), static_cast<const T*>(x), w, mean, rstd, s1, s2,
-                                          static_cast<T*>(dx), batch, n, static_cast<float>(count));
+                const float* s2, void* dx, int batch, int s, int c, int64_t count, cudaStream_t stream) {
+  const DxGrid d = dx_grid(batch, s, c, V == kVec);
+  auto kernel = V == kVec ? ln_bwd_dx_sm90<T> : ln_bwd_dx_scalar<T>;
+  kernel<<<dim3(d.tiles, d.splits), kThreads, dx_smem(stats_tiles_for<V>(s, c).cvecs, V), stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), w, mean, rstd, s1, s2, static_cast<T*>(dx), batch, s, c,
+      d.per, static_cast<float>(count));
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-// K4 takes 8-element vectors where a sample is whole vectors and every
-// pointer is 16-byte aligned, else one element a thread
+// K4 takes 8-element vectors where C is whole vectors and the maps are
+// 16-byte aligned, else one element a thread
 template <typename T>
 int launch_dx(const void* g, const void* x, const float* w, const float* mean, const float* rstd, const float* s1,
-              const float* s2, void* dx, int batch, int64_t n, int64_t count, cudaStream_t stream) {
-  if (n % kVec == 0 && aligned16(g) && aligned16(x) && aligned16(w) && aligned16(dx))
-    return launch_dx_v<T, kVec>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count, stream);
-  return launch_dx_v<T, 1>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count, stream);
+              const float* s2, void* dx, int batch, int s, int c, int64_t count, cudaStream_t stream) {
+  if (stats_vec(c) == kVec && aligned16(g) && aligned16(x) && aligned16(dx))
+    return launch_dx_v<T, kVec>(g, x, w, mean, rstd, s1, s2, dx, batch, s, c, count, stream);
+  return launch_dx_v<T, 1>(g, x, w, mean, rstd, s1, s2, dx, batch, s, c, count, stream);
 }
 
-bool bad_args(int batch, int64_t n, int64_t count, int dtype) {
-  return batch < 1 || n < 1 || count < 1 || (dtype != 0 && dtype != 1);
+bool bad_dx_args(int batch, int s, int c, int64_t count, int dtype) {
+  return batch < 1 || s < 1 || c < 1 || count < 1 || (dtype != 0 && dtype != 1) ||
+         static_cast<int64_t>(s) * c > 0x7fffffff;
 }
 
 bool bad_stats_args(int batch, int s, int c, int dtype) {
@@ -621,18 +832,43 @@ int theia_ln_bwd_stats_blocks_per_sm(int s, int c, int dtype, int* threads, int*
   return resident;
 }
 
-// K4: dx [batch, n] in the dtype of g and x, from K3's s1 and s2; w: [n]
-// (= [S, C]) float32; count: the normaliser N of the formula, n for a
-// whole sample, more where the sample's channels are split over ranks and
-// s1, s2 were summed over them. Any n; 16-byte loads where n is a
-// multiple of 8 and the pointers are 16-byte aligned.
+// K4: dx [batch, s, c] in the dtype of g and x (0 = float32, 1 =
+// bfloat16), from K3's s1 and s2; w: (c, s) float32, the parameter's own
+// layout (4-byte aligned; no copy); mean, rstd, s1, s2: [batch] float32;
+// count: the normaliser N of the formula, s * c for a whole sample, more
+// where the sample's channels are split over ranks and s1, s2 were summed
+// over them. Any batch, s and c; 16-byte loads where c is a multiple of 8
+// and g, x and dx are 16-byte aligned. Returns the launch's cudaError_t on
+// `stream` (0 on success).
 int theia_ln_bwd_dx(const void* g, const void* x, const float* w, const float* mean, const float* rstd,
-                    const float* s1, const float* s2, void* dx, int batch, int64_t n, int64_t count, int dtype,
+                    const float* s1, const float* s2, void* dx, int batch, int s, int c, int64_t count, int dtype,
                     void* stream) {
-  if (bad_args(batch, n, count, dtype)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dx<float>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count, s);
-  return launch_dx<__nv_bfloat16>(g, x, w, mean, rstd, s1, s2, dx, batch, n, count, s);
+  if (bad_dx_args(batch, s, c, count, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_dx<float>(g, x, w, mean, rstd, s1, s2, dx, batch, s, c, count, st);
+  return launch_dx<__nv_bfloat16>(g, x, w, mean, rstd, s1, s2, dx, batch, s, c, count, st);
+}
+
+// K4's occupancy for batch samples of s positions and c channels in dtype
+// (16-byte aligned maps): resident blocks a SM (the return value), the
+// threads of a block and the grid's blocks (tiles x batch splits).
+int theia_ln_bwd_dx_blocks_per_sm(int batch, int s, int c, int dtype, int* threads, int* blocks) {
+  if (bad_dx_args(batch, s, c, 1, dtype)) return -static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = stats_vec(c) == kVec;
+  const DxGrid d = dx_grid(batch, s, c, vec);
+  const size_t smem = dx_smem(stats_tiles(s, c).cvecs, stats_vec(c));
+  int resident = 0;
+  cudaError_t err;
+  if (dtype == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, vec ? ln_bwd_dx_sm90<float> : ln_bwd_dx_scalar<float>, kThreads, smem);
+  else
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, vec ? ln_bwd_dx_sm90<__nv_bfloat16> : ln_bwd_dx_scalar<__nv_bfloat16>, kThreads, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  *threads = kThreads;
+  *blocks = d.tiles * d.splits;
+  return resident;
 }
 
 }  // extern "C"

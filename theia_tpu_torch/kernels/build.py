@@ -123,8 +123,10 @@ def load() -> ctypes.CDLL:
             lib.theia_ln_bwd_stats.restype = i32
             lib.theia_ln_bwd_stats_blocks_per_sm.argtypes = [i32] * 3 + [ctypes.POINTER(i32)] * 2
             lib.theia_ln_bwd_stats_blocks_per_sm.restype = i32
-            lib.theia_ln_bwd_dx.argtypes = [ptr] * 8 + [i32, i64, i64, i32, ptr]
+            lib.theia_ln_bwd_dx.argtypes = [ptr] * 8 + [i32] * 3 + [i64, i32, ptr]
             lib.theia_ln_bwd_dx.restype = i32
+            lib.theia_ln_bwd_dx_blocks_per_sm.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
+            lib.theia_ln_bwd_dx_blocks_per_sm.restype = i32
             lib.theia_loss_sums_partials.argtypes = [i64]
             lib.theia_loss_sums_partials.restype = i32
             lib.theia_loss_sums_fwd.argtypes = [ptr] * 4 + [i32, i64, i32, i32, ctypes.c_float, ptr]

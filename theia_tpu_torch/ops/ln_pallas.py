@@ -12,9 +12,10 @@ forward is plain PyTorch and saves (x, weight, mean, r); the backward runs
 
 The kernels read the maps in channels_last memory, [B, S = H*W, C] with C
 contiguous, as the head ladders hold them; a gradient that arrives in
-another memory format is copied into channels_last first. K3 is one launch:
-it reads the weight in its own (C, H, W) layout and writes dw and db
-there, so autograd receives them in the parameter's layout. Any C: where
+another memory format is copied into channels_last first. K3 and K4 are
+one launch each: both read the weight in its own (C, H, W) layout, and K3
+writes dw and db there, so autograd receives them in the parameter's
+layout. Any C: where
 C is a multiple of 8 the kernels move 16-byte vectors (the maps must then
 be 16-byte aligned), else one element a thread (the policy heads' C = 60).
 
@@ -143,11 +144,6 @@ def _check_kernel_inputs(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
             raise ValueError(f"ln_bwd needs {name} 16-byte aligned where C is a multiple of 8 (C={x.shape[1]})")
 
 
-def _rows_sc(w: torch.Tensor) -> torch.Tensor:
-    """(C, H, W) -> [S, C] float32, K4's weight layout."""
-    return w.detach().float().permute(1, 2, 0).contiguous()
-
-
 # K3's ticket counters, one int32 buffer a (device index, stream), zeroed
 # once at creation. The kernel's last blocks reset them to 0, so calls in
 # order on one stream share a buffer, and calls on two streams never do
@@ -204,23 +200,25 @@ def ln_bwd_dx(
     x: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor, r: torch.Tensor, g: torch.Tensor,
     s1: torch.Tensor, s2: torch.Tensor, count: Optional[int] = None,
 ) -> torch.Tensor:
-    """K4 on CUDA tensors: dx = r·(g·w − (s1 + x̂·s2)/N) in x's dtype and
-    channels_last memory; N is ``count``, by default the row length C·H·W.
-    Raises on inputs the kernel does not take or on a failed launch."""
+    """K4 on CUDA tensors, one launch: dx = r·(g·w − (s1 + x̂·s2)/N) in x's
+    dtype and channels_last memory; N is ``count``, by default the row
+    length C·H·W. The kernel reads the weight in float32 in its own
+    (C, H, W) layout, as ``ln_bwd_stats`` does. Raises on inputs the kernel
+    does not take or on a refused or failed launch."""
     if x.device.type != "cuda":
         raise ValueError(f"ln_bwd_dx runs on CUDA tensors, got {x.device}")
     _check_kernel_inputs(x, g, weight, mean)
     from theia_tpu_torch.kernels import build
 
     lib = build.load()
-    b = x.shape[0]
-    w_sc = _rows_sc(weight)
+    b, c, h, w = x.shape
+    weight = weight.detach().float().contiguous()
     mean, r, s1, s2 = (t.reshape(b).float().contiguous() for t in (mean, r, s1, s2))
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     with torch.cuda.device(x.device):
         err = lib.theia_ln_bwd_dx(
-            g.data_ptr(), x.data_ptr(), w_sc.data_ptr(), mean.data_ptr(), r.data_ptr(),
-            s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), b, x[0].numel(),
+            g.data_ptr(), x.data_ptr(), weight.data_ptr(), mean.data_ptr(), r.data_ptr(),
+            s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), b, h * w, c,
             x[0].numel() if count is None else count, _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
