@@ -1,0 +1,9 @@
+"""Host ms a served batch in ``Predictor``'s ``serve.dispatch`` span (the forward's
+launches): the median over pass (a)'s batches (``perfbench/spans.py``: recording on, in a
+process that has made no capture)."""
+
+from perfbench.spans import host_ms
+
+
+def read(r):
+    return host_ms(r, "serve.dispatch")

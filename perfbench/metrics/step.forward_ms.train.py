@@ -1,0 +1,9 @@
+"""Host ms a train step in the program's ``step.forward`` span (``model(images)``): the
+median over pass (a)'s steps (``perfbench/spans.py``: recording on, in a process that
+has made no capture)."""
+
+from perfbench.spans import host_ms
+
+
+def read(r):
+    return host_ms(r, "step.forward")

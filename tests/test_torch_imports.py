@@ -114,7 +114,6 @@ SLICE_MODULES = [
     "theia_tpu_torch.train.state",
     "theia_tpu_torch.train.step",
     "theia_tpu_torch.tools.check_div_rn",
-    "theia_tpu_torch.tools.profile_train_step",
     "theia_tpu_torch.tools.sass_loops",
     "theia_tpu_torch.tools.time_ln_bwd",
     "theia_tpu_torch.tools.time_mha_bwd",

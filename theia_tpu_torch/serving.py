@@ -16,7 +16,14 @@
     ``devices=[...]`` keeps one copy of the model on each device, rounds
     every bucket up to a multiple of the replica count, splits each padded
     batch in order over the replicas, each on a stream of its own, and
-    concatenates their outputs in order.
+    concatenates their outputs in order;
+  - **spans** (``utils/profiling.py``, inside a ``recording()`` block): an
+    input batch records ``serve.batch`` around ``serve.stage`` (pad, pinned
+    copy, H2D enqueue), ``serve.dispatch`` (the forward's launches) and,
+    where a batch is read back while it is taken, ``serve.readback`` (the
+    D2H copy and its wait for the device), whose unit is the number of the
+    batch read back; a stream's last readbacks, after its input ends, are
+    spans of their own.
 
 Inputs are numpy uint8 images [B,H,W,C] or [B,C,H,W]; outputs are numpy
 float32 arrays ([B,T,C] tokens, or a dict of [B,HW,C] per teacher). On a CPU
@@ -33,6 +40,8 @@ from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+
+from theia_tpu_torch.utils.profiling import span
 
 
 def _map(fn: Callable[[torch.Tensor], Any], out: Any) -> Any:
@@ -96,6 +105,7 @@ class Predictor:
         self._depth = max(1, int(depth))
         self._out_dtype = out_dtype
         self._copy_streams = [torch.cuda.Stream(d) if d.type == "cuda" else None for d in self._devices]
+        self._batches = 0  # input batches taken, the unit of their spans
         self._compute_streams = [torch.cuda.Stream(d) if d.type == "cuda" and own_streams else None
                                  for d in self._devices]
 
@@ -176,24 +186,35 @@ class Predictor:
         top = self._buckets[-1]
         return [images[i : i + top] for i in range(0, images.shape[0], top)] or [images]
 
+    def _take(self, images: np.ndarray) -> tuple[int, list]:
+        """One input batch staged and dispatched: (its number, its dispatched chunks)."""
+        unit, self._batches = self._batches, self._batches + 1
+        with span("serve.stage", unit):
+            staged = [self._stage(c) for c in self._chunks(np.asarray(images))]
+        with span("serve.dispatch", unit):
+            return unit, [self._dispatch(s) for s in staged]
+
     def __call__(self, images: np.ndarray) -> Any:
         """Predict one batch (any size; chunked by the largest bucket)."""
-        staged = [self._stage(c) for c in self._chunks(np.asarray(images))]
-        return self._readback_group([self._dispatch(s) for s in staged])
+        with span("serve.batch", self._batches):
+            return self._readback_group(self._take(images))
 
     def predict_stream(self, batches: Iterable[np.ndarray]) -> Iterator[Any]:
         """Pipelined prediction over a stream of batches, order-preserving."""
         pending: deque = deque()
         for images in batches:
-            staged = [self._stage(c) for c in self._chunks(np.asarray(images))]
-            pending.append([self._dispatch(s) for s in staged])
-            if len(pending) > self._depth:
-                yield self._readback_group(pending.popleft())
+            with span("serve.batch", self._batches):
+                pending.append(self._take(images))
+                out = self._readback_group(pending.popleft()) if len(pending) > self._depth else None
+            if out is not None:
+                yield out
         while pending:
             yield self._readback_group(pending.popleft())
 
-    def _readback_group(self, group: list) -> Any:
-        return _concat([self._readback(r, n) for r, n in group])
+    def _readback_group(self, taken: tuple[int, list]) -> Any:
+        unit, group = taken
+        with span("serve.readback", unit):
+            return _concat([self._readback(r, n) for r, n in group])
 
 
 def _concat(outs: list[Any]) -> Any:

@@ -51,6 +51,7 @@ from theia_tpu_torch.parallel.mesh import Grid
 from theia_tpu_torch.parallel.tp import split_outputs
 from theia_tpu_torch.train.optim import clip_grad_norm
 from theia_tpu_torch.train.state import TrainState
+from theia_tpu_torch.utils.profiling import span
 
 _TERMS = ("mse_loss", "cos_loss", "l1_loss")
 _PER_MODEL = ("mse_losses_per_model", "cos_losses_per_model", "l1_losses_per_model")
@@ -180,6 +181,12 @@ def make_train_step(
     wire (bf16, or None for float32) and the metrics over the ranks, as
     the module docstring says; ``images`` and ``targets`` are this rank's
     rows of the global batch (of its data index, on a cut model).
+
+    Inside ``utils.profiling.recording()`` each call records a span
+    ``step`` whose children partition it: ``step.forward``, ``step.loss``,
+    ``step.backward``, ``step.reduce`` (more than one rank, or a cut model),
+    ``step.clip`` (``grad_clip``) and ``step.optimizer`` (the update mask
+    and ``tx.update``), each with the call's host-side count as its unit.
     """
     world = world_size()
     layout = getattr(model, "tp_layout", None)
@@ -189,47 +196,60 @@ def make_train_step(
                       f"{layout.grid.n_model}); keeping the float32 gradient all-reduce.")
         grad_allreduce_dtype = None
 
+    calls = 0  # the host-side count that identifies a step's spans (state.step lives on the device)
+
     def train_step(state: TrainState, images: Any, targets: Mapping[str, torch.Tensor], loss_masks=None):
-        names = list(state.params)
-        preds = model(images)
-        losses = get_loss(
-            preds, prepare_targets(targets, target_stats, dtype=loss_dtype, split=split),
-            target_loss_weights, loss_masks, compute_dtype=loss_dtype, split=split,
-        )
-        main = main_loss_from_terms(losses, main_loss)
-        found = torch.autograd.grad(main, [state.params[n] for n in names], allow_unused=True)
-        grads = {n: torch.zeros_like(state.params[n]) if g is None else g for n, g in zip(names, found)}
-        metrics = _metrics(main, losses)
-        if layout is not None:
-            grads, metrics = _reduce_over_grid(grads, metrics, layout)
-        elif world > 1:
-            grads = all_reduce_grads(grads, world, grad_allreduce_dtype)
-            metrics = mean_over_ranks(metrics, world)
+        nonlocal calls
+        unit, calls = calls, calls + 1
+        with span("step", unit):
+            names = list(state.params)
+            with span("step.forward", unit):
+                preds = model(images)
+            with span("step.loss", unit):
+                losses = get_loss(
+                    preds, prepare_targets(targets, target_stats, dtype=loss_dtype, split=split),
+                    target_loss_weights, loss_masks, compute_dtype=loss_dtype, split=split,
+                )
+                main = main_loss_from_terms(losses, main_loss)
+                metrics = _metrics(main, losses)
+            with span("step.backward", unit):
+                found = torch.autograd.grad(main, [state.params[n] for n in names], allow_unused=True)
+                grads = {n: torch.zeros_like(state.params[n]) if g is None else g for n, g in zip(names, found)}
+            if layout is not None or world > 1:
+                with span("step.reduce", unit):
+                    if layout is not None:
+                        grads, metrics = _reduce_over_grid(grads, metrics, layout)
+                    else:
+                        grads = all_reduce_grads(grads, world, grad_allreduce_dtype)
+                        metrics = mean_over_ranks(metrics, world)
 
-        if grad_clip:
-            max_norm = torch.where(state.step < warmup_steps, grad_clip_norm_warmup, grad_clip_norm)
-            grads, metrics["grad_norm"] = clip_grad_norm(grads, max_norm, layout)
+            if grad_clip:
+                with span("step.clip", unit):
+                    max_norm = torch.where(state.step < warmup_steps, grad_clip_norm_warmup, grad_clip_norm)
+                    grads, metrics["grad_norm"] = clip_grad_norm(grads, max_norm, layout)
 
-        update_mask = None
-        if loss_masks is not None or freeze_translator:
-            device = state.step.device
-            unfrozen = (state.step < freeze_translator_start_step).float() if freeze_translator else None
-            heads = {
-                f"translator.translator_heads.{head_key(t)}.": torch.as_tensor(m, dtype=torch.float32, device=device)
-                for t, m in (loss_masks or {}).items()
-            }
-            update_mask = {}
-            for n in names:
-                if not n.startswith("translator."):
-                    continue
-                m = unfrozen
-                for prefix, hm in heads.items():
-                    if n.startswith(prefix):
-                        m = hm if m is None else m * hm
-                if m is not None:
-                    update_mask[n] = m
-        tx.update(grads, state.opt_state, state.params, mask=update_mask)
-        state.step += 1
+            with span("step.optimizer", unit):
+                update_mask = None
+                if loss_masks is not None or freeze_translator:
+                    device = state.step.device
+                    unfrozen = (state.step < freeze_translator_start_step).float() if freeze_translator else None
+                    heads = {
+                        f"translator.translator_heads.{head_key(t)}.": torch.as_tensor(m, dtype=torch.float32,
+                                                                                        device=device)
+                        for t, m in (loss_masks or {}).items()
+                    }
+                    update_mask = {}
+                    for n in names:
+                        if not n.startswith("translator."):
+                            continue
+                        m = unfrozen
+                        for prefix, hm in heads.items():
+                            if n.startswith(prefix):
+                                m = hm if m is None else m * hm
+                        if m is not None:
+                            update_mask[n] = m
+                tx.update(grads, state.opt_state, state.params, mask=update_mask)
+            state.step += 1
         return state, metrics
 
     return train_step
