@@ -32,7 +32,11 @@ failure (the script then exits nonzero and prints no result):
    cddsv teachers' [16, D] and over a sweep of B and D, and K3 and K4 at
    the CortexBench policy heads' LayerNormSpatial shapes, [32, 256, 7|3|1,
    ·] and [32, 60, 7|3, ·] (C = 60: the kernels' one-element path), bf16
-   and float32, timed beside ``native_layer_norm_backward`` and the bound;
+   and float32, timed beside ``native_layer_norm_backward`` and the bound,
+   and K10 (the masked AdamW step in one launch) against ``update_plain`` on
+   copies of Theia-Base cddsv's 268 parameters (float32, bf16 moments, the
+   recipe's schedule, grads in the recipe's layouts, one step with teacher
+   masks): bit for bit on parameters, moments and counts, one launch a step;
 4. serving: Theia-Base cddsv (seeded random weights) behind
    ``serving.Predictor``, answering requests through ``forward_feature``,
    ``predict`` and ``predict_stream`` in float32, then ``forward_feature``
@@ -46,7 +50,7 @@ failure (the script then exits nonzero and prints no result):
    (``train.step.make_train_step``) of Theia-Base cddsv, float32 params and
    bf16 compute, masked AdamW with bf16 moments at the recipe's settings,
    batch 16, on one fixed batch: finite and falling loss, one eval step,
-   exact launch counts of K1-K6; one step's loss and gradients on the
+   exact launch counts of K1-K6 and K10; one step's loss and gradients on the
    kernel path against the plain path (float32, TF32 off), and bf16
    gradients against float32 ones; then the same with
    ``attention_impl="flash"`` (K7, K9, K8 in place of K1, K2), and one
@@ -65,7 +69,7 @@ failure (the script then exits nonzero and prints no result):
    in a temporary directory whose free space is checked first: 6 steps, an
    async save at step 3 and the blocking one at step 6, one eval step
    (finite losses), exact launch counts (K3 = K4 = 90, K5 = 35, K6 = 30,
-   K1 = K2 = K7-K9 = 0), a JSONL log at steps 2, 4 and 6; a restore of step
+   K10 = 6, K1 = K2 = K7-K9 = 0), a JSONL log at steps 2, 4 and 6; a restore of step
    6 into a TrainState built on the card as the loop builds it, every
    tensor equal to the file's and the model's own parameters moved; then
    ``training.epochs=2``, which resumes at step 6 and ends at 12. It prints
@@ -189,7 +193,7 @@ failure (the script then exits nonzero and prints no result):
 
 Each phase ends with a line ``[phase N done at T s]``, the script's elapsed
 host time. The last two lines of standard output are the kernels' JSON record (the
-bf16 figures; ``mha_fwd``, ``mha_bwd``, ``flash_fwd``, ``flash_dq`` and
+bf16 figures; ``adamw`` is K10 at Theia-Base's 268 tensors; ``mha_fwd``, ``mha_bwd``, ``flash_fwd``, ``flash_dq`` and
 ``flash_dkv`` also carry their float32 ones under ``"float32"``, with the 3xTF32
 tensor-core floor, and ``flash_dkv``'s the pair K9 + K8's under ``"pair"``;
 ``flash_fwd_vit_h`` is K7 at phase 8's [8, 257, 16, 80] in float32, with
@@ -296,6 +300,12 @@ FUSED_PREPROCESSING_MSE = 5e-4
 LOSS_SUMS_REL = 1e-5
 LOSS_DP_F32_REL_L2 = 1e-6
 LOSS_SWEEP_D = (1, 127, 1024, 4096 * 32)
+# K10 against update_plain: steps of fresh grads (the last with teacher
+# masks), bit for bit; its bound moves 20 bytes an element (p read and
+# written, g read, bf16 mu and nu read and written) and its unmasked update
+# with decay is 16 float operations an element
+ADAMW_STEPS = 4
+ADAMW_BYTES, ADAMW_FLOPS = 20, 16
 TRAIN_BATCH = 16
 TRAIN_STEPS = 20
 FLASH_TRAIN_STEPS = 10
@@ -384,14 +394,14 @@ TP_TRANSLATORS = ("lconv", "conv", "mlp", "transformer")
 # shards and on one shard of TAR_SAMPLES samples in ImageNet's layout (an
 # image and five teachers' features each, small payloads: ~9 MB), both walks'
 # open time the median of TAR_OPENS opens each; profiling.trace around
-# PROFILE_STEPS recipe steps, whose trace names K3-K6's kernels (by these
+# PROFILE_STEPS recipe steps, whose trace names K3-K6's and K10's kernels (by these
 # prefixes) as often as their counters say (CUPTI may drop one record of a
 # name); verify_published
 # on phase 6b's student (K1 12 a call, two calls); the sanity script
 TAR_SAMPLES, TAR_OPENS = 1000, 7
 PROFILE_STEPS = 3
 TRACE_KERNELS = {"ln_bwd_stats": "ln_bwd_stats_", "ln_bwd_dx": "ln_bwd_dx", "loss_sums_fwd": "loss_sums_partial",
-                 "loss_sums_bwd": "loss_sums_bwd"}
+                 "loss_sums_bwd": "loss_sums_bwd", "adamw": "adamw_sm90"}
 VERIFY_CALLS = 2
 SANITY_STEPS = 64 // 4  # the script's 64 synthetic train samples at batch 4, one epoch
 # JAX's TPU flash attention library, whose three Pallas kernels K7-K9 replace
@@ -817,6 +827,46 @@ def compare_loss_kernels(fused_loss, teacher_dims: list[int]) -> dict:
     check(worst["dp_f32"] < LOSS_DP_F32_REL_L2 and worst["dp_bf16"] < KERNEL_BF16_REL_L2,
           "K6 disagrees with its plain version")
     return errors
+
+
+def compare_adamw_kernel(optim, time_adamw, teachers: list[str]) -> float:
+    """Phase 3, K10 against ``update_plain`` on copies of Theia-Base cddsv's
+    268 parameters (float32, bf16 moments, the recipe's warmup schedule),
+    over ADAMW_STEPS steps of fresh grads in the recipe's layouts (the
+    translator's 3x3 conv weights channels_last, the patch embedding's
+    [kh][c][o][kw]), the last step with the teachers' heads masked 0 and 1
+    in turn: parameters, moments and counts bit for bit, one K10 launch a
+    step. Returns the largest difference of a parameter (0)."""
+    from theia_tpu_torch.models.translators import head_key
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params, _, tx = time_adamw.setup("base", True, gen)
+    plain = {n: p.clone() for n, p in params.items()}
+    state, plain_state = tx.init(params), tx.init(plain)
+    heads = {f"translator.translator_heads.{head_key(t)}.": float(i % 2) for i, t in enumerate(teachers)}
+    values = {n: m for n in params for prefix, m in heads.items() if n.startswith(prefix)}
+    mask = {n: torch.tensor(m, device="cuda") for n, m in values.items()}
+    optim.ADAMW_FUSED_LAUNCHES = 0
+    for k in range(ADAMW_STEPS):
+        grads = time_adamw.grads_like(params, True, gen)
+        step_mask = mask if k == ADAMW_STEPS - 1 else None
+        tx.update(grads, state, params, mask=step_mask)
+        tx.update_plain(grads, plain_state, plain, mask=step_mask)
+    torch.cuda.synchronize()
+    launches, strided = optim.ADAMW_FUSED_LAUNCHES, sum(not g.is_contiguous() for g in grads.values())
+    differ = [f"{n} {what}" for n in params for what, a, b in (
+        ("p", params[n], plain[n]), ("mu", state.mu[n], plain_state.mu[n]), ("nu", state.nu[n], plain_state.nu[n]),
+        ("count", state.count[n], plain_state.count[n])) if not torch.equal(a, b)]
+    err = max(float((params[n] - plain[n]).abs().max()) for n in params)
+    masked = sum(m == 0 for m in values.values())
+    print(f"  K10 adamw_sm90 against update_plain, {len(params)} tensors of Theia-Base cddsv "
+          f"({sum(p.numel() for p in params.values()):,} elements; {strided} grads strided as the recipe's), "
+          f"{ADAMW_STEPS} steps, the last with {masked} translator tensors masked 0: {len(differ)} of "
+          f"{4 * len(params)} parameters, moments and counts differ (max |dp| {err:.1e}); launches {launches}, "
+          f"expected {ADAMW_STEPS}")
+    check(not differ, f"K10 differs from update_plain: {differ[:5]}")
+    check(launches == ADAMW_STEPS and strided > 0 and masked > 0, "K10's launches or the case's layouts are off")
+    return err
 
 
 def loss_and_grads(model, images, targets):
@@ -1496,7 +1546,7 @@ def translators_phase(card: str, tmp: str, teachers: list[str], reset_counts, re
         want = {"mha_fwd": 0, "mha_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                 "ln_bwd_stats": ln_sites * TRANSLATOR_STEPS, "ln_bwd_dx": ln_sites * TRANSLATOR_STEPS,
                 "loss_sums_fwd": n_teachers * (TRANSLATOR_STEPS + 1), "loss_sums_bwd": n_teachers * TRANSLATOR_STEPS,
-                "loss_input_copies": 0}
+                "loss_input_copies": 0, "adamw": TRANSLATOR_STEPS}
         tm = summary["timing"]
         losses = [summary["train"]["loss"], *summary["eval"].values()]
         blocked = sum(b for _, b, _ in tm["saves"])
@@ -1549,7 +1599,7 @@ def translators_phase(card: str, tmp: str, teachers: list[str], reset_counts, re
     n_layers = model.backbone.cfg.num_layers
     want = {"mha_fwd": n_layers, "mha_bwd": n_layers, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "ln_bwd_stats": 3 * n_teachers, "ln_bwd_dx": 3 * n_teachers, "loss_sums_fwd": n_teachers,
-            "loss_sums_bwd": n_teachers, "loss_input_copies": 0}
+            "loss_sums_bwd": n_teachers, "loss_input_copies": 0, "adamw": 1}
     print(f"  conv, one exact-mode step (bf16 compute, attention \"pallas\"): loss {float(metrics['loss']):.6f}; "
           f"launches {counts}, expected {want}")
     check(math.isfinite(float(metrics["loss"])) and counts == want, "conv exact-mode step: loss or launch counts")
@@ -2166,7 +2216,7 @@ def trace_check(card: str, teachers: list[str], trainer, images, targets, reset_
                 work: str) -> None:
     """Phase 14 (b): ``utils.profiling.trace`` around PROFILE_STEPS recipe
     steps of Theia-Base cddsv at B = TRAIN_BATCH: one trace file whose
-    device events name K3-K6's kernels as often as their counters (one
+    device events name K3-K6's and K10's kernels as often as their counters (one
     record short allowed, never more); ``StepTimer``'s images/s beside the
     CUDA-event step time."""
     import glob
@@ -2208,11 +2258,12 @@ def trace_check(card: str, teachers: list[str], trainer, images, targets, reset_
     kernels = [profiled_kernel_name(e["name"]) for e in events if e.get("cat") == "kernel"]
     traced = {k: sum(name.startswith(prefix) for name in kernels) for k, prefix in TRACE_KERNELS.items()}
     want = {"ln_bwd_stats": n_ln * PROFILE_STEPS, "ln_bwd_dx": n_ln * PROFILE_STEPS,
-            "loss_sums_fwd": len(teachers) * PROFILE_STEPS, "loss_sums_bwd": len(teachers) * PROFILE_STEPS}
+            "loss_sums_fwd": len(teachers) * PROFILE_STEPS, "loss_sums_bwd": len(teachers) * PROFILE_STEPS,
+            "adamw": PROFILE_STEPS}
     print(f"  (b) profiling.trace around {PROFILE_STEPS} recipe steps of {MODEL} at B={TRAIN_BATCH} "
           f"({traced_s:.1f} s with the trace's writing): one trace file, {os.path.getsize(files[0]) / 1e6:.1f} MB, "
           f"{len(kernels)} kernel records; losses {' '.join(f'{x:.6f}' for x in losses)}")
-    print(f"      K3-K6 traced {traced}, counted {({k: counts[k] for k in want})}, expected {want}")
+    print(f"      K3-K6 and K10 traced {traced}, counted {({k: counts[k] for k in want})}, expected {want}")
     print(f"      StepTimer(warmup_steps=1): {images_per_s:.1f} images/s (host clock, synchronized a step); CUDA "
           f"events: {step_ms:.3f} ms/step, {TRAIN_BATCH / step_ms * 1e3:.1f} images/s over steps 2-{PROFILE_STEPS}; "
           f"both under the profiler ({card})")
@@ -2341,11 +2392,13 @@ def main() -> int:
     from theia_tpu_torch.models.hub import build_theia, parse_model_name
     from theia_tpu_torch.ops import attention, fused_loss, ln_pallas
     from theia_tpu_torch.serving import Predictor
+    from theia_tpu_torch.train import optim
     from theia_tpu_torch.train.optim import constant_with_warmup, make_optimizer, scaled_lr
     from theia_tpu_torch.train.state import TrainState
     from theia_tpu_torch.train.step import make_eval_step, make_train_step
-    from theia_tpu_torch.tools.timing import (cuda_ms, interleaved_ms, ptxas_usage, sdpa_backward, sdpa_forward,
-                                              wgmma_serialized)
+    from theia_tpu_torch.tools import time_adamw
+    from theia_tpu_torch.tools.timing import (cuda_ms, interleaved_ms, kernel_ms, ptxas_usage, sdpa_backward,
+                                              sdpa_forward, wgmma_serialized)
 
     # phase 1: the card
     card = subprocess.run(
@@ -2452,6 +2505,8 @@ def main() -> int:
     _, teachers = parse_model_name(MODEL)
     teacher_dims = [math.prod(get_model_feature_size(t, keep_spatial=True)) for t in teachers]
     kernel_errors.update(compare_loss_kernels(fused_loss, teacher_dims))
+    kernel_errors["adamw"] = compare_adamw_kernel(optim, time_adamw, teachers)
+    torch.cuda.empty_cache()
     # K3/K4 at the policy heads' shapes: C = 60 (one element a thread) and 1x1 maps
     print(f"  K3/K4 at the CortexBench policy heads' LayerNormSpatial shapes, B={POLICY_BATCH}:")
     policy_ln_rows = ln_shape_rows(ln_pallas, POLICY_BATCH, POLICY_LN_SHAPES, card,
@@ -2631,13 +2686,14 @@ def main() -> int:
         reset_attention_counts()
         ln_pallas.LN_BWD_STATS_LAUNCHES = ln_pallas.LN_BWD_DX_LAUNCHES = 0
         fused_loss.LOSS_SUMS_FWD_LAUNCHES = fused_loss.LOSS_SUMS_BWD_LAUNCHES = fused_loss.LOSS_INPUT_COPIES = 0
+        optim.ADAMW_FUSED_LAUNCHES = 0
 
     def read_counts():
         return {
             **attention_counts(),
             "ln_bwd_stats": ln_pallas.LN_BWD_STATS_LAUNCHES, "ln_bwd_dx": ln_pallas.LN_BWD_DX_LAUNCHES,
             "loss_sums_fwd": fused_loss.LOSS_SUMS_FWD_LAUNCHES, "loss_sums_bwd": fused_loss.LOSS_SUMS_BWD_LAUNCHES,
-            "loss_input_copies": fused_loss.LOSS_INPUT_COPIES,
+            "loss_input_copies": fused_loss.LOSS_INPUT_COPIES, "adamw": optim.ADAMW_FUSED_LAUNCHES,
         }
 
     def trainer(dtype, impl, **flags):
@@ -2694,10 +2750,10 @@ def main() -> int:
     def expected_launches(steps: int, attention_launches: dict) -> dict:
         """The launches of ``steps`` steps and one eval: the attention
         kernels' as given, K3/K4 at every LayerNormSpatial site of a step, K5
-        for each teacher on every step and eval, K6 on every step."""
+        for each teacher on every step and eval, K6 and K10 on every step."""
         return {**attention_launches, "ln_bwd_stats": n_ln * steps, "ln_bwd_dx": n_ln * steps,
                 "loss_sums_fwd": n_teachers * (steps + evals), "loss_sums_bwd": n_teachers * steps,
-                "loss_input_copies": 0}
+                "loss_input_copies": 0, "adamw": steps}
 
     exact_counts, n_ln = train("phase 5, training (exact mode)")
     want = expected_launches(TRAIN_STEPS, {"mha_fwd": n_layers * (TRAIN_STEPS + evals),
@@ -3107,6 +3163,23 @@ def main() -> int:
           f"bf16 pred, float32 targets): device time fused {dev['fused']:.4f} ms, unfused {dev['unfused']:.4f} ms; "
           f"back-to-back as the host issues them: fused {wall['fused']:.4f} ms, unfused {wall['unfused']:.4f} ms")
 
+    # K10 at Theia-Base's 268 tensors (float32 parameters, grads in the
+    # recipe's layouts, bf16 moments): its kernel alone against the plain
+    # loop's kernels, each the device time of its kernels a call (torch.profiler)
+    params, grads, tx = time_adamw.setup("base", True, gen)
+    state = tx.init(params)
+    n = sum(p.numel() for p in params.values())
+    k10_ms = sum(ms for k, ms in kernel_ms(lambda: tx.update(grads, state, params), 20).items()
+                 if k.startswith("adamw_sm90"))
+    loop_ms = sum(kernel_ms(lambda: tx.update_plain(grads, state, params), 3).values())
+    bound, by = bound_ms(ADAMW_BYTES * n, ADAMW_FLOPS * n, torch.float32)
+    print(f"  K10 adamw_sm90 float32, bf16 moments, {len(params)} tensors ({n:,} elements): kernel {k10_ms:.4f} ms, "
+          f"plain {loop_ms:.4f} ms (its kernels' device time), library -, bound {bound:.4f} ms ({by}: "
+          f"{ADAMW_BYTES * n / 1e6:.1f} MB, {ADAMW_FLOPS * n / 1e9:.2f} GFLOP), {100 * bound / k10_ms:.1f}% of it")
+    record["adamw"] = ({"kernel": k10_ms, "plain": loop_ms}, bound, by)
+    del params, grads, tx, state
+    torch.cuda.empty_cache()
+
     meta = {
         "mha_fwd": ("csrc/mha_fwd.cu", "theia_tpu/ops/attention.py:46", kernel_errors[("mha_fwd", bf16, 64, 197)]),
         "mha_bwd": ("csrc/mha_bwd.cu", "theia_tpu/ops/attention.py:60", kernel_errors[("mha_bwd", bf16, 16, 197)]),
@@ -3116,6 +3189,8 @@ def main() -> int:
                           kernel_errors[("loss_sums_fwd", TRAIN_BATCH, max(teacher_dims), bf16, torch.float32)]),
         "loss_sums_bwd": ("csrc/fused_loss.cu", "theia_tpu/ops/fused_loss.py:54",
                           kernel_errors[("loss_sums_bwd", TRAIN_BATCH, max(teacher_dims), bf16, torch.float32)]),
+        # the JAX package's masked AdamW update, which XLA fuses: no Pallas kernel
+        "adamw": ("csrc/adamw.cu", "theia_tpu/train/optim.py:134", kernel_errors["adamw"]),
         # the Pallas kernels of JAX's TPU flash attention library, which
         # theia_tpu/ops/attention.py:151 (_flash_attention) calls
         **{name: ("csrc/flash_attn.cu", f"{FLASH_LIBRARY}:{line}", kernel_errors[(name, bf16, BIG_BATCH, BIG_T)])

@@ -2,6 +2,9 @@
 step, masked AdamW over several updates with random grads and masks
 (params, moments, per-parameter counts; bf16 moments; translator LR
 factor), the weight-decay mask through the name map, and grad clipping.
+Then K10's host side (its kernel runs only on the card,
+tests/test_torch_adamw_gpu.py): its plan covers every element of every
+tensor once and carries the decay mask, and CPU tensors take the plain loop.
 
 Tolerances: schedules rtol 1e-6 and atol 1e-9 (float32 arithmetic on both
 sides; near the cosine's floor a float32 cos may differ by ~1e-10);
@@ -153,3 +156,108 @@ def test_clip_grad_norm_matches_jax():
         np.testing.assert_allclose(float(norm), float(jnorm), rtol=1e-6)
         for n in LEAVES:
             np.testing.assert_allclose(clipped[n].numpy(), _leaf(jclipped, n), rtol=1e-6, atol=1e-7)
+
+
+def _cddsv_shapes(backbone):
+    from theia_tpu_torch.foundation.common import get_model_feature_size
+    from theia_tpu_torch.models.hub import TEACHER_SETS
+
+    with torch.device("meta"):
+        model = TTheia(backbone=backbone, translator="lconv",
+                       target_feature_sizes={t: get_model_feature_size(t, keep_spatial=True)
+                                             for t in TEACHER_SETS["cddsv"]})
+    return dict(model.named_parameters())
+
+
+ODD_SPECS = (("one", (1,), None), ("empty.weight", (0, 3), None), ("odd", (4097,), None),
+             ("chunk.weight", (2, 2048), None), ("translator.t.odd.weight", (7, 33, 3, 3), (297, 1, 99, 33)),
+             ("translator.t.wide.weight", (3, 100, 3, 3), (900, 1, 300, 100)), ("big.weight", (2, 5, 64, 64), None),
+             ("t.weight", (5, 7), (1, 5)), ("t.bias", (9,), (2,)))
+
+
+def _specs(which):
+    if which == "odd":
+        return ODD_SPECS
+    params = _cddsv_shapes(f"facebook/deit-{which}-patch16-224")
+    # the 3x3 conv weights' grads come channels_last from cuDNN
+    return tuple((n, p.shape, p.contiguous(memory_format=torch.channels_last).stride()
+                  if p.dim() == 4 and n.startswith("translator.") else None)
+                 for n, p in params.items()) + ODD_SPECS
+
+
+def _spans(launch):
+    """Each tensor's element spans, chunk by chunk, as csrc/adamw.cu decodes
+    a chunk: its tensor is the last whose chunk0 <= c, and its local chunk
+    covers CHUNK elements of that tensor from local · CHUNK."""
+    chunk0 = launch.rows["chunk0"]
+    spans = [[] for _ in launch.rows]
+    for c in range(launch.chunks):
+        t = int(np.searchsorted(chunk0, c, side="right")) - 1
+        start = (c - int(chunk0[t])) * toptim.CHUNK
+        spans[t].append((start, min(int(launch.rows[t]["n"]), start + toptim.CHUNK)))
+    return spans
+
+
+@pytest.mark.parametrize("which", ["base", "small", "odd"])
+def test_k10_plan_covers_every_element_once(which):
+    specs = _specs(which)
+    (one,) = toptim.adamw_plan(specs, 408, False)
+    per = 100 if len(specs) > 100 else 3  # past the parameter limit: several launches
+    split = toptim.adamw_plan(specs, per, False)
+    assert len(split) == -(-len(specs) // per) > 1
+    assert [(s.lo, s.hi) for s in split] == [(lo, min(lo + per, len(specs))) for lo in range(0, len(specs), per)]
+    for launch in (one, *split):
+        for (name, shape, strides), row, spans in zip(specs[launch.lo:launch.hi], launch.rows, _spans(launch)):
+            n = int(np.prod(shape))
+            assert int(row["n"]) == n and bool(row["flags"] & toptim.STRIDED) == (strides is not None), name
+            ends = 0
+            for start, end in sorted(spans):  # a partition of [0, n): no gap, no overlap
+                assert start == ends and 0 < end - start <= toptim.CHUNK, (name, start, end)
+                ends = end
+            assert ends == n, name
+            if strides is not None:  # as 4-d: the sizes but the first, and every stride
+                pad = 4 - len(shape)
+                assert tuple(row["size"]) == ((1,) * pad + tuple(shape))[1:], name
+                assert tuple(row["stride"]) == (0,) * pad + tuple(strides), name
+
+
+def test_k10_flags_are_built_once_from_the_decay_mask():
+    params = _cddsv_shapes("facebook/deit-base-patch16-224")
+    specs = tuple((n, p.shape, None) for n, p in params.items())
+    decay = toptim.no_weight_decay_mask(params)
+    for scale in (False, True):
+        (launch,) = toptim.adamw_plan(specs, 408, scale)
+        assert len(launch.rows) == 268
+        for (name, _, _), row in zip(specs, launch.rows):
+            assert bool(row["flags"] & toptim.DECAY) == decay[name], name
+            assert bool(row["flags"] & toptim.SCALE) == (scale and name.startswith("translator.")), name
+    assert toptim.adamw_plan(specs, 408, False) is toptim.adamw_plan(specs, 408, False)
+
+
+def test_update_on_cpu_takes_the_plain_loop():
+    rng = np.random.default_rng(2)
+    values = {n: rng.standard_normal(shape).astype(np.float32) for n, (_, shape) in LEAVES.items()}
+    a = {n: torch.from_numpy(v.copy()) for n, v in values.items()}
+    b = {n: torch.from_numpy(v.copy()) for n, v in values.items()}
+    tx = toptim.make_optimizer(toptim.constant_with_warmup(1e-3, 2), moment_dtype=torch.bfloat16)
+    sa, sb = tx.init(a), tx.init(b)
+    launches = toptim.ADAMW_FUSED_LAUNCHES
+    for _ in range(3):
+        grads = {n: torch.from_numpy(rng.standard_normal(v.shape).astype(np.float32)) for n, v in values.items()}
+        tx.update(grads, sa, a, mask={"translator.translator_heads.t.adapter.8.weight": 0.0})
+        tx.update_plain(grads, sb, b, mask={"translator.translator_heads.t.adapter.8.weight": 0.0})
+    assert toptim.ADAMW_FUSED_LAUNCHES == launches
+    for n in LEAVES:
+        assert torch.equal(a[n], b[n]) and torch.equal(sa.mu[n], sb.mu[n]) and torch.equal(sa.nu[n], sb.nu[n])
+        assert int(sa.count[n]) == int(sb.count[n])
+
+
+def test_k10_refuses_a_grad_it_cannot_gather():
+    """A strided grad past 4 dimensions has no K10 layout: the update raises
+    before it plans or launches anything (no silent copy)."""
+    params = {"w": torch.zeros(2, 3, 2, 2, 2)}
+    grads = {"w": torch.zeros(2, 2, 2, 3, 2).transpose(1, 3)}
+    assert not grads["w"].is_contiguous()
+    tx = toptim.make_optimizer(1e-3)
+    with pytest.raises(ValueError, match="up to 4 dimensions"):
+        tx._update_k10(grads, tx.init(params), params, None)

@@ -22,7 +22,7 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(PACKAGE_DIR / "csrc" / name
-                for name in ("mha_fwd.cu", "mha_bwd.cu", "flash_attn.cu", "ln_bwd.cu", "fused_loss.cu"))
+                for name in ("mha_fwd.cu", "mha_bwd.cu", "flash_attn.cu", "ln_bwd.cu", "fused_loss.cu", "adamw.cu"))
 HEADERS = tuple(PACKAGE_DIR / "csrc" / name for name in ("div_rn.cuh", "mma_bf16.cuh", "mma_tf32.cuh", "wgmma_bf16.cuh"))
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -133,6 +133,15 @@ def load() -> ctypes.CDLL:
             lib.theia_loss_sums_fwd.restype = i32
             lib.theia_loss_sums_bwd.argtypes = [ptr] * 4 + [i32, i64, i32, i32, ctypes.c_float, ptr]
             lib.theia_loss_sums_bwd.restype = i32
+            f32 = ctypes.c_float
+            lib.theia_adamw_layout.argtypes = [ctypes.POINTER(i32)] * 3
+            lib.theia_adamw_layout.restype = None
+            lib.theia_adamw.argtypes = [ptr, i32, i32, ptr] + [f32] * 8 + [i32, i32, ptr, ptr]
+            lib.theia_adamw.restype = i32
+            lib.theia_adamw_bias_corrections.argtypes = [ptr, ptr, i32, f32, i32, ptr]
+            lib.theia_adamw_bias_corrections.restype = i32
+            lib.theia_adamw_blocks_per_sm.argtypes = [i32, i32]
+            lib.theia_adamw_blocks_per_sm.restype = i32
             lib.theia_cuda_error_string.argtypes = [i32]
             lib.theia_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -115,19 +115,26 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"\d(mha_\w+?|flash_\w+?|ln_bwd_\w+?)(?:ILi(\d+)E(?:Li(\d+)E)?|If?E|I13__nv_bfloat16E|E)",
                   mangled)
     loss = re.search(r"\d(loss_sums_[a-z]+)(?:I(\w+?)Lb([01])E)?", mangled)
+    adamw = re.search(r"\d(adamw_[a-z0-9_]+?)I(\w+?)E", mangled)
     name = m.group(1) if m else mangled
-    if loss:
+    if adamw:
+        name = f"{adamw.group(1)}<{','.join(_type_names(adamw.group(2)))}>"
+    elif loss:
         name = loss.group(1)
         if loss.group(2):
             # float is "f"; bf16 is "13__nv_bfloat16", or "S<n>_" where it repeats
-            types = ",".join("f32" if x == "f" else "bf16"
-                             for x in re.findall(r"f|13__nv_bfloat16|S\d*_", loss.group(2)))
-            name += f"<{types},{'vec8' if loss.group(3) == '1' else 'scalar'}>"
+            name += f"<{','.join(_type_names(loss.group(2)))},{'vec8' if loss.group(3) == '1' else 'scalar'}>"
     elif m and m.group(2):
         name += f"<{m.group(2)}{f',{m.group(3)}' if m.group(3) else ''}>"
     elif m and "ln_bwd" in name and "finish" not in name:
         name += "<bf16>" if "bfloat16" in mangled else "<f32>"
     return name
+
+
+def _type_names(mangled: str) -> list[str]:
+    """f32 / bf16 for each type of a mangled template argument list: float
+    is "f"; bf16 is "13__nv_bfloat16", or "S<n>_" where it repeats."""
+    return ["f32" if x == "f" else "bf16" for x in re.findall(r"f|13__nv_bfloat16|S\d*_", mangled)]
 
 
 def ptxas_usage(log: str) -> list[tuple[str, str]]:

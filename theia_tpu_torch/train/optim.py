@@ -11,20 +11,38 @@ Plain functions over dicts of tensors keyed by parameter name, not
 ``torch.optim.AdamW``: that has neither the JAX package's masking (a masked
 parameter keeps its value, its moments and its own step count) nor a step
 count per parameter under a mask. Unlike the JAX package, which returns new
-parameters and state, ``MaskedAdamW.update`` updates both in place.
+parameters and state, ``MaskedAdamW.update`` updates both in place: on CUDA
+tensors in one launch of K10 (``csrc/adamw.cu``) over every tensor, bit for
+bit what ``MaskedAdamW.update_plain``, the plain loop that CPU tensors take,
+computes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Mapping, Optional
 
+import numpy as np
 import torch
 
 from theia_tpu_torch.parallel.tp import model_sum
 
 Schedule = Callable[[Any], torch.Tensor]
+
+# K10's launches in this process
+ADAMW_FUSED_LAUNCHES = 0
+
+# K10's plan, as csrc/adamw.cu reads it: chunks of CHUNK elements, one
+# TensorDesc (DESC) a tensor with these flags
+CHUNK = 2048
+DECAY, SCALE, MASKED, STRIDED = 1, 2, 4, 8
+DESC = np.dtype([("p", np.uint64), ("g", np.uint64), ("mu", np.uint64), ("nu", np.uint64), ("count", np.uint64),
+                 ("mask", np.uint64), ("n", np.int64), ("chunk0", np.int32), ("flags", np.int32),
+                 ("mask_value", np.float32), ("size", np.int32, (3,)), ("stride", np.int32, (4,))], align=True)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def scaled_lr(base_lr: float, batch_size: int, world_size: int,
@@ -68,9 +86,83 @@ def cosine_restarts_with_warmup(
     return schedule
 
 
+def _decays(name: str, ndim: int) -> bool:
+    return ndim > 1 and not name.endswith("bias")
+
+
 def no_weight_decay_mask(params: Mapping[str, torch.Tensor]) -> dict[str, bool]:
     """True where weight decay applies: ndim > 1 and a name not ending in "bias"."""
-    return {name: p.ndim > 1 and not name.endswith("bias") for name, p in params.items()}
+    return {name: _decays(name, p.ndim) for name, p in params.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWLaunch:
+    """One K10 launch: tensors [lo, hi) of a call, their descriptors with
+    every pointer 0 (filled in a copy at each call) and the chunks they span."""
+
+    lo: int
+    hi: int
+    rows: np.ndarray
+    chunks: int
+
+
+@functools.lru_cache(maxsize=8)
+def adamw_plan(specs: tuple, max_tensors: int, scale_translator: bool) -> tuple[AdamWLaunch, ...]:
+    """K10's launches for ``specs``, one (name, shape, strides) a tensor in
+    the call's order (``strides``: None, or the element strides of a
+    gradient laid out otherwise than its contiguous parameter, up to 4-d,
+    which K10 gathers): ``max_tensors`` descriptors a launch, each
+    with its decay and translator-factor flags and its first chunk (a
+    prefix over the tensors' chunks of CHUNK elements; chunk c of a tensor
+    updates its elements [c·CHUNK, min(n, (c + 1)·CHUNK))). Cached: a
+    model's shapes repeat every step."""
+    launches = []
+    for lo in range(0, len(specs), max_tensors):
+        group = specs[lo:lo + max_tensors]
+        rows = np.zeros(len(group), DESC)
+        chunk0 = 0
+        for row, (name, shape, strides) in zip(rows, group):
+            n = math.prod(shape)
+            row["n"], row["chunk0"] = n, chunk0
+            row["flags"] = ((DECAY if _decays(name, len(shape)) else 0)
+                            | (SCALE if scale_translator and name.startswith("translator.") else 0)
+                            | (STRIDED if strides is not None else 0))
+            if strides is not None:
+                pad = 4 - len(shape)
+                row["size"] = ((1,) * pad + tuple(shape))[1:]
+                row["stride"] = (0,) * pad + tuple(strides)
+            chunk0 += -(-n // CHUNK)
+        launches.append(AdamWLaunch(lo, lo + len(group), rows, chunk0))
+    return tuple(launches)
+
+
+# K10's ticket counters, one word a (device index, stream), zeroed once; each
+# launch leaves its counter 0 (ops/ln_pallas.py's _TICKETS)
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _kernel(device: torch.device):
+    """The built library, its checked layout, and the stream and counter of ``device``."""
+    from theia_tpu_torch.kernels import build
+
+    lib = build.load()
+    chunk, max_tensors, desc_bytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.theia_adamw_layout(ctypes.byref(chunk), ctypes.byref(max_tensors), ctypes.byref(desc_bytes))
+    if (chunk.value, desc_bytes.value) != (CHUNK, DESC.itemsize):
+        raise RuntimeError(f"csrc/adamw.cu's layout ({chunk.value}, {desc_bytes.value} bytes) is not "
+                           f"train/optim.py's ({CHUNK}, {DESC.itemsize} bytes)")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return lib, max_tensors.value, stream, _COUNTERS[key]
+
+
+def _one_dtype(tensors, what: str) -> int:
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= _DTYPE_CODES.keys():
+        raise TypeError(f"K10 takes {what} all float32 or all bfloat16, got {sorted(map(str, dtypes))}")
+    return _DTYPE_CODES[dtypes.pop()]
 
 
 @dataclasses.dataclass
@@ -131,7 +223,90 @@ class MaskedAdamW:
         *,
         mask: Optional[Mapping[str, Any]] = None,
     ) -> None:
-        """One step over ``grads``; updates ``params`` and ``state`` in place."""
+        """One step over ``grads``; updates ``params`` and ``state`` in place.
+        CUDA tensors take K10, one launch (more only past its parameter
+        limit) that neither synchronizes nor reads a device value on the
+        host, and advances the counts in place; CPU tensors take
+        ``update_plain``."""
+        if not grads or not next(iter(grads.values())).is_cuda:
+            self.update_plain(grads, state, params, mask=mask)
+            return
+        self._update_k10(grads, state, params, mask)
+        state.sched_count += 1
+
+    def _update_k10(self, grads, state: MaskedAdamWState, params, mask) -> None:
+        names = list(grads)
+        ps = [params[n] for n in names]
+        gs = [grads[n] for n in names]
+        mus, nus, counts = [state.mu[n] for n in names], [state.nu[n] for n in names], [state.count[n] for n in names]
+        device = ps[0].device
+        if len({t.get_device() for ts in (ps, gs, mus, nus, counts) for t in ts}) != 1:
+            raise ValueError(f"K10 needs every parameter, grad, moment and count on {device}")
+        if any(c.dtype != torch.int32 for c in counts) or not all(
+                t.is_contiguous() for ts in (ps, mus, nus) for t in ts):
+            raise ValueError("K10 needs int32 counts, and parameters and moments contiguous")
+        specs = []
+        for name, p, g in zip(names, ps, gs):
+            if g.shape != p.shape:
+                raise ValueError(f"K10 needs {name}'s grad shaped as its parameter, got {tuple(g.shape)}")
+            strides = None
+            if not g.is_contiguous():
+                if g.dim() > 4 or g.numel() >= 2**31 or sum((n - 1) * st for n, st in zip(g.shape, g.stride())) >= 2**31:
+                    raise ValueError(f"K10 gathers a strided grad of up to 4 dimensions and offsets below 2^31, got "
+                                     f"{name}'s of shape {tuple(g.shape)} and strides {g.stride()}")
+                strides = g.stride()
+            specs.append((name, p.shape, strides))
+        dtype, moment_dtype = _one_dtype(ps + gs, "parameters and grads"), _one_dtype(mus + nus, "moments")
+
+        b1, b2 = self.betas
+        lr = self.learning_rate(state.sched_count) if callable(self.learning_rate) else self.learning_rate
+        lr_ptr, neg_lr = None, 0.0
+        if isinstance(lr, torch.Tensor) and lr.is_cuda:
+            lr = lr if lr.dtype == torch.float32 else lr.float()
+            lr_ptr = lr.data_ptr()
+        else:
+            neg_lr = -float(lr)
+        keep = [lr]  # the device scalars the launches read, alive until they are enqueued
+        lib, max_tensors, stream, counter = _kernel(device)
+        global ADAMW_FUSED_LAUNCHES
+        for launch in adamw_plan(tuple(specs), max_tensors, self.translator_lr_factor != 1.0):
+            lo, hi = launch.lo, launch.hi
+            rows = launch.rows.copy()
+            for col, ts in (("p", ps), ("g", gs), ("mu", mus), ("nu", nus), ("count", counts)):
+                rows[col] = [t.data_ptr() for t in ts[lo:hi]]
+            if mask is not None:
+                for i in range(lo, hi):
+                    if names[i] in mask:
+                        m = mask[names[i]]
+                        rows["flags"][i - lo] |= MASKED
+                        if isinstance(m, torch.Tensor) and m.is_cuda:
+                            if m.numel() != 1:
+                                raise ValueError(f"K10 takes a scalar mask, got {tuple(m.shape)} for {names[i]}")
+                            m = m if m.dtype == torch.float32 else m.float()
+                            keep.append(m)
+                            rows["mask"][i - lo] = m.data_ptr()
+                        else:
+                            rows["mask_value"][i - lo] = float(m)
+            with torch.cuda.device(device):
+                err = lib.theia_adamw(rows.ctypes.data, hi - lo, launch.chunks, lr_ptr, neg_lr, b1, b2, 1.0 - b1,
+                                      1.0 - b2, self.eps, self.weight_decay, self.translator_lr_factor, dtype,
+                                      moment_dtype, counter.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"K10 launch failed over {hi - lo} tensors: {lib.theia_cuda_error_string(err).decode()}")
+            ADAMW_FUSED_LAUNCHES += 1
+
+    @torch.no_grad()
+    def update_plain(
+        self,
+        grads: Mapping[str, torch.Tensor],
+        state: MaskedAdamWState,
+        params: Mapping[str, torch.Tensor],
+        *,
+        mask: Optional[Mapping[str, Any]] = None,
+    ) -> None:
+        """K10's function in plain PyTorch, about 34 ops a tensor: one step
+        over ``grads``; updates ``params`` and ``state`` in place (each
+        count replaced by a new tensor)."""
         b1, b2 = self.betas
         lr = self.learning_rate(state.sched_count) if callable(self.learning_rate) else self.learning_rate
         decay = no_weight_decay_mask(params)
