@@ -36,7 +36,11 @@ failure (the script then exits nonzero and prints no result):
    and K10 (the masked AdamW step in one launch) against ``update_plain`` on
    copies of Theia-Base cddsv's 268 parameters (float32, bf16 moments, the
    recipe's schedule, grads in the recipe's layouts, one step with teacher
-   masks): bit for bit on parameters, moments and counts, one launch a step;
+   masks): bit for bit on parameters, moments and counts, one launch a step,
+   and K12 (SAM's attention with its decomposed relative-position bias)
+   against ``relpos_attention_plain`` at SAM-H's [800, 196, 16, 80] and
+   [32, 4096, 16, 80] (windows and global layers at the extraction's batch
+   of 32), float32, rel L2 1e-5, one launch a call;
 4. serving: Theia-Base cddsv (seeded random weights) behind
    ``serving.Predictor``, answering requests through ``forward_feature``,
    ``predict`` and ``predict_stream`` in float32, then ``forward_feature``
@@ -100,14 +104,14 @@ failure (the script then exits nonzero and prints no result):
    depth on seeded random weights (built on the card), float32, on B=8
    uint8 224² images: the reference's stored keys and shapes, finite
    values, exact attention launches (ViT-H K7 = 32 a call at [8, 257, 16,
-   80], the others none), images/s and peak memory (SAM-H also at the
-   extraction's default batch of 32); ViT-H on its kernel path against
+   80], SAM-H K12 = 32 a call, the others none), images/s and peak memory
+   (SAM-H also at the extraction's default batch of 32, K12 32 a call); ViT-H on its kernel path against
    "einsum" (float32, atol 1e-3) and in bf16 against float32 (rel L2
    5e-2); a DeiT teacher's K1 = 12 a call; K7 at [8, 257, 16, 80] against
    its plain version; then ``python -m
    theia_tpu_torch.scripts.feature_extraction``'s ``main`` for the five
    cddsv teachers over 2 synthetic image shards of 16 in a temporary
-   directory (K7 = 64 in all), a rerun that skips every shard,
+   directory (K7 = 64 and K12 = 64 in all), a rerun that skips every shard,
    ``compute_feature_stats`` and the training loader's first batch of the
    shards, and what ``check_shard`` returns (bit-exact regeneration at a
    batch of 3) with its max|d|;
@@ -189,7 +193,10 @@ failure (the script then exits nonzero and prints no result):
 7. timings with CUDA events after warmup (bf16 ``forward_feature`` at B=64
    also with the stream held, the device's time alone), and each kernel's
    bound and library call; K3's and K4's sums over a recipe step's 15
-   LayerNormSpatial sites against their bounds.
+   LayerNormSpatial sites against their bounds; K12 at SAM-H's two shapes,
+   alone and with the bias tables' products, beside its
+   plain version, SDPA with the bias as a mask (window shape) and the
+   benchmark's bound (``perfbench/sam_flops.py``).
 
 Each phase ends with a line ``[phase N done at T s]``, the script's elapsed
 host time. The last two lines of standard output are the kernels' JSON record (the
@@ -197,7 +204,8 @@ bf16 figures; ``adamw`` is K10 at Theia-Base's 268 tensors; ``mha_fwd``, ``mha_b
 ``flash_dkv`` also carry their float32 ones under ``"float32"``, with the 3xTF32
 tensor-core floor, and ``flash_dkv``'s the pair K9 + K8's under ``"pair"``;
 ``flash_fwd_vit_h`` is K7 at phase 8's [8, 257, 16, 80] in float32, with
-its bf16 figures under ``"bfloat16"``; ``ln_bwd_stats`` and ``ln_bwd_dx``
+its bf16 figures under ``"bfloat16"``; ``relpos_attn`` is K12 at SAM-H's
+window shape, with the global one under ``"global"``; ``ln_bwd_stats`` and ``ln_bwd_dx``
 carry phase 9's conv-translator shapes under ``"conv_translator"`` and
 phase 3's policy-head shapes under ``"policy_heads"``)
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -336,6 +344,11 @@ RUNTIME_OVERRIDES = ("model/backbone=deit_base", "training/target_models=cddsv",
 # images (the ImageNet shards' size); SAM-H also at the extraction's default
 # batch; feature_extraction.main over 2 synthetic image shards of 16
 TEACHER_BATCH, EXTRACTION_BATCH = 8, 32
+# phases 3 and 7: K12 at SAM-H's two attention shapes at the extraction's
+# batch of 32, 800 windows of 14² tokens and 32 images of 64², 16 heads of 80
+RELPOS_SHAPES = {"windows": (800, 14), "global": (32, 64)}
+RELPOS_HEADS, RELPOS_HD = 16, 80
+RELPOS_REL_L2 = 1e-5
 EXTRACT_SHARDS, EXTRACT_SHARD_SIZE = 2, 16
 VIT_H = "google/vit-huge-patch14-224-in21k"
 DEIT_TEACHER = "facebook/deit-base-patch16-224"
@@ -869,6 +882,97 @@ def compare_adamw_kernel(optim, time_adamw, teachers: list[str]) -> float:
     return err
 
 
+def relpos_inputs(entries: int, side: int, gen: torch.Generator) -> tuple[torch.Tensor, ...]:
+    """A packed projection [entries, side², 3·1280] as SAM-H's dense layer
+    returns it and its two tables, at SAM-H's magnitudes (q, k, v ~0.7,
+    tables 0.1)."""
+    c = RELPOS_HEADS * RELPOS_HD
+    qkv = 0.7 * torch.randn(entries, side * side, 3 * c, device="cuda", generator=gen)
+    rh = 0.1 * torch.randn(2 * side - 1, RELPOS_HD, device="cuda", generator=gen)
+    rw = 0.1 * torch.randn(2 * side - 1, RELPOS_HD, device="cuda", generator=gen)
+    return qkv, rh, rw
+
+
+def relpos_plain(attention, qkv, rh, rw, side: int) -> torch.Tensor:
+    """``relpos_attention_plain`` on a packed projection, float32."""
+    c = RELPOS_HEADS * RELPOS_HD
+    return attention.relpos_attention_plain(*qkv.split(c, dim=-1), rh, rw, RELPOS_HEADS, side, side, torch.float32)
+
+
+def compare_relpos_kernel(attention) -> dict:
+    """Phase 3, K12 (SAM's attention with its decomposed relative-position
+    bias) against ``relpos_attention_plain`` at SAM-H's two attention shapes
+    at the extraction's batch of 32 (``RELPOS_SHAPES``), float32, on the same
+    packed projection: rel L2 within RELPOS_REL_L2, finite, one K12 launch a
+    call. Returns each shape's max abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    errors = {}
+    for shape, (entries, side) in RELPOS_SHAPES.items():
+        qkv, rh, rw = relpos_inputs(entries, side, gen)
+        before = attention.RELPOS_ATTN_LAUNCHES
+        with torch.no_grad():
+            got = attention.relpos_attention(qkv, rh, rw, RELPOS_HEADS, side)
+            want = relpos_plain(attention, qkv, rh, rw, side)
+        torch.cuda.synchronize()
+        launches = attention.RELPOS_ATTN_LAUNCHES - before
+        rel = rel_l2(got, want)
+        errors[shape] = float((got - want).abs().max())
+        label = f"[{entries},{side * side},{RELPOS_HEADS},{RELPOS_HD}]"
+        print(f"  K12 relpos_attn float32 {label} ({shape}) against relpos_attention_plain: max_abs_err "
+              f"{errors[shape]:.3e}, rel_l2 {rel:.3e} (<= {RELPOS_REL_L2}); launches {launches}, expected 1")
+        check(bool(torch.isfinite(got).all()) and rel <= RELPOS_REL_L2, f"K12 {label} disagrees with its plain version")
+        check(launches == 1, f"K12 {label}: {launches} launches a call")
+        del qkv, got, want
+        torch.cuda.empty_cache()
+    return errors
+
+
+def time_relpos_kernel(attention, errors: dict, gen: torch.Generator) -> dict:
+    """Phase 7, K12 at SAM-H's two shapes at B = 32, float32, CUDA events
+    around back-to-back calls in turns: the kernel alone on the tables'
+    products, ``relpos_attention`` whole (the tables' two products and K12),
+    the plain version and, at the window shape, SDPA's forward with the bias
+    as a materialised float mask (at the global shape that mask would be 32
+    GiB), beside the bound of the benchmark's count
+    (``perfbench/sam_flops.py`` ``relpos_attn_call``, the one
+    ``relpos_attn_roofline`` reads). torch.profiler is not used here: late
+    in this script it recorded 2 of 10 calls of a 60 ms kernel. Returns each
+    shape's record."""
+    from perfbench import flops as bench_flops, sam_flops
+    from theia_tpu_torch.kernels import build
+    from theia_tpu_torch.tools import time_relpos_attn
+    from theia_tpu_torch.tools.timing import interleaved_ms
+
+    kernel = time_relpos_attn.launcher(build.load())
+    records = {}
+    for shape, (entries, side) in RELPOS_SHAPES.items():
+        qkv, rh, rw = relpos_inputs(entries, side, gen)
+        ph, pw = attention.relpos_tables(attention._split_heads(qkv, RELPOS_HEADS)[0], rh, rw)
+        fns = {"kernel": lambda: kernel(qkv, ph, pw, side), "plain": lambda: relpos_plain(attention, qkv, rh, rw, side),
+               "entry": lambda: attention.relpos_attention(qkv, rh, rw, RELPOS_HEADS, side)}
+        if shape == "windows":
+            fns["library"] = time_relpos_attn.sdpa_with_mask(qkv, rh, rw, side)
+        with torch.no_grad():
+            t = interleaved_ms(fns, iters=5, hold=False)
+        alone = t["kernel"]
+        call = sam_flops.relpos_attn_call(entries, side, RELPOS_HEADS, RELPOS_HD)
+        bound = call.bound_s() * 1e3
+        by_bytes = call.bytes / bench_flops.PEAK_BYTES_PER_S >= call.flops / bench_flops.PEAK_FLOPS["tf32"]
+        by = "bytes" if by_bytes else "operations"
+        lib = t.get("library")
+        print(f"  K12 relpos_attn float32 [{entries},{side * side},{RELPOS_HEADS},{RELPOS_HD}] ({shape}): kernel "
+              f"{alone:.4f} ms (alone), relpos_attention {t['entry']:.4f} ms (with the tables' two "
+              f"products), plain {t['plain']:.4f} ms, library {'-' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bound:.4f} ms ({by}: {call.bytes / 1e6:.1f} MB, {call.flops / 1e9:.1f} GFLOP), "
+              f"{100 * bound / alone:.1f}% of it")
+        records[shape] = {"ms": alone, "entry_ms": t["entry"], "plain_ms": t["plain"], "library_ms": lib,
+                          "bound_ms": bound, "bound_by": by, "max_abs_err": errors[shape],
+                          "shape": [entries, side * side, RELPOS_HEADS, RELPOS_HD]}
+        del qkv, rh, rw, ph, pw, fns
+        torch.cuda.empty_cache()
+    return records
+
+
 def loss_and_grads(model, images, targets):
     """One step's loss and gradients (the train step's loss, no update)."""
     from theia_tpu_torch.models.losses import get_loss, main_loss_from_terms
@@ -1313,7 +1417,6 @@ def teachers_and_extraction(card: str, tmp: str, teachers: list[str], attention,
     from theia_tpu_torch.foundation import vit as fvit
     from theia_tpu_torch.foundation.common import MODELS, get_model_feature_size
     from theia_tpu_torch.foundation.extraction import get_feature_outputs, get_model
-    from theia_tpu_torch.foundation.sam import SCORE_BLOCK_BYTES
     from theia_tpu_torch.scripts import calc_feature_mean, check_feature, feature_extraction
     from theia_tpu_torch.tools.timing import cuda_ms
 
@@ -1336,7 +1439,8 @@ def teachers_and_extraction(card: str, tmp: str, teachers: list[str], attention,
         feats = get_feature_outputs(name, module, x, feature_fn)
         counts = attention_counts()
         peak = torch.cuda.max_memory_allocated() - base
-        check(counts == forward_only(32 if name == VIT_H else 0), f"{name}: attention launches {counts}")
+        check(counts == forward_only(32 if name == VIT_H else 0, 32 if "facebook/sam" in name else 0),
+              f"{name}: attention launches {counts}")
         for store, keys in reference_layout(name).items():
             check(sorted(feats.get(store, {})) == sorted(keys), f"{name}: {store} holds {sorted(feats.get(store, {}))}")
             for key, shape in keys.items():
@@ -1355,15 +1459,17 @@ def teachers_and_extraction(card: str, tmp: str, teachers: list[str], attention,
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
+            reset_attention_counts()
             with torch.inference_mode():
                 ms = cuda_ms(lambda: feature_fn(module, images), 1)
             peak = torch.cuda.max_memory_allocated() - base
-            tokens = module.cfg.grid ** 2
-            rows = min(tokens, SCORE_BLOCK_BYTES // (EXTRACTION_BATCH * module.cfg.num_heads * tokens * 4))
+            counts = attention_counts()
+            n_layers = module.cfg.num_layers
             print(f"  {name} at the extraction's default batch {EXTRACTION_BATCH}: peak {peak / 2 ** 30:.2f} GiB "
                   f"above the weights ({torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f} GiB card), "
-                  f"{EXTRACTION_BATCH / ms * 1e3:.1f} images/s (one call); a global layer's float32 scores in "
-                  f"blocks of {rows} of its {tokens} query rows ({SCORE_BLOCK_BYTES / 2 ** 30:.0f} GiB a block)")
+                  f"{EXTRACTION_BATCH / ms * 1e3:.1f} images/s (one call); K12 {counts['relpos_attn']} launches, "
+                  f"expected {n_layers} (one a layer, windows and global, no score tensor written)")
+            check(counts == forward_only(0, n_layers), f"{name} at B={EXTRACTION_BATCH}: attention launches {counts}")
         del module, feature_fn
         torch.cuda.empty_cache()
 
@@ -1446,8 +1552,9 @@ def teachers_and_extraction(card: str, tmp: str, teachers: list[str], attention,
               f"{out.count('using random init')} random-init warning")
         check(n == n_images and out.count("done (") == EXTRACT_SHARDS, f"{name}: extraction wrote {n}: {out}")
     counts = attention_counts()
-    want = forward_only(32 * EXTRACT_SHARDS)
-    print(f"  the extraction's launches: {counts}, expected {want} (ViT-H: one batch of {EXTRACT_SHARD_SIZE} a shard)")
+    want = forward_only(32 * EXTRACT_SHARDS, 32 * EXTRACT_SHARDS)
+    print(f"  the extraction's launches: {counts}, expected {want} (ViT-H's K7 and SAM-H's K12: one batch of "
+          f"{EXTRACT_SHARD_SIZE} a shard)")
     check(counts == want, "the extraction's launch counts")
     for name in teachers:
         n, wall, out = run_main(name)
@@ -1543,7 +1650,7 @@ def translators_phase(card: str, tmp: str, teachers: list[str], reset_counts, re
                                          reset_counts, read_counts)
         peak = torch.cuda.max_memory_allocated()
         ln_sites = 3 * n_teachers if name == "conv" else 0
-        want = {"mha_fwd": 0, "mha_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+        want = {"mha_fwd": 0, "mha_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "relpos_attn": 0,
                 "ln_bwd_stats": ln_sites * TRANSLATOR_STEPS, "ln_bwd_dx": ln_sites * TRANSLATOR_STEPS,
                 "loss_sums_fwd": n_teachers * (TRANSLATOR_STEPS + 1), "loss_sums_bwd": n_teachers * TRANSLATOR_STEPS,
                 "loss_input_copies": 0, "adamw": TRANSLATOR_STEPS}
@@ -1598,7 +1705,7 @@ def translators_phase(card: str, tmp: str, teachers: list[str], reset_counts, re
     counts = read_counts()
     n_layers = model.backbone.cfg.num_layers
     want = {"mha_fwd": n_layers, "mha_bwd": n_layers, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "ln_bwd_stats": 3 * n_teachers, "ln_bwd_dx": 3 * n_teachers, "loss_sums_fwd": n_teachers,
+            "relpos_attn": 0, "ln_bwd_stats": 3 * n_teachers, "ln_bwd_dx": 3 * n_teachers, "loss_sums_fwd": n_teachers,
             "loss_sums_bwd": n_teachers, "loss_input_copies": 0, "adamw": 1}
     print(f"  conv, one exact-mode step (bf16 compute, attention \"pallas\"): loss {float(metrics['loss']):.6f}; "
           f"launches {counts}, expected {want}")
@@ -2506,6 +2613,7 @@ def main() -> int:
     teacher_dims = [math.prod(get_model_feature_size(t, keep_spatial=True)) for t in teachers]
     kernel_errors.update(compare_loss_kernels(fused_loss, teacher_dims))
     kernel_errors["adamw"] = compare_adamw_kernel(optim, time_adamw, teachers)
+    kernel_errors["relpos_attn"] = compare_relpos_kernel(attention)
     torch.cuda.empty_cache()
     # K3/K4 at the policy heads' shapes: C = 60 (one element a thread) and 1x1 maps
     print(f"  K3/K4 at the CortexBench policy heads' LayerNormSpatial shapes, B={POLICY_BATCH}:")
@@ -2589,14 +2697,16 @@ def main() -> int:
     def attention_counts() -> dict:
         return {"mha_fwd": attention.MHA_FWD_LAUNCHES, "mha_bwd": attention.MHA_BWD_LAUNCHES,
                 "flash_fwd": attention.FLASH_FWD_LAUNCHES, "flash_dq": attention.FLASH_DQ_LAUNCHES,
-                "flash_dkv": attention.FLASH_DKV_LAUNCHES}
+                "flash_dkv": attention.FLASH_DKV_LAUNCHES, "relpos_attn": attention.RELPOS_ATTN_LAUNCHES}
 
     def reset_attention_counts():
         attention.MHA_FWD_LAUNCHES = attention.MHA_BWD_LAUNCHES = 0
         attention.FLASH_FWD_LAUNCHES = attention.FLASH_DQ_LAUNCHES = attention.FLASH_DKV_LAUNCHES = 0
+        attention.RELPOS_ATTN_LAUNCHES = 0
 
-    def forward_only(n_flash: int) -> dict:
-        return {"mha_fwd": 0, "mha_bwd": 0, "flash_fwd": n_flash, "flash_dq": 0, "flash_dkv": 0}
+    def forward_only(n_flash: int, n_relpos: int = 0) -> dict:
+        return {"mha_fwd": 0, "mha_bwd": 0, "flash_fwd": n_flash, "flash_dq": 0, "flash_dkv": 0,
+                "relpos_attn": n_relpos}
 
     # the same requests through attention_impl="flash" (K7), float32 and bf16, same weights
     flash_model = attention_model("flash", dtype=torch.float32)
@@ -2758,7 +2868,7 @@ def main() -> int:
     exact_counts, n_ln = train("phase 5, training (exact mode)")
     want = expected_launches(TRAIN_STEPS, {"mha_fwd": n_layers * (TRAIN_STEPS + evals),
                                            "mha_bwd": n_layers * TRAIN_STEPS, "flash_fwd": 0, "flash_dq": 0,
-                                           "flash_dkv": 0})
+                                           "flash_dkv": 0, "relpos_attn": 0})
     print(f"  launches {exact_counts}, expected {want}")
     check(exact_counts == want, "kernel launch counts of the exact-mode training path are off")
 
@@ -2811,7 +2921,7 @@ def main() -> int:
     want = expected_launches(FLASH_TRAIN_STEPS, {"mha_fwd": 0, "mha_bwd": 0,
                                                  "flash_fwd": n_layers * (FLASH_TRAIN_STEPS + evals),
                                                  "flash_dq": n_layers * FLASH_TRAIN_STEPS,
-                                                 "flash_dkv": n_layers * FLASH_TRAIN_STEPS})
+                                                 "flash_dkv": n_layers * FLASH_TRAIN_STEPS, "relpos_attn": 0})
     print(f"  launches {flash_counts}, expected {want}")
     check(flash_counts == want, "kernel launch counts of the flash training path are off")
     _, fgrads = kernel_vs_plain(TRAIN_LOSS_RTOL, "flash")
@@ -2842,7 +2952,8 @@ def main() -> int:
     tok, bgrads = backbone_grads("pallas")
     torch.cuda.synchronize()
     counts = attention_counts()
-    want = {"mha_fwd": 0, "mha_bwd": 0, "flash_fwd": n_layers, "flash_dq": n_layers, "flash_dkv": n_layers}
+    want = {"mha_fwd": 0, "mha_bwd": 0, "flash_fwd": n_layers, "flash_dq": n_layers, "flash_dkv": n_layers,
+            "relpos_attn": 0}
     check(counts == want, f"the 448² backbone step launched {counts}, expected {want}")
     ptok, pgrads = backbone_grads("einsum")
     tok_err = float((tok - ptok).abs().max())
@@ -3180,6 +3291,9 @@ def main() -> int:
     del params, grads, tx, state
     torch.cuda.empty_cache()
 
+    # K12 at SAM-H's two shapes at B = 32, float32
+    relpos_records = time_relpos_kernel(attention, kernel_errors["relpos_attn"], gen)
+
     meta = {
         "mha_fwd": ("csrc/mha_fwd.cu", "theia_tpu/ops/attention.py:46", kernel_errors[("mha_fwd", bf16, 64, 197)]),
         "mha_bwd": ("csrc/mha_bwd.cu", "theia_tpu/ops/attention.py:60", kernel_errors[("mha_bwd", bf16, 16, 197)]),
@@ -3228,6 +3342,10 @@ def main() -> int:
         "bfloat16": {"ms": tb[0]["kernel"], "plain_ms": tb[0]["plain"], "library_ms": tb[0].get("library"),
                      "max_abs_err": teacher_run["errors"][("flash_fwd", bf16)], "bound_ms": tb[1], "bound_by": tb[2]},
     })
+    # K12 on phase 8's path: SAM-H's 28 window layers and 4 global ones a call, float32
+    rows.append({"name": "relpos_attn", "route": "cuda", "source": "theia_tpu_torch/csrc/relpos_attn.cu",
+                 "replaces": "theia_tpu/foundation/sam.py:55", "launches": teacher_run["launches"]["relpos_attn"],
+                 "dtype": "float32", **relpos_records["windows"], "global": relpos_records["global"]})
     stamp("phase 7")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

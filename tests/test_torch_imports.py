@@ -118,6 +118,7 @@ SLICE_MODULES = [
     "theia_tpu_torch.tools.time_adamw",
     "theia_tpu_torch.tools.time_ln_bwd",
     "theia_tpu_torch.tools.time_mha_bwd",
+    "theia_tpu_torch.tools.time_relpos_attn",
     "theia_tpu_torch.tools.time_serving",
     "theia_tpu_torch.tools.timing",
     "theia_tpu_torch.tools.two_rank_step",

@@ -314,13 +314,16 @@ def test_sam_encoder_matches_jax(window_size, global_idx):
 
 
 def test_sam_query_blocks_are_the_same_function():
-    """The global layers' attention in blocks of query rows equals one block."""
+    """The global layers' plain attention (``ops/attention.py``
+    ``relpos_attention_plain``) in blocks of query rows equals one block."""
+    from theia_tpu_torch.ops.attention import relpos_attention_plain
+
     rng = np.random.default_rng(18)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, 32), dtype=np.float32)) for _ in range(3))
     rh, rw = (torch.from_numpy(rng.standard_normal((15, 16), dtype=np.float32)) for _ in range(2))
-    whole = tsam._decomposed_attn(q, k, v, rh, rw, 2, 8, 8, torch.float32)
+    whole = relpos_attention_plain(q, k, v, rh, rw, 2, 8, 8, torch.float32)
     for block_bytes in (1, 2 * 2 * 64 * 4 * 5, 2 * 2 * 64 * 4 * 64):  # 1, 5 and 64 rows a block
-        torch.testing.assert_close(tsam._decomposed_attn(q, k, v, rh, rw, 2, 8, 8, torch.float32, block_bytes),
+        torch.testing.assert_close(relpos_attention_plain(q, k, v, rh, rw, 2, 8, 8, torch.float32, block_bytes),
                                    whole, atol=1e-6, rtol=0)
 
 

@@ -12,6 +12,12 @@ per-teacher key layout (:55-97):
   - facebook/dinov2:   {embedding, cls_token, pooled_cls_token}
   - llava:             {embedding [C,24,24]}
   - depth-anything:    {embedding interpolated to [32,64,64]}
+
+``extract_batch`` is one batch of ``scripts/feature_extraction.py``
+``extract_shard``: a uint8 host batch to the module's device, the features,
+both stores read back as bf16 host tensors, split into samples. It records
+the spans ``extract.batch`` around ``extract.stage`` (the copy to the
+device), ``extract.forward`` and ``extract.readback`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from torch import nn
 
 from theia_tpu_torch.ops.image import interpolate_nearest
+from theia_tpu_torch.utils.profiling import span
 
 
 # (name substring, model constructor, feature function) in the reference's
@@ -60,14 +67,17 @@ def get_model(
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).cpu()
+    return x.to(torch.bfloat16)
 
 
 def _nearest_nchw(x: torch.Tensor, size: int) -> torch.Tensor:
     return interpolate_nearest(x.permute(0, 2, 3, 1), size, size).permute(0, 3, 1, 2)
 
 
-@torch.inference_mode()
+def _to_host(features: dict[str, dict[str, torch.Tensor]]) -> dict[str, dict[str, torch.Tensor]]:
+    return {store: {k: v.cpu() for k, v in keys.items()} for store, keys in features.items()}
+
+
 def get_feature_outputs(
     model_name: str,
     module: nn.Module,
@@ -77,6 +87,17 @@ def get_feature_outputs(
     """Run one teacher batch -> {store_name: {key: bf16 CPU tensor}} with the
     reference's key layout (models.py:55-97). ``batch_images`` is uint8
     [B,H,W,3] on the module's device."""
+    return _to_host(device_feature_outputs(model_name, module, batch_images, feature_fn))
+
+
+@torch.inference_mode()
+def device_feature_outputs(
+    model_name: str,
+    module: nn.Module,
+    batch_images: torch.Tensor,
+    feature_fn: Optional[Callable] = None,
+) -> dict[str, dict[str, torch.Tensor]]:
+    """``get_feature_outputs`` with the bf16 features left on the module's device."""
     name = model_name.replace("/", "_")
     if feature_fn is None:
         feature_fn = _lookup(model_name)[1]
@@ -104,3 +125,27 @@ def get_feature_outputs(
     else:
         raise NotImplementedError(f"model {model_name} is not supported")
     return features
+
+
+def extract_batch(
+    model_name: str,
+    module: nn.Module,
+    host_images: torch.Tensor,
+    feature_fn: Optional[Callable] = None,
+    unit: Optional[int] = None,
+) -> list[dict[str, torch.Tensor]]:
+    """One extraction batch: uint8 host images [B,H,W,3] -> one dict a
+    sample of the teacher's own store ({key: bf16 CPU tensor}), what
+    ``extract_shard`` writes a sample. Every store, the ``_32`` one included,
+    is read back to the host before it returns. ``unit`` (the batch's index)
+    tags its spans."""
+    device = next(module.parameters()).device
+    with span("extract.batch", unit):
+        with span("extract.stage", unit):
+            images = host_images.to(device)
+        with span("extract.forward", unit):
+            features = device_feature_outputs(model_name, module, images, feature_fn)
+        with span("extract.readback", unit):
+            features = _to_host(features)
+    own = features[model_name.replace("/", "_")]
+    return [{k: v[j] for k, v in own.items()} for j in range(host_images.shape[0])]

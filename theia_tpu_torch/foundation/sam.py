@@ -9,12 +9,14 @@ bias-free conv neck to 256 channels. Parameter names are HF
 ``SamVisionEncoder``'s, so its state dict (or a ``SamModel``'s, whose
 ``vision_encoder.`` prefix is stripped) loads with ``strict=True``.
 
-The attention stays plain PyTorch: the decomposed rel-pos bias fits no
-kernel of the port. Its float32 scores are computed in blocks of query rows
-(``SCORE_BLOCK_BYTES`` a block): a global layer's whole score tensor is
-[B·16, 4096, 4096], 1 GiB an image, which at the extraction's default batch
-of 32 would not fit the card. Rows are independent, so the function is the
-same.
+The attention of both layer kinds is ``ops/attention.py``
+``relpos_attention``, which runs where the tensors are: on float32 CUDA
+tensors the hand-written kernel K12 (``csrc/relpos_attn.cu``), which adds
+the bias to the scores on chip and writes no score tensor; on the CPU, and
+in any other dtype, the plain version ``relpos_attention_plain``, which
+writes its float32 scores in blocks of query rows. Each layer's attention
+call is a span (``utils/profiling.py``), ``sam.attn.window`` or
+``sam.attn.global``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,11 +39,9 @@ from theia_tpu_torch.foundation.towers import (
     strip_prefix,
 )
 from theia_tpu_torch.models.vit import layer_norm
+from theia_tpu_torch.ops.attention import relpos_attention
 from theia_tpu_torch.ops.image import preprocess_images
-
-# float32 scores of one block of query rows, in bytes (a block's softmax
-# output doubles it)
-SCORE_BLOCK_BYTES = 1 << 30
+from theia_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,45 +65,19 @@ class SamVisionConfig:
 SAM_VIT_HUGE = SamVisionConfig()
 
 
-def _rel_index(size: int) -> np.ndarray:
-    """Static gather indices into a (2*size-1, hd) rel-pos table:
-    idx[i, j] = i - j + size - 1 (q_size == k_size path of HF get_rel_pos)."""
-    i = np.arange(size)[:, None]
-    j = np.arange(size)[None, :]
-    return (i - j + size - 1).astype(np.int32)
-
-
-def _decomposed_attn(q, k, v, rel_pos_h, rel_pos_w, num_heads: int, h: int, w: int, dtype: torch.dtype,
-                     block_bytes: int = SCORE_BLOCK_BYTES) -> torch.Tensor:
-    """Attention with decomposed relative position bias (HF SamVisionAttention).
-
-    q/k/v: [B', HW, C] where B' includes windows; h, w are the spatial dims.
-    Scores, the bias terms and the softmax in float32, probabilities cast to
-    ``dtype``, as the JAX function; query rows in blocks of at most
-    ``block_bytes`` of scores.
-    """
-    bp, hw, c = q.shape
-    hd = c // num_heads
-    scale = hd ** -0.5
-    qh, kh, vh = (y.reshape(bp, hw, num_heads, hd).transpose(1, 2) for y in (q, k, v))  # [B', n, HW, hd]
-    idx_h = torch.from_numpy(_rel_index(h).astype(np.int64)).to(q.device)
-    idx_w = torch.from_numpy(_rel_index(w).astype(np.int64)).to(q.device)
-    rh = rel_pos_h[idx_h].to(dtype).float()  # (h, h, hd)
-    rw = rel_pos_w[idx_w].to(dtype).float()  # (w, w, hd)
-    qs = qh.float().reshape(bp, num_heads, h, w, hd)
-    rel_h = torch.einsum("bnhwc,hkc->bnhwk", qs, rh).reshape(bp, num_heads, hw, h)
-    rel_w = torch.einsum("bnhwc,wkc->bnhwk", qs, rw).reshape(bp, num_heads, hw, w)
-    q_scaled = (qh * scale).float()
-    k_t = kh.float().transpose(-1, -2)
-    rows = max(1, min(hw, block_bytes // (bp * num_heads * hw * 4)))
-    out = torch.empty(bp, num_heads, hw, hd, dtype=v.dtype, device=v.device)
-    for r0 in range(0, hw, rows):
-        r1 = min(hw, r0 + rows)
-        s = torch.matmul(q_scaled[:, :, r0:r1], k_t).view(bp, num_heads, r1 - r0, h, w)
-        s.add_(rel_h[:, :, r0:r1, :, None]).add_(rel_w[:, :, r0:r1, None, :])
-        probs = torch.softmax(s.view(bp, num_heads, r1 - r0, hw), dim=-1).to(dtype)
-        out[:, :, r0:r1] = torch.matmul(probs, vh)
-    return out.transpose(1, 2).reshape(bp, hw, c)
+def _conv3x3(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The neck's 3x3 convolution, NCHW. In float32 cuDNN's TF32, which
+    PyTorch allows by default (``torch.backends.cudnn.allow_tf32``), is
+    switched off around it, so that a float32 encoder computes in float32 as
+    its matmuls do (TF32 matmuls are off by default); TF32 here moved SAM-H's
+    float32 embedding by ~3e-4 (rel L2) from the plain float32 reference."""
+    if x.dtype != torch.float32 or not torch.backends.cudnn.allow_tf32:
+        return F.conv2d(x, weight, padding=1)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return F.conv2d(x, weight, padding=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
 
 
 class _SamLayer(nn.Module):
@@ -142,9 +115,43 @@ class SamVisionEncoder(nn.Module):
         self.neck.conv2 = nn.Conv2d(oc, oc, 3, padding=1, bias=False)
         self.neck.layer_norm2 = ChannelLayerNorm(oc)
 
-    def forward(self, images: torch.Tensor, do_preprocess: bool = True) -> torch.Tensor:
+    def _attention(self, layer: _SamLayer, x: torch.Tensor, is_global: bool) -> torch.Tensor:
+        """A layer's attention branch on [B, g, g, C]: LayerNorm, the window
+        partition (the grid zero-padded to whole windows) unless the layer is
+        global, the attention, the projection and the unpartition. Each large
+        temporary is dropped once used, so that a layer holds at most one of
+        the projection's [B', T, 3C] at a time."""
         cfg, dt = self.cfg, self.dtype
         c, g, win = cfg.hidden_size, cfg.grid, cfg.window_size
+        b = x.shape[0]
+        pad = (win - g % win) % win
+        n = (g + pad) // win
+        h = layer_norm(x, layer.layer_norm1, dt)
+        if is_global:
+            size, h = g, h.reshape(b, g * g, c)
+        else:
+            h = F.pad(h, (0, 0, 0, pad, 0, pad))
+            size, h = win, h.reshape(b, n, win, n, win, c).transpose(2, 3).reshape(b * n * n, win * win, c)
+        qkv = dense(layer.attn.qkv, h, dt)
+        del h
+        with span("sam.attn.global" if is_global else "sam.attn.window"):
+            a = relpos_attention(qkv, layer.attn.rel_pos_h, layer.attn.rel_pos_w, cfg.num_heads, size)
+        del qkv
+        a = dense(layer.attn.proj, a, dt)
+        if is_global:
+            return a.reshape(b, g, g, c)
+        return a.reshape(b, n, n, win, win, c).transpose(2, 3).reshape(b, n * win, n * win, c)[:, :g, :g]
+
+    def _mlp(self, layer: _SamLayer, x: torch.Tensor) -> torch.Tensor:
+        """A layer's MLP branch: LayerNorm, lin1, exact GELU, lin2."""
+        dt = self.dtype
+        h = dense(layer.mlp["lin1"], layer_norm(x, layer.layer_norm2, dt), dt)
+        h = F.gelu(h, approximate="none")
+        return dense(layer.mlp["lin2"], h, dt)
+
+    def forward(self, images: torch.Tensor, do_preprocess: bool = True) -> torch.Tensor:
+        cfg, dt = self.cfg, self.dtype
+        c, g = cfg.hidden_size, cfg.grid
         if do_preprocess:
             # SamImageProcessor: longest edge -> 1024 (bilinear), rescale,
             # ImageNet normalize, pad to square (square inputs: plain resize)
@@ -157,35 +164,15 @@ class SamVisionEncoder(nn.Module):
         b = x.shape[0]
         proj = self.patch_embed["projection"]
         x = patchify(x, proj.weight, proj.bias, dt).reshape(b, g, g, c) + self.pos_embed.to(dt)
-
-        pad = (win - g % win) % win
-        gp = g + pad
-        nwin = gp // win
         for i, layer in enumerate(self.layers):
-            is_global = i in cfg.global_attn_indexes
-            size = g if is_global else win
-            h1 = layer_norm(x, layer.layer_norm1, dt)
-            if not is_global:
-                h1 = F.pad(h1, (0, 0, 0, pad, 0, pad))
-                h1 = h1.reshape(b, nwin, win, nwin, win, c).transpose(2, 3).reshape(b * nwin * nwin, win * win, c)
-            else:
-                h1 = h1.reshape(b, g * g, c)
-            q, k, v = dense(layer.attn.qkv, h1, dt).split(c, dim=-1)
-            a = _decomposed_attn(q, k, v, layer.attn.rel_pos_h, layer.attn.rel_pos_w, cfg.num_heads, size, size, dt)
-            a = dense(layer.attn.proj, a, dt)
-            if not is_global:
-                a = a.reshape(b, nwin, nwin, win, win, c).transpose(2, 3).reshape(b, gp, gp, c)[:, :g, :g]
-            else:
-                a = a.reshape(b, g, g, c)
-            x = x + a
-            h2 = F.gelu(dense(layer.mlp["lin1"], layer_norm(x, layer.layer_norm2, dt), dt), approximate="none")
-            x = x + dense(layer.mlp["lin2"], h2, dt)
+            x = x + self._attention(layer, x, i in cfg.global_attn_indexes)
+            x = x + self._mlp(layer, x)
 
         # neck: 1x1 conv -> LN2d -> 3x3 conv -> LN2d (all convs biasless)
         neck = self.neck
         x = F.linear(x, neck.conv1.weight[:, :, 0, 0].to(dt))
         x = neck.layer_norm1(x)
-        x = F.conv2d(x.permute(0, 3, 1, 2), neck.conv2.weight.to(dt), padding=1).permute(0, 2, 3, 1)
+        x = _conv3x3(x.permute(0, 3, 1, 2), neck.conv2.weight.to(dt)).permute(0, 2, 3, 1)
         return neck.layer_norm2(x)
 
 

@@ -22,7 +22,8 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(PACKAGE_DIR / "csrc" / name
-                for name in ("mha_fwd.cu", "mha_bwd.cu", "flash_attn.cu", "ln_bwd.cu", "fused_loss.cu", "adamw.cu"))
+                for name in ("mha_fwd.cu", "mha_bwd.cu", "flash_attn.cu", "ln_bwd.cu", "fused_loss.cu", "adamw.cu",
+                             "relpos_attn.cu"))
 HEADERS = tuple(PACKAGE_DIR / "csrc" / name for name in ("div_rn.cuh", "mma_bf16.cuh", "mma_tf32.cuh", "wgmma_bf16.cuh"))
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -142,6 +143,10 @@ def load() -> ctypes.CDLL:
             lib.theia_adamw_bias_corrections.restype = i32
             lib.theia_adamw_blocks_per_sm.argtypes = [i32, i32]
             lib.theia_adamw_blocks_per_sm.restype = i32
+            lib.theia_relpos_attn.argtypes = [ptr] * 6 + [i32] * 4 + [i64] * 7 + [f32, ptr]
+            lib.theia_relpos_attn.restype = i32
+            lib.theia_relpos_attn_blocks_per_sm.argtypes = [i32, ctypes.POINTER(i32)]
+            lib.theia_relpos_attn_blocks_per_sm.restype = i32
             lib.theia_cuda_error_string.argtypes = [i32]
             lib.theia_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -22,6 +22,12 @@ package's names:
     the rows' log-sum-exp;
   - "einsum": the plain forward on any device, differentiated by autograd.
 
+``relpos_attention`` is SAM's attention with its decomposed relative-position
+bias (``foundation/sam.py``), forward only: ``csrc/relpos_attn.cu`` (K12) on
+float32 CUDA tensors, ``relpos_attention_plain`` on CPU tensors and in other
+dtypes. It replaces no TPU kernel (the JAX package leaves that attention to
+XLA).
+
 Importing this module registers K1's and K7's forwards as the operators
 ``theia::mha_attention`` and ``theia::flash_attention`` (with shape
 functions for tracing): ``torch.export`` sees them in place of the ctypes
@@ -54,6 +60,7 @@ MHA_BWD_LAUNCHES = 0
 FLASH_FWD_LAUNCHES = 0
 FLASH_DKV_LAUNCHES = 0
 FLASH_DQ_LAUNCHES = 0
+RELPOS_ATTN_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -486,3 +493,103 @@ def multi_head_attention(
     if _flash_route(implementation, q.shape[1]):
         return flash_fwd(q, k, v)[0]
     return mha_fwd(q, k, v)
+
+
+def relpos_tables(q: torch.Tensor, rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The products of every query with every row of SAM's relative-position
+    tables: q [B, T, H, hd] (a view into a packed projection qualifies) and
+    the tables (2S - 1, hd) -> ph, pw [H, B*T, 2S - 1] in q's dtype, ph[h,
+    b*T + r, i] = q[b, r, h] . rel_pos_h[i]. One batched product each, over
+    heads, reading q in place."""
+    b, t, h, hd = q.shape
+    qh = q.reshape(b * t, h, hd).transpose(0, 1)
+    return tuple(torch.bmm(qh, tab.to(q.dtype).t().expand(h, hd, tab.shape[0])) for tab in (rel_pos_h, rel_pos_w))
+
+
+# float32 scores of one block of query rows in ``relpos_attention_plain``, in
+# bytes (a block's softmax output doubles it)
+SCORE_BLOCK_BYTES = 1 << 30
+
+
+def relpos_terms(qh: torch.Tensor, rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor, h: int, w: int,
+                 dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decomposed bias's two terms (HF ``add_decomposed_rel_pos``): q
+    [B', n, h*w, hd] and the (2S - 1, hd) tables -> rel_h [B', n, h*w, h] and
+    rel_w [B', n, h*w, w], float32, rel_h[.., (qy, qx), ky] = q .
+    rel_pos_h[qy - ky + h - 1]; the tables rounded to ``dtype`` first."""
+    bp, n, _, hd = qh.shape
+
+    def gathered(tab, size):
+        i = torch.arange(size, device=qh.device)
+        return tab[i[:, None] - i[None, :] + size - 1].to(dtype).float()  # (size, size, hd)
+
+    qs = qh.float().reshape(bp, n, h, w, hd)
+    rel_h = torch.einsum("bnhwc,hkc->bnhwk", qs, gathered(rel_pos_h, h)).reshape(bp, n, h * w, h)
+    rel_w = torch.einsum("bnhwc,wkc->bnhwk", qs, gathered(rel_pos_w, w)).reshape(bp, n, h * w, w)
+    return rel_h, rel_w
+
+
+def relpos_attention_plain(q, k, v, rel_pos_h, rel_pos_w, num_heads: int, h: int, w: int, dtype: torch.dtype,
+                           block_bytes: int = SCORE_BLOCK_BYTES) -> torch.Tensor:
+    """SAM's attention with decomposed relative-position bias in plain
+    PyTorch (HF ``SamVisionAttention``): q, k, v [B', h*w, C], B' counting
+    windows, over an h x w grid -> [B', h*w, C]. Scores, the bias terms and
+    the softmax in float32, probabilities cast to ``dtype``, as the JAX
+    function; query rows in blocks of at most ``block_bytes`` of scores: a
+    global layer's whole score tensor is [B'·16, 4096, 4096], 1 GiB an
+    image, which at the extraction's batch of 32 would not fit the card.
+    Rows are independent, so the function is the same.
+    """
+    bp, hw, c = q.shape
+    hd = c // num_heads
+    scale = hd ** -0.5
+    qh, kh, vh = (y.reshape(bp, hw, num_heads, hd).transpose(1, 2) for y in (q, k, v))  # [B', n, HW, hd]
+    rel_h, rel_w = relpos_terms(qh, rel_pos_h, rel_pos_w, h, w, dtype)
+    q_scaled = (qh * scale).float()
+    k_t = kh.float().transpose(-1, -2)
+    rows = max(1, min(hw, block_bytes // (bp * num_heads * hw * 4)))
+    out = torch.empty(bp, num_heads, hw, hd, dtype=v.dtype, device=v.device)
+    for r0 in range(0, hw, rows):
+        r1 = min(hw, r0 + rows)
+        s = torch.matmul(q_scaled[:, :, r0:r1], k_t).view(bp, num_heads, r1 - r0, h, w)
+        s.add_(rel_h[:, :, r0:r1, :, None]).add_(rel_w[:, :, r0:r1, None, :])
+        probs = torch.softmax(s.view(bp, num_heads, r1 - r0, hw), dim=-1).to(dtype)
+        out[:, :, r0:r1] = torch.matmul(probs, vh)
+    return out.transpose(1, 2).reshape(bp, hw, c)
+
+
+def relpos_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor, heads: int,
+                     side: int) -> torch.Tensor:
+    """SAM's attention with decomposed relative-position bias over a packed
+    QKV projection [B, T, 3*C] on a side x side grid (T = side²) -> [B, T, C].
+
+    On float32 CUDA tensors: K12 on the bias tables' products from
+    ``relpos_tables``; it raises on a failed launch, and for an input that
+    requires grad while grad is enabled (forward only). On CPU tensors and
+    in any other dtype: ``relpos_attention_plain``.
+    """
+    b, t, c3 = qkv.shape
+    if t != side * side or rel_pos_h.shape[0] != 2 * side - 1 or rel_pos_w.shape[0] != 2 * side - 1:
+        raise ValueError(f"relpos_attention needs T = side² and tables of 2 side - 1 rows, got T={t}, side={side}, "
+                         f"tables {tuple(rel_pos_h.shape)}, {tuple(rel_pos_w.shape)}")
+    if qkv.device.type != "cuda" or qkv.dtype != torch.float32:
+        return relpos_attention_plain(*qkv.split(c3 // 3, dim=-1), rel_pos_h, rel_pos_w, heads, side, side, qkv.dtype)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (qkv, rel_pos_h, rel_pos_w)):
+        raise RuntimeError("K12 does not differentiate its inputs; call relpos_attention under torch.no_grad()")
+    q, k, v = _split_heads(qkv, heads)
+    ph, pw = relpos_tables(q, rel_pos_h, rel_pos_w)
+    _check_kernel_inputs(q, k, v, max_t=None, what="relpos_attention")
+    if ph.stride() != pw.stride() or ph.stride(2) != 1:  # bmm's outputs are contiguous
+        raise ValueError(f"relpos_attention needs ph and pw alike with rows contiguous, got {ph.stride()}, "
+                         f"{pw.stride()}")
+    hd = q.shape[-1]
+    out = torch.empty((b, t, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    o = out.view(b, t, heads, hd)
+    _launch("theia_relpos_attn", qkv.device, f"relpos_attention for [{b}, {t}, {heads}, {hd}]",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ph.data_ptr(), pw.data_ptr(), o.data_ptr(),
+            b, heads, side, hd, *_outer_strides(q), *_outer_strides(o), ph.stride(0), t * ph.stride(1), ph.stride(1),
+            1.0 / math.sqrt(hd))
+    global RELPOS_ATTN_LAUNCHES
+    RELPOS_ATTN_LAUNCHES += 1
+    return out

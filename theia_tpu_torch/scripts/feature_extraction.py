@@ -123,22 +123,19 @@ def extract_shard(
     """Extract one image shard -> one feature shard on the module's device.
     Returns sample count."""
     from theia_tpu_torch.data.webdataset import ShardWriter, decode_image_npy, iter_samples, save_safetensors
-    from theia_tpu_torch.foundation.extraction import get_feature_outputs
+    from theia_tpu_torch.foundation.extraction import extract_batch
 
     legit = model_name.replace("/", "_")
     samples = [(k, decode_image_npy(f["image"])) for k, f in iter_samples(shard_path)]
     if dry_run:
         return len(samples)
-    device = next(module.parameters()).device
     writer = ShardWriter(out_path)
     count = 0
-    for i in range(0, len(samples), batch_size):
+    for n, i in enumerate(range(0, len(samples), batch_size)):
         batch = samples[i : i + batch_size]
-        images = torch.stack([b[1] for b in batch]).to(device)
-        feats = get_feature_outputs(model_name, module, images, feature_fn)
-        for j, (key, _) in enumerate(batch):
-            per_sample = {fk: fv[j] for fk, fv in feats[legit].items()}
-            writer.write(f"{key}.{legit}.safetensors", save_safetensors(per_sample))
+        per_sample = extract_batch(model_name, module, torch.stack([b[1] for b in batch]), feature_fn, unit=n)
+        for (key, _), features in zip(batch, per_sample):
+            writer.write(f"{key}.{legit}.safetensors", save_safetensors(features))
             count += 1
     writer.close()
     return count
